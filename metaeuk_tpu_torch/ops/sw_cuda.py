@@ -1,5 +1,6 @@
-"""Smith-Waterman pair alignment: wrappers over the CUDA kernels in
-csrc/sw_pair.cu, dispatched by the device of the tensors given.
+"""Smith-Waterman alignment: wrappers over the CUDA kernels in
+csrc/sw_pair.cu (pair-batched) and csrc/sw_qm.cu (query-major), dispatched
+by the device of the tensors given.
 
 - A CPU tensor goes to the plain PyTorch version (ops/sw_torch.py).
 - A CUDA tensor launches the kernel, or raises. There is no fallback.
@@ -8,7 +9,9 @@ Counterparts in the JAX package (metaeuk_tpu/ops/sw_pallas.py): sw_ends is
 sw_pallas_ends / _sw_pallas_ends_from_S over _build_S_gapped (K1), sw_starts
 is _sw_pallas_starts_from_S (K2), align_full is _align_full /
 _align_from_S. Batches need no padding to a tile multiple: the kernels run
-one thread per pair.
+one thread per pair. qm_ends and qm_starts are _align_ends_qm and
+_align_starts_qm over build_prof_tiles / build_tcodes_T (K3, K4): one query
+row per tile of TB = 128 target lanes, read from the staged matrices.
 
 LAUNCHES counts kernel launches and PLAIN_CALLS calls that went to the plain
 version, per kernel; reset_counts() sets both to zero.
@@ -22,7 +25,12 @@ import torch
 from . import _build, sw_torch
 from ..state import default_scoring
 
-KERNELS = ("sw_pair_ends", "sw_pair_starts")
+KERNELS = ("sw_pair_ends", "sw_pair_starts", "sw_qm_ends", "sw_qm_starts")
+# the .cu source (csrc/<name>.cu) of each kernel
+SOURCES = {"sw_pair_ends": "sw_pair", "sw_pair_starts": "sw_pair",
+           "sw_qm_ends": "sw_qm", "sw_qm_starts": "sw_qm"}
+# dynamic shared memory a block may hold on an H100 (the query profile)
+MAX_SMEM = 232448
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
@@ -36,6 +44,13 @@ _ARGTYPES = {
     # as above with q_end, t_end after t_len
     "sw_pair_starts": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _P, _P, _P, _P, _P],
+    # submat, alph, q_mat, qb_mat, q_lens, nq, Lq, t_mat, t_lens, nt, Lt,
+    # qidx, lj, n_tiles, go, ge, scratch, out x3, stream
+    "sw_qm_ends": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I,
+                   _I, _I, _P, _P, _P, _P, _P],
+    # as above with q_end, t_end after lj
+    "sw_qm_starts": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
+                     _P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 
@@ -47,7 +62,7 @@ def reset_counts():
 
 @functools.lru_cache(maxsize=None)
 def _kernel(name):
-    fn = getattr(_build.load("sw_pair"), name)
+    fn = getattr(_build.load(SOURCES[name]), name)
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
@@ -136,3 +151,80 @@ def align_full(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
     return sw_torch.align_full(q_enc, q_bias, q_len, t_enc, t_len,
                                scoring=scoring, ends=sw_ends,
                                starts=sw_starts)
+
+
+def _qm_inputs(scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,
+               *extra):
+    """Checks one CUDA device, the shapes and the profile's shared-memory
+    size; returns the kernel's contiguous operands."""
+    dev = q_mat.device
+    tensors = (q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, *extra,
+               scoring.submat)
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("sw kernels take tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    (nq, Lq), nt, nT = q_mat.shape, t_mat.shape[0], qidx.shape[0]
+    if (qb_mat.shape != (nq, Lq) or q_lens.shape != (nq,) or t_mat.dim() != 2
+            or t_lens.shape != (nt,) or qidx.dim() != 1
+            or any(v.shape != (nT * sw_torch.TB,) for v in (lj, *extra))):
+        raise ValueError("sw_qm kernels: shapes do not match staged (nq, Lq)"
+                         " x (nt, Lt) matrices and n_tiles x 128 lanes")
+    alph = scoring.submat.shape[0]
+    if scoring.submat.shape != (alph, alph) or alph > 32:
+        raise ValueError("sw kernels take a square substitution matrix of "
+                         "at most 32 classes")
+    if Lq * alph * 2 > MAX_SMEM:
+        raise ValueError(f"sw_qm kernels: a {Lq}-row query profile exceeds "
+                         "the shared memory of a block; use the pair kernels")
+    return (scoring.submat.to(torch.int32).contiguous(),
+            q_mat.to(torch.uint8).contiguous(),
+            qb_mat.to(torch.int8).contiguous(),
+            q_lens.to(torch.int32).contiguous(),
+            t_mat.to(torch.uint8).contiguous(),
+            t_lens.to(torch.int32).contiguous(),
+            qidx.to(torch.int32).contiguous(),
+            *(v.to(torch.int32).contiguous() for v in (lj, *extra)))
+
+
+def _qm_launch(name, scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx,
+               lj, *extra):
+    sub, q, qb, ql, t, tl, qi, *lanes = _qm_inputs(
+        scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, *extra)
+    (nq, Lq), (nt, Lt), nT = q.shape, t.shape, qi.shape[0]
+    dev = q_mat.device
+    scratch = torch.empty((nT, Lq, sw_torch.TB), dtype=torch.int32,
+                          device=dev)
+    outs = [torch.empty(nT * sw_torch.TB, dtype=torch.int32, device=dev)
+            for _ in range(3)]
+    _launch(name, [
+        sub.data_ptr(), sub.shape[0], q.data_ptr(), qb.data_ptr(),
+        ql.data_ptr(), nq, Lq, t.data_ptr(), tl.data_ptr(), nt, Lt,
+        qi.data_ptr(), *(v.data_ptr() for v in lanes), nT, scoring.go,
+        scoring.ge, scratch.data_ptr(), *(o.data_ptr() for o in outs)])
+    return tuple(outs)
+
+
+def qm_ends(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, scoring=None):
+    """Query-major forward ends (K3) of tile k's query row qidx[k] against
+    the target rows lj[k * 128:(k + 1) * 128] of the staged matrices:
+    (score, q_end, t_end), each (n_tiles * 128,) int32."""
+    scoring = scoring or default_scoring(q_mat.device)
+    if q_mat.device.type == "cpu":
+        PLAIN_CALLS["sw_qm_ends"] += 1
+        return sw_torch.qm_ends(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx,
+                                lj, scoring=scoring)
+    return _qm_launch("sw_qm_ends", scoring, q_mat, qb_mat, q_lens, t_mat,
+                      t_lens, qidx, lj)
+
+
+def qm_starts(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, q_end, t_end,
+              scoring=None):
+    """Query-major reverse-prefix starts (K4) from known per-lane ends:
+    (score, q_start, t_start), each (n_tiles * 128,) int32."""
+    scoring = scoring or default_scoring(q_mat.device)
+    if q_mat.device.type == "cpu":
+        PLAIN_CALLS["sw_qm_starts"] += 1
+        return sw_torch.qm_starts(q_mat, qb_mat, q_lens, t_mat, t_lens,
+                                  qidx, lj, q_end, t_end, scoring=scoring)
+    return _qm_launch("sw_qm_starts", scoring, q_mat, qb_mat, q_lens, t_mat,
+                      t_lens, qidx, lj, q_end, t_end)

@@ -1,12 +1,19 @@
 """Plain PyTorch Smith-Waterman ends and starts: the contract of the Pallas
 pair kernels, vectorised over pairs, one loop step per target column.
 
-These are the plain versions of the CUDA kernels in csrc/sw_pair.cu:
+These are the plain versions of the CUDA kernels in csrc/sw_pair.cu and
+csrc/sw_qm.cu:
 
 - sw_ends   <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel (K1)
 - sw_starts <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_rev (K2)
+- qm_ends   <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_qm (K3)
+- qm_starts <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_qm_rev (K4)
 
-Both score cell (i, j) as submat[q_i, t_j] + bias_i, with -128 on padded
+The pair versions take one query and one target row per pair; the
+query-major ones take staged (nq, Lq) / (nt, Lt) matrices, one query row per
+tile (qidx) and TB = 128 target rows per tile (lj), through the profile and
+lane-major target codes of build_prof_tiles / build_tcodes_T. All score cell
+(i, j) as submat[q_i, t_j] + bias_i, with -128 on padded
 query rows (i >= q_len) and padded target columns (j >= t_len), exactly as
 _build_S_gapped builds S. The column recurrence is the Pallas one: E starts
 at -go, H at 0, F is the running max over G down the column (torch.cummax),
@@ -25,6 +32,9 @@ same result.
 import torch
 
 from ..state import NEG, PAD_SCORE, SCORE_CAP, default_scoring
+
+TB = 128     # target lanes per query-major tile (sw_pallas.py TB)
+PCOLS = 32   # profile columns of a query-major tile (sw_pallas.py PCOLS)
 
 
 def _profile(scoring, q_enc, q_bias, q_len):
@@ -61,16 +71,10 @@ def _column(prof, tcls, j):
     return prof.gather(2, idx).squeeze(2)
 
 
-def sw_ends(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
-    """Forward ends: (score, q_end, t_end), each (B,) int32."""
-    scoring = scoring or default_scoring(q_enc.device)
+def _ends_loop(column, n_cols, B, Lq, Lq_full, scoring, dev):
+    """The forward recurrence over columns 0..n_cols-1; column(j) gives the
+    (B, Lq) int32 scores of column j (PAD_SCORE on padded cells)."""
     go, ge = scoring.go, scoring.ge
-    dev = q_enc.device
-    B, Lq_full = q_enc.shape
-    q_enc, q_bias, t_enc = _trim(q_enc, q_bias, q_len, t_enc, t_len)
-    Lq = q_enc.shape[1]
-    prof = _profile(scoring, q_enc, q_bias, q_len)
-    tcls = _target_classes(scoring, t_enc, t_len)
     rows = torch.arange(Lq, device=dev, dtype=torch.int32)
     igge = rows * ge
     f_base = -go - (rows - 1) * ge
@@ -82,8 +86,8 @@ def sw_ends(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
     best = torch.zeros(B, **i32)
     q_end = torch.full((B,), Lq_full - 1, **i32)
     t_end = torch.full((B,), -1, **i32)
-    for j in range(t_enc.shape[1]):
-        s = _column(prof, tcls, j)
+    for j in range(n_cols):
+        s = column(j)
         Hd = torch.cat([zero_row, H[:, :-1]], dim=1)
         G = torch.clamp_min(torch.maximum(Hd + s, E), 0)
         A = torch.cummax(G + igge, dim=1).values
@@ -98,17 +102,10 @@ def sw_ends(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
     return best, q_end, t_end
 
 
-def sw_starts(q_enc, q_bias, q_len, t_enc, t_len, q_end, t_end,
-              scoring=None):
-    """Reverse-prefix starts for pairs with known ends:
-    (score, q_start, t_start), each (B,) int32."""
-    scoring = scoring or default_scoring(q_enc.device)
+def _starts_loop(column, n_cols, B, Lq, q_end, t_end, scoring, dev):
+    """The reverse-prefix recurrence over columns n_cols-1..0, rows <= q_end
+    and columns <= t_end; column(j) as for _ends_loop."""
     go, ge = scoring.go, scoring.ge
-    dev = q_enc.device
-    q_enc, q_bias, t_enc = _trim(q_enc, q_bias, q_len, t_enc, t_len)
-    B, Lq = q_enc.shape
-    prof = _profile(scoring, q_enc, q_bias, q_len)
-    tcls = _target_classes(scoring, t_enc, t_len)
     rows = torch.arange(Lq, device=dev, dtype=torch.int32)
     q_mask = rows[None, :] <= q_end.to(torch.int32)[:, None]
     t_end = t_end.to(torch.int32)
@@ -122,9 +119,9 @@ def sw_starts(q_enc, q_bias, q_len, t_enc, t_len, q_end, t_end,
     best = torch.zeros(B, **i32)
     q_start = torch.zeros(B, **i32)
     t_start = torch.full((B,), -1, **i32)
-    for j in range(t_enc.shape[1] - 1, -1, -1):
+    for j in range(n_cols - 1, -1, -1):
         live = q_mask & (j <= t_end)[:, None]
-        s = torch.where(live, _column(prof, tcls, j), NEG)
+        s = torch.where(live, column(j), NEG)
         # the diagonal predecessor is one row below (i+1, j+1)
         Hd = torch.cat([H[:, 1:], zero_row], dim=1)
         G = torch.clamp_min(torch.maximum(Hd + s, E), 0)
@@ -140,6 +137,115 @@ def sw_starts(q_enc, q_bias, q_len, t_enc, t_len, q_end, t_end,
         t_start = torch.where(better, j, t_start)
         E = torch.maximum(E - ge, H - go)
     return best, q_start, t_start
+
+
+def sw_ends(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
+    """Forward ends: (score, q_end, t_end), each (B,) int32."""
+    scoring = scoring or default_scoring(q_enc.device)
+    B, Lq_full = q_enc.shape
+    q_enc, q_bias, t_enc = _trim(q_enc, q_bias, q_len, t_enc, t_len)
+    prof = _profile(scoring, q_enc, q_bias, q_len)
+    tcls = _target_classes(scoring, t_enc, t_len)
+    return _ends_loop(lambda j: _column(prof, tcls, j), t_enc.shape[1], B,
+                      q_enc.shape[1], Lq_full, scoring, q_enc.device)
+
+
+def sw_starts(q_enc, q_bias, q_len, t_enc, t_len, q_end, t_end,
+              scoring=None):
+    """Reverse-prefix starts for pairs with known ends:
+    (score, q_start, t_start), each (B,) int32."""
+    scoring = scoring or default_scoring(q_enc.device)
+    q_enc, q_bias, t_enc = _trim(q_enc, q_bias, q_len, t_enc, t_len)
+    B, Lq = q_enc.shape
+    prof = _profile(scoring, q_enc, q_bias, q_len)
+    tcls = _target_classes(scoring, t_enc, t_len)
+    return _starts_loop(lambda j: _column(prof, tcls, j), t_enc.shape[1], B,
+                        Lq, q_end, t_end, scoring, q_enc.device)
+
+
+def build_prof_tiles(q_mat, qb_mat, q_lens, qidx, scoring=None):
+    """Per-tile query profiles of the query-major kernels (sw_pallas.py
+    build_prof_tiles): (n_tiles, Lq, PCOLS) int32 from staged (nq, Lq)
+    codes and bias rows, submat[q_i, a] + bias_i on the first alph columns
+    of rows i < q_len, PAD_SCORE elsewhere; qidx < 0 marks a padding tile
+    (all PAD_SCORE)."""
+    scoring = scoring or default_scoring(q_mat.device)
+    Lq = q_mat.shape[1]
+    qidx = qidx.long()
+    valid_tile = qidx >= 0
+    qi = torch.clamp_min(qidx, 0)
+    prof = scoring.submat[q_mat[qi].long()] \
+        + qb_mat[qi].to(torch.int32)[:, :, None]          # (nT, Lq, alph)
+    prof = torch.nn.functional.pad(prof, (0, PCOLS - prof.shape[2]),
+                                   value=PAD_SCORE)
+    qlen = torch.where(valid_tile, q_lens[qi].to(torch.int32), 0)
+    iq = torch.arange(Lq, device=q_mat.device, dtype=torch.int32)
+    return torch.where((iq[None, :] < qlen[:, None])[:, :, None], prof,
+                       PAD_SCORE)
+
+
+def build_tcodes_T(t_mat, t_lens, lj, Lt_pad, scoring=None):
+    """Lane-major target codes of the query-major kernels (sw_pallas.py
+    build_tcodes_T): (Lt_pad, n_tiles * TB) int32 from staged (nt, Lt)
+    codes and lj (n_tiles, TB); padding positions and lanes with lj < 0
+    carry the pad class alph (the PAD_SCORE profile column)."""
+    scoring = scoring or default_scoring(t_mat.device)
+    pad_class = scoring.submat.shape[0]
+    lj = lj.long()
+    valid = lj >= 0
+    ljc = torch.clamp_min(lj, 0)
+    tc = t_mat[ljc].to(torch.int32)                      # (nT, TB, Lt)
+    tl = torch.where(valid, t_lens[ljc].to(torch.int32), 0)
+    if tc.shape[2] < Lt_pad:
+        tc = torch.nn.functional.pad(tc, (0, Lt_pad - tc.shape[2]))
+    jt = torch.arange(Lt_pad, device=t_mat.device, dtype=torch.int32)
+    tc = torch.where(jt[None, None, :] < tl[:, :, None], tc, pad_class)
+    return tc.reshape(-1, Lt_pad).T
+
+
+def _qm_setup(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, scoring):
+    """(column(j), n_cols, B, Lq) of the query-major plain versions, the
+    axes cut to the longest query row and target column in use."""
+    nT = qidx.shape[0]
+    B = nT * TB
+    prof = build_prof_tiles(q_mat, qb_mat, q_lens, qidx, scoring)
+    tc = build_tcodes_T(t_mat, t_lens, lj.reshape(nT, TB), t_mat.shape[1],
+                        scoring)
+    valid_q = qidx.long() >= 0
+    ql = q_lens[torch.clamp_min(qidx.long(), 0)][valid_q]
+    lq = max(1, min(prof.shape[1], int(ql.max()) if len(ql) else 1))
+    valid_t = lj.long() >= 0
+    tl = t_lens[torch.clamp_min(lj.long(), 0)][valid_t]
+    lt = max(1, min(tc.shape[0], int(tl.max()) if len(tl) else 1))
+    prof = prof[:, :lq]
+
+    def column(j):
+        # one query profile per tile, gathered at each lane's residue
+        idx = tc[j].view(nT, 1, TB).expand(nT, lq, TB).long()
+        return prof.gather(2, idx).transpose(1, 2).reshape(B, lq)
+    return column, lt, B, lq
+
+
+def qm_ends(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, scoring=None):
+    """Query-major forward ends (K3): (score, q_end, t_end), each
+    (n_tiles * TB,) int32, for tile k's query row qidx[k] against the targets
+    rows lj[k * TB:(k + 1) * TB] of the staged matrices."""
+    scoring = scoring or default_scoring(q_mat.device)
+    column, n_cols, B, Lq = _qm_setup(q_mat, qb_mat, q_lens, t_mat, t_lens,
+                                      qidx, lj, scoring)
+    return _ends_loop(column, n_cols, B, Lq, q_mat.shape[1], scoring,
+                      q_mat.device)
+
+
+def qm_starts(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, q_end, t_end,
+              scoring=None):
+    """Query-major reverse-prefix starts (K4) from known ends:
+    (score, q_start, t_start), each (n_tiles * TB,) int32."""
+    scoring = scoring or default_scoring(q_mat.device)
+    column, n_cols, B, Lq = _qm_setup(q_mat, qb_mat, q_lens, t_mat, t_lens,
+                                      qidx, lj, scoring)
+    return _starts_loop(column, n_cols, B, Lq, q_end, t_end, scoring,
+                        q_mat.device)
 
 
 def align_full(q_enc, q_bias, q_len, t_enc, t_len, scoring=None,

@@ -3,29 +3,31 @@ device.
 
 Counterpart of metaeuk_tpu/pipeline/predict.py: EasyPredict.run and
 predict_exons, the pipelined extract/prefilter/align path and the serial
-k-mer path, on the port's SearchDriver (search/driver.py) and an explicit
-`device`. Every host stage (ORF extraction, the k-mer prefilter, the chain
-DP, reduce and the writers) is metaeuk_tpu's, imported unchanged. The
-module-level helpers below are copied from metaeuk_tpu/pipeline/predict.py,
-which cannot be imported here because it imports jax through its driver;
-each names its origin.
+k-mer, ungapped (--prefilter-mode ungapped, the gapless scores on the
+device) and exhaustive paths, on the port's SearchDriver (search/driver.py)
+and an explicit `device`. The host stages (ORF extraction, the k-mer
+prefilter, the chain DP, reduce and the writers) are the port's own copies
+of metaeuk_tpu's modules. The module-level helpers below are copied from
+metaeuk_tpu/pipeline/predict.py; each names its origin.
 
-Not in this package yet: profile-DB targets and the ungapped prefilter.
+Not in this package yet: profile-DB targets and contig partitions.
 """
 
 import os
 
 import numpy as np
 
-from metaeuk_tpu.io.seqdb import SeqDB, DBTYPE_AA, DBTYPE_NUCL
-from metaeuk_tpu.ops.chain import PLUS
-from metaeuk_tpu.ops.orf import OrfExtractor
-from metaeuk_tpu.params import Params
-from metaeuk_tpu.pipeline.output import PredictionWriter
-from metaeuk_tpu.pipeline.reduce import reduce_redundancy
-from metaeuk_tpu.utils import log
-
+from .. import native
+from ..io import mmseqsdb
+from ..io.profiledb import DBTYPE_HMM_PROFILE, ProfileDB
+from ..io.seqdb import SeqDB, DBTYPE_AA, DBTYPE_NUCL
+from ..ops.chain import MINUS, PLUS, PotentialExon, Prediction
+from ..ops.orf import OrfExtractor
+from ..params import Params
 from ..search.driver import HIT_DTYPE, SearchDriver
+from ..utils import log, session
+from .output import PredictionWriter
+from .reduce import reduce_redundancy
 
 
 def format_seq_id(seq_id):
@@ -51,7 +53,6 @@ def format_evalue(e):
 def load_sequence_input(path, default_dbtype):
     """FASTA file or MMseqs sequence-DB path (copied from predict.py:44)."""
     if os.path.exists(f"{path}.dbtype"):
-        from metaeuk_tpu.io import mmseqsdb
         return mmseqsdb.read_seqdb(path)
     return SeqDB.from_fasta(path, default_dbtype)
 
@@ -60,8 +61,6 @@ def load_target_input(path):
     """FASTA, MMseqs sequence DB, or MMseqs HMM-profile DB (copied from
     predict.py:52)."""
     if os.path.exists(f"{path}.dbtype"):
-        from metaeuk_tpu.io import mmseqsdb
-        from metaeuk_tpu.io.profiledb import ProfileDB, DBTYPE_HMM_PROFILE
         if mmseqsdb.read_dbtype(path) == DBTYPE_HMM_PROFILE:
             return ProfileDB.from_db(path)
         db = mmseqsdb.read_seqdb(path)
@@ -128,8 +127,6 @@ def _chain_groups_batched(hits, idx_all, kc, kt, plus, cs, ce, tstart,
     unavailable (callers fall back to the per-group loop). Copied from
     predict.py:114."""
     import math
-    from metaeuk_tpu import native
-    from metaeuk_tpu.ops.chain import Prediction, MINUS
 
     # strand-contiguous subgroups in (contig, target, plus-before-minus)
     # order — exactly the reference's emission sequence for one round
@@ -184,8 +181,6 @@ def assemble_and_chain(hits, hit_contig, orf_locs, tot_aas, seqid_rounds, p):
     {contig_idx: [Prediction]} in the reference emission order. Copied
     from predict.py:161."""
     import math
-    from metaeuk_tpu import native
-    from metaeuk_tpu.ops.chain import PotentialExon, Prediction, MINUS
 
     n_orfs = len(orf_locs)
     orf_from = np.fromiter((l.from_pos for l in orf_locs), np.int64, n_orfs)
@@ -338,8 +333,7 @@ def _pipelined_extract_search(p, extractor, contigs, lo, hi, pref_fut,
     Returns (orf_locs, orf_aa, orf_contig, hits)."""
     import time as _time
     from concurrent.futures import ThreadPoolExecutor
-    from metaeuk_tpu.search.prefilter_kmer import (KmerPrefilter,
-                                                   log_prefilter_stats)
+    from ..search.prefilter_kmer import KmerPrefilter, log_prefilter_stats
 
     # contig-range bounds by residues (fragment yield tracks residue
     # count, and ranges must be contig-contiguous so fragment indices
@@ -464,8 +458,7 @@ class EasyPredict:
             else None
         if dp_ckpt and os.path.exists(f"{dp_ckpt}.dbtype"):
             with timer.stage("resume dp_predictions"):
-                from metaeuk_tpu.cli import _parse_dp_payload
-                from metaeuk_tpu.io import mmseqsdb
+                from ..cli import _parse_dp_payload
                 preds_per_contig = {
                     key: _parse_dp_payload(payload)
                     for key, payload in mmseqsdb.read_db(dp_ckpt) if payload}
@@ -476,8 +469,7 @@ class EasyPredict:
                                                       tmp_dir=tmp_dir)
             if dp_ckpt:
                 os.makedirs(tmp_dir, exist_ok=True)
-                from metaeuk_tpu.io import mmseqsdb
-                from metaeuk_tpu.pipeline.dpformat import predictions_payload
+                from .dpformat import predictions_payload
                 mmseqsdb.write_db(
                     dp_ckpt, ((ci, predictions_payload(preds_per_contig.get(ci, [])))
                               for ci in range(len(contigs))))
@@ -531,20 +523,9 @@ class EasyPredict:
         lo, hi = 0, len(contigs)
         timer = log.StageTimer()
         extractor = OrfExtractor(p)
-        from metaeuk_tpu.io.profiledb import ProfileDB
-        from metaeuk_tpu.utils import session
         if isinstance(targets, ProfileDB):
             raise NotImplementedError(
                 "profile-DB targets are not ported to metaeuk_tpu_torch yet")
-        if p.prefilter_mode == "ungapped":
-            raise NotImplementedError(
-                "the ungapped prefilter is not ported to metaeuk_tpu_torch "
-                "yet; use --prefilter-mode kmer or exhaustive")
-        # load (or build) the host library before the prefilter thread
-        # starts: native.get_lib returns None to a caller that races a
-        # load in progress on another thread
-        from metaeuk_tpu import native
-        native.get_lib()
         _resumable = tmp_dir and any(
             os.path.exists(os.path.join(tmp_dir, f))
             for f in ("search_hits.npy", "pref_pairs.npy"))
@@ -558,8 +539,7 @@ class EasyPredict:
         pref_fut = None
         if p.prefilter_mode == "kmer" and not _resumable:
             from concurrent.futures import ThreadPoolExecutor
-            from metaeuk_tpu.search.prefilter_kmer import \
-                ReferenceKmerPrefilter
+            from ..search.prefilter_kmer import ReferenceKmerPrefilter
             pref_key = (session.db_fingerprint(targets), repr(p),
                         p.min_diag_score,
                         os.environ.get("METAEUK_DIST_TMP"))
@@ -625,7 +605,7 @@ class EasyPredict:
                 with timer.stage("resume search_hits"):
                     hits = np.load(hits_ckpt)
                     log.info(f"resumed {hits_ckpt} ({len(hits)} hits)")
-            elif p.prefilter_mode == "kmer":
+            elif p.prefilter_mode in ("ungapped", "kmer"):
                 driver = mk_driver()
                 pairs_ckpt = os.path.join(tmp_dir,
                                           "pref_pairs.npy") \
@@ -635,13 +615,21 @@ class EasyPredict:
                     pairs = np.load(pairs_ckpt)
                     log.info(f"resumed {pairs_ckpt} ({len(pairs)} pairs)")
                 else:
-                    # the reference-default sensitivity-calibrated
-                    # prefilter (byte-parity candidates)
-                    from metaeuk_tpu.search.prefilter_kmer import \
-                        ReferenceKmerPrefilter
-                    pref = pref_fut.result() if pref_fut is not None \
-                        else ReferenceKmerPrefilter(p, targets,
-                                                    p.min_diag_score)
+                    if p.prefilter_mode == "ungapped":
+                        # gapless scores of every fragment x target pair
+                        # on the device (MetaEuk's GPU mode)
+                        from ..search.prefilter import UngappedPrefilter
+                        pref = UngappedPrefilter(p, targets,
+                                                 p.min_diag_score,
+                                                 device=self.device)
+                    else:
+                        # "kmer": the reference-default sensitivity-
+                        # calibrated prefilter (byte-parity candidates)
+                        from ..search.prefilter_kmer import \
+                            ReferenceKmerPrefilter
+                        pref = pref_fut.result() if pref_fut is not None \
+                            else ReferenceKmerPrefilter(p, targets,
+                                                        p.min_diag_score)
                     with timer.stage(f"{p.prefilter_mode} prefilter"):
                         pairs = pref.candidate_pairs(orf_aa)
                     if pairs_ckpt:

@@ -3,30 +3,40 @@
 Counterpart of metaeuk_tpu/search/driver.py SearchDriver.search (phases
 1-4): candidate (fragment, target) pairs are grouped by (Lq, Lt) length
 tier, gathered on the device from per-tier staged matrices, and aligned by
-the pair kernels (ops/sw_cuda.py): forward ends for every pair, the host
+the kernels of ops/sw_cuda.py: forward ends for every pair, the host
 E-value gate, then the reverse-prefix starts for the survivors only. The
 hit array is the JAX driver's, field for field.
 
-Every pair goes to the pair kernels, at any length up to max_seq_len: there
-is no query-major routing yet, and none of the TPU-link machinery (device
-result accumulators, prewarm, fixed launch shapes, uint16 result packs).
+Routing (driver.py _qm_mode, _split_qm and the gate of search()): a query
+with at least QM_MIN_CANDS candidates in its bucket goes to the query-major
+kernels (K3/K4, one query against tiles of TB = 128 target lanes), every
+other pair to the pair kernels (K1/K2). METAEUK_QM=off sends every pair to
+the pair kernels, METAEUK_QM=force routes by candidate count alone, and the
+default auto also needs the dense queries to carry at least
+max(100 000, pairs / 20) pairs, on every device. Queries longer than 4096
+stay on the pair kernels, which take any length, until the row-tiled
+query-major kernels (K5/K6) are ported; the JAX driver sends them to K5/K6,
+and its gate always opens when there is one, which this gate does not.
+There is none of the TPU-link machinery (device result accumulators,
+prewarm, fixed launch shapes, uint16 result packs).
 
 The jax-free host helpers of the JAX driver module are copied here, because
 that module imports jax at the top; each names its origin.
 """
 
+import os
 import threading
 import time
 
 import numpy as np
 import torch
 
-from metaeuk_tpu.data.submat import composition_bias_rounded_batch, encode_aa
-from metaeuk_tpu.search.evalue import EvalueComputation
-from metaeuk_tpu.utils import log
-
 from .. import state
+from ..data.submat import composition_bias_rounded_batch, encode_aa
 from ..ops import sw_cuda
+from ..ops.sw_torch import TB
+from ..utils import log
+from .evalue import EvalueComputation
 
 # copied from metaeuk_tpu/search/driver.py:27 (HIT_DTYPE)
 HIT_DTYPE = np.dtype([
@@ -57,6 +67,30 @@ PHASE_SECONDS = {}
 # profile, so its launches stay small.
 CELL_BUDGET = {"cuda": 1 << 32, "cpu": 1 << 27}
 MAX_PAIRS_PER_LAUNCH = 1 << 16
+
+# minimum candidate-list length for a query to take the query-major
+# kernels (driver.py:143): below this, padding each query's candidates to
+# TB = 128 lanes wastes more than the pair kernels cost
+QM_MIN_CANDS = int(os.environ.get("METAEUK_QM_MIN", "48"))
+# query-major DP cells per launch (tiles * TB * Lq * Lt_pad), by device
+# type. A CUDA launch runs one block of 128 threads per tile and holds 4 B of
+# H/E scratch per (tile, row, lane), so it needs a thousand tiles or more to
+# fill an H100; the plain CPU version keeps the pair launches' budget.
+QM_CELL_BUDGET = {"cuda": 1 << 35, "cpu": 1 << 27}
+# longest query row the query-major kernels take here (the JAX driver sends
+# longer ones to the row-tiled K5/K6, not ported yet)
+QM_MAX_LQ = 4096
+
+
+def _qm_mode():
+    """Whether the query-major kernels may take dense queries, and whether
+    the gate of search() applies (driver.py:149): METAEUK_QM=off disables
+    them, force skips the gate, auto (the default) applies it on every
+    device."""
+    m = os.environ.get("METAEUK_QM", "auto")
+    if m == "off":
+        return False, False
+    return True, m != "force"
 
 # fragment count from which the x2 length tiers are used (driver.py:90)
 FINE_TIER_MIN_FRAGS = 400000
@@ -120,6 +154,33 @@ def estimate_seq_id(score, q_aln_len, t_aln_len):
     est = ((score.astype(np.float32) / m).astype(np.float64)
            * 0.1656 + 0.1141).astype(np.float32)
     return np.clip(est, np.float32(0.0), np.float32(1.0))
+
+
+def _make_qm_tiles(li_sel, lj_sel, pair_rows):
+    """Group candidate pairs by staged query row into TB-lane tiles
+    (copied from driver.py:452). Returns (qidx (nT,), lj (nT, TB),
+    lane_pair (nT, TB)) with -1 lane padding; lane_pair maps lanes back to
+    global pair rows."""
+    order = np.argsort(li_sel, kind="stable")
+    sorted_li = li_sel[order]
+    n = len(order)
+    starts = np.concatenate([[0], np.flatnonzero(np.diff(sorted_li)) + 1])
+    group_of = np.cumsum(np.diff(sorted_li) != 0)
+    group_of = np.concatenate([[0], group_of])
+    pos = np.arange(n) - starts[group_of]
+    tiles_per_group = (np.diff(np.concatenate([starts, [n]]))
+                       + TB - 1) // TB
+    tile_base = np.concatenate([[0], np.cumsum(tiles_per_group)[:-1]])
+    tile = tile_base[group_of] + pos // TB
+    lane = pos % TB
+    n_tiles = int(tiles_per_group.sum())
+    qidx = np.empty(n_tiles, np.int32)
+    qidx[tile] = sorted_li
+    ljs = np.full((n_tiles, TB), -1, np.int32)
+    prs = np.full((n_tiles, TB), -1, np.int64)
+    ljs[tile, lane] = lj_sel[order]
+    prs[tile, lane] = pair_rows[order]
+    return qidx, ljs, prs
 
 
 def query_tiers_np(orfs_enc, orf_lens, biases, fine):
@@ -246,14 +307,58 @@ class SearchDriver:
                 outs = sw_cuda.sw_starts(*args, qe, te, scoring=self.scoring)
             yield r, outs
 
+    def _split_qm(self, ctx, rows, li_rows, qm_on):
+        """Route each candidate pair to the query-major kernels (queries with
+        >= QM_MIN_CANDS candidates in this bucket) or the pair kernels
+        (driver.py:950). Returns (qm_rows, pair_rows). Queries longer than
+        QM_MAX_LQ stay on the pair kernels."""
+        if not qm_on or not len(rows) or ctx["Lq"] > QM_MAX_LQ:
+            return rows[:0], rows
+        counts = np.bincount(li_rows, minlength=ctx["nq"])
+        m = counts[li_rows] >= QM_MIN_CANDS
+        return rows[m], rows[~m]
+
+    def _qm_chunks(self, ctx, rows, oi, ti, ends):
+        """Tile `rows` by query (driver.py _submit_qm :1028) and launch the
+        query-major forward kernel (ends None) or the reverse one (ends =
+        host (qe, te) arrays); yields (lane -> pair row map, -1 on padding
+        lanes; device outputs) per chunk of tiles."""
+        if not len(rows):
+            return
+        dev = self.device
+        Lq, Lt = ctx["Lq"], ctx["Lt"]
+        Lt_pad = Lt if Lt <= 512 else ((Lt + 511) // 512) * 512
+        qidx, ljt, lane_pair = _make_qm_tiles(
+            ctx["q_remap"][oi[rows]], ctx["t_remap"][ti[rows]], rows)
+        budget = QM_CELL_BUDGET.get(dev.type, QM_CELL_BUDGET["cpu"])
+        cap = max(8, budget // (Lq * Lt_pad * TB))
+        for s in range(0, len(qidx), cap):
+            lanes = lane_pair[s:s + cap].reshape(-1)
+            args = (ctx["q_mat"], ctx["qb_mat"], ctx["q_lens"], ctx["t_mat"],
+                    ctx["t_lens"], torch.from_numpy(qidx[s:s + cap]).to(dev),
+                    torch.from_numpy(ljt[s:s + cap].reshape(-1)).to(dev))
+            if ends is None:
+                outs = sw_cuda.qm_ends(*args, scoring=self.scoring)
+            else:
+                ok = lanes >= 0
+                qe = np.zeros(len(lanes), np.int32)
+                te = np.zeros(len(lanes), np.int32)
+                qe[ok], te[ok] = ends[0][lanes[ok]], ends[1][lanes[ok]]
+                outs = sw_cuda.qm_starts(*args, torch.from_numpy(qe).to(dev),
+                                         torch.from_numpy(te).to(dev),
+                                         scoring=self.scoring)
+            yield lanes, outs
+
     @staticmethod
     def _fetch(parts, which):
         """Concatenate output `which[k]` of every part on the device and copy
-        it to the host in one transfer: (rows, [np.int32 array per k])."""
+        it to the host in one transfer; drop padding lanes (row -1):
+        (rows, [np.int32 array per k])."""
         rows = np.concatenate([r for r, _ in parts])
         outs = [torch.cat([o[k] for _, o in parts]).cpu().numpy()
                 for k in which]
-        return rows, outs
+        ok = rows >= 0
+        return rows[ok], [o[ok] for o in outs]
 
     def search(self, orf_aa_seqs, pair_generator=None):
         """Align fragments; returns a HIT_DTYPE array sorted per fragment.
@@ -294,6 +399,14 @@ class SearchDriver:
         lq_b = _bucket_arr(orf_lens, self._fine)[oi]
         lt_b = _bucket_arr(self.target_lens, self._fine)[ti]
         n_pairs = len(oi)
+        qm_on, gated = _qm_mode()
+        if qm_on and gated:
+            # the query-major path pays only when a meaningful share of the
+            # pairs belongs to dense-candidate queries (driver.py:710-720)
+            cand_counts = np.bincount(oi, minlength=n_orfs)
+            qm_share = int(cand_counts[cand_counts >= QM_MIN_CANDS].sum())
+            if qm_share < max(100_000, n_pairs // 20):
+                qm_on = False
         mark("prep")
 
         # ---- phase 1: forward ends for every pair, bucket by bucket ----
@@ -304,12 +417,17 @@ class SearchDriver:
             qt, tst = q_tiers[int(Lq)], self._target_tier(Lt)
             ctx = dict(Lq=Lq, Lt=Lt, sel=sel, q_mat=qt["q_mat"],
                        qb_mat=qt["qb_mat"], q_lens=qt["q_lens"],
-                       q_remap=qt["q_remap"], t_mat=tst["t_mat"],
+                       q_remap=qt["q_remap"], nq=qt["nq"], t_mat=tst["t_mat"],
                        t_lens=tst["t_lens"], t_remap=tst["t_remap"])
             buckets.append(ctx)
-            for r, outs in self._launch_chunks(ctx, sel, oi, ti, None):
+            qm_rows, pair_rows = self._split_qm(
+                ctx, sel, qt["q_remap"][oi[sel]], qm_on)
+            for r, outs in self._launch_chunks(ctx, pair_rows, oi, ti, None):
                 fwd_parts.append((r, outs))
                 prog.update(len(r))
+            for lanes, outs in self._qm_chunks(ctx, qm_rows, oi, ti, None):
+                fwd_parts.append((lanes, outs))
+                prog.update(int((lanes >= 0).sum()))
         prog.finish()
         mark("fwd_submit")
 
@@ -345,8 +463,12 @@ class SearchDriver:
         rev_parts = []
         for ctx in buckets:
             rows_s = ctx["sel"][surv[ctx["sel"]]]
-            rev_parts.extend(self._launch_chunks(ctx, rows_s, oi, ti,
+            qm_rows, pair_rows = self._split_qm(
+                ctx, rows_s, ctx["q_remap"][oi[rows_s]], qm_on)
+            rev_parts.extend(self._launch_chunks(ctx, pair_rows, oi, ti,
                                                  (qe_all, te_all)))
+            rev_parts.extend(self._qm_chunks(ctx, qm_rows, oi, ti,
+                                             (qe_all, te_all)))
         mark("rev_submit")
         if rev_parts:
             rows, (qs, ts) = self._fetch(rev_parts, (1, 2))

@@ -1,8 +1,8 @@
 """State the alignment slice carries across from the JAX package.
 
 The path holds no learned parameters. What it needs on the device is the
-scoring scheme — the substitution matrix (metaeuk_tpu/data/submat.py
-BLOSUM62_SCORES) and the gap costs and score cap of the Pallas kernels
+scoring scheme — the substitution matrix (BLOSUM62_SCORES of the port's copy
+of metaeuk_tpu/data/submat.py) and the gap costs and score cap of the Pallas kernels
 (metaeuk_tpu/ops/sw_pallas.py GO, GE, SCORE_CAP) — and the per-length-tier
 matrices that SearchDriver stages once per fragment list and target set
 (metaeuk_tpu/search/driver.py _query_stage, _target_tier).
@@ -14,7 +14,7 @@ import functools
 import numpy as np
 import torch
 
-from metaeuk_tpu.data.submat import BLOSUM62_SCORES
+from .data.submat import BLOSUM62_SCORES
 
 GO = 11            # gap open (sw_pallas.py GO)
 GE = 1             # gap extend (sw_pallas.py GE)

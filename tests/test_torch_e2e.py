@@ -110,11 +110,6 @@ def test_exhaustive_prefilter_mode_matches_jax(tmp_path):
             == (tmp_path / f"jax.{s}").read_bytes(), s
 
 
-def test_ungapped_prefilter_is_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="ungapped"):
-        _run(tmp_path / "p", Params(prefilter_mode="ungapped"))
-
-
 def test_checkpointed_run_resumes_to_the_same_bytes(tmp_path, capfd):
     tmp = tmp_path / "tmp"
     for name in ("first", "resumed"):

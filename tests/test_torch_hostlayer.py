@@ -1,0 +1,166 @@
+"""The port's own host layer against metaeuk_tpu's.
+
+Each copied module stays its original apart from a one-line origin note (and,
+in two modules, the branches that wait for code the port lacks); the
+loader builds and loads the port's host library once, under a lock; the
+CLI helpers map flags to the same Params.
+"""
+
+import argparse
+import dataclasses
+import difflib
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from metaeuk_tpu import cli as jax_cli
+from metaeuk_tpu.io.seqdb import DBTYPE_AA, DBTYPE_NUCL, SeqDB
+from metaeuk_tpu.ops.orf import OrfExtractor
+from metaeuk_tpu.params import Params as JaxParams
+from metaeuk_tpu.search import prefilter_kmer as jax_prefilter_kmer
+from metaeuk_tpu.search.evalue import EvalueComputation as JaxEvalue
+from metaeuk_tpu_torch import cli, native
+from metaeuk_tpu_torch.params import Params
+from metaeuk_tpu_torch.search import evalue, prefilter_kmer
+
+ROOT = pathlib.Path(__file__).parent.parent
+DATA = ROOT / "tests" / "data"
+COPIES = ["params.py", "utils/log.py", "utils/session.py", "io/fasta.py",
+          "io/seqdb.py", "io/mmseqsdb.py", "io/zstdio.py", "io/profiledb.py",
+          "data/submat.py", "data/gencode.py", "data/vtml80.py",
+          "ops/orf.py", "ops/chain.py", "ops/masker.py",
+          "pipeline/output.py", "pipeline/reduce.py",
+          "pipeline/dpformat.py"]
+# copies whose one branch waits for a ROADMAP item, with the lines it drops
+WAITING = {"search/evalue.py": "gumbel", "search/prefilter_kmer.py": "jax"}
+
+
+def _changed(rel):
+    """(lines only in the original, lines only in the copy), the copy's
+    leading origin note left out."""
+    orig = (ROOT / "metaeuk_tpu" / rel).read_text().splitlines()
+    copy = (ROOT / "metaeuk_tpu_torch" / rel).read_text().splitlines()
+    assert copy[0].startswith(f"# Copy of metaeuk_tpu/{rel};")
+    while copy[0].startswith("#"):
+        copy = copy[1:]
+    diff = list(difflib.ndiff(orig, copy))
+    return ([d[2:] for d in diff if d.startswith("- ")],
+            [d[2:] for d in diff if d.startswith("+ ")])
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_is_its_original(rel):
+    assert _changed(rel) == ([], [])
+
+
+@pytest.mark.parametrize("rel", sorted(WAITING))
+def test_waiting_copy_differs_only_in_its_branch(rel):
+    gone, added = _changed(rel)
+    assert any(WAITING[rel] in line for line in gone)
+    assert len(gone) <= 13 and len(added) <= 5
+    assert any("NotImplementedError" in line for line in added)
+    assert not any("import" in line for line in added)
+
+
+def test_evalues_match_and_non_default_scoring_waits():
+    scores = np.arange(0, 200, 7, dtype=np.float64)
+    lens = np.full(len(scores), 150.0)
+    from metaeuk_tpu_torch.data.submat import BLOSUM62_PBACK, BLOSUM62_SCORES
+    port = evalue.EvalueComputation.for_scoring(1e6, BLOSUM62_SCORES,
+                                                BLOSUM62_PBACK, 11, 1)
+    np.testing.assert_array_equal(port.compute_evalue(scores, lens),
+                                  JaxEvalue(1e6).compute_evalue(scores, lens))
+    with pytest.raises(NotImplementedError, match="M8"):
+        evalue.EvalueComputation.for_scoring(1e6, BLOSUM62_SCORES,
+                                             BLOSUM62_PBACK, 10, 1)
+
+
+def _fixture_fragments():
+    contigs = SeqDB.from_fasta(DATA / "contigs.fna", DBTYPE_NUCL)
+    ex = OrfExtractor(JaxParams())
+    frags = []
+    for ci in range(len(contigs)):
+        _, f = ex.extract_contig(contigs.seq_bytes(ci), ci)
+        frags.extend(ex.translate_fragments(f))
+    return frags
+
+
+def test_target_split_prefilter_matches_jax_and_dist_split_waits(
+        monkeypatch):
+    targets = SeqDB.from_fasta(DATA / "proteins.faa", DBTYPE_AA)
+    frags = _fixture_fragments()
+    p = Params(split=2)
+    ref = jax_prefilter_kmer.ReferenceKmerPrefilter(
+        JaxParams(split=2), targets).candidate_pairs(frags)
+    got = prefilter_kmer.ReferenceKmerPrefilter(p, targets).candidate_pairs(
+        frags)
+    assert len(ref) > 0
+    np.testing.assert_array_equal(ref, got)
+    monkeypatch.setenv("METAEUK_DIST_TMP", "/nonexistent")
+    with pytest.raises(NotImplementedError, match="M9"):
+        prefilter_kmer.ReferenceKmerPrefilter(p, targets)
+
+
+_LOADER_RUN = r"""
+import sys, threading
+sys.modules["metaeuk_tpu"] = None
+from metaeuk_tpu_torch import native
+got = []
+barrier = threading.Barrier(8)
+def ask():
+    barrier.wait()
+    got.append(native.get_lib())
+threads = [threading.Thread(target=ask) for _ in range(8)]
+for t in threads: t.start()
+for t in threads: t.join()
+assert len(got) == 8 and got[0] is not None, got
+assert all(g is got[0] for g in got)
+print(got[0]._name)
+"""
+
+
+def test_loader_is_thread_safe_and_builds_into_the_package():
+    """Eight threads ask for the library at once in a fresh process: every
+    one gets the same loaded library, from metaeuk_tpu_torch/build/."""
+    res = subprocess.run([sys.executable, "-c", _LOADER_RUN], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert res.returncode == 0, res.stderr[-3000:]
+    path = pathlib.Path(res.stdout.strip())
+    assert path == native.library_path()
+    assert path.parent == ROOT / "metaeuk_tpu_torch" / "build"
+    assert path.name.startswith("libmetaeuk_host-")
+
+
+def test_native_chain_dp_matches_python():
+    from metaeuk_tpu_torch.pipeline.predict import _chain_dp_py
+    rng = np.random.default_rng(0)
+    n = 12
+    cs = np.sort(rng.integers(0, 3000, n))
+    ce = cs + rng.integers(30, 300, n)
+    ts = np.sort(rng.integers(0, 200, n))
+    te = ts + rng.integers(10, 60, n)
+    bit = rng.integers(20, 90, n)
+    aa = (ce - cs + 1) // 3
+    p = Params()
+    got = native.chain_dp(cs, ce, ts, te, bit, aa, 250, p)
+    ref = _chain_dp_py(cs, ce, ts, te, bit, aa, 250, p)
+    np.testing.assert_array_equal(got[0], ref[0])
+    assert got[2:] == ref[2:]
+
+
+@pytest.mark.parametrize("argv", [[], ["--prefilter-mode", "ungapped",
+                                       "--max-seqs", "50", "-e", "0.5",
+                                       "--split-memory-limit", "4G",
+                                       "--comp-bias-corr", "0"]])
+def test_cli_flags_map_to_the_same_params(argv):
+    parsed = []
+    for mod in (jax_cli, cli):
+        ap = argparse.ArgumentParser()
+        mod._add_predict_flags(ap)
+        parsed.append(mod._params_from_args(ap.parse_args(argv)))
+    assert dataclasses.asdict(parsed[0]) == dataclasses.asdict(parsed[1])

@@ -1,55 +1,102 @@
-"""metaeuk_tpu_torch imports no jax: the machine with the GPU has none."""
+"""metaeuk_tpu_torch imports neither jax nor metaeuk_tpu: the machine with the
+GPU has no jax, and the port keeps its own copy of every host module."""
 
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).parent.parent
 PKG = ROOT / "metaeuk_tpu_torch"
+# an import of the JAX package or of one of its modules (not of the port)
+JAX_PACKAGE_IMPORT = re.compile(
+    r"^\s*(from\s+metaeuk_tpu(\.\S+)?\s+import|import\s+metaeuk_tpu(\.|\s|$))",
+    re.M)
 
 _BLOCKED_RUN = r"""
-import sys
-# an interpreter may import jax at start-up: drop it, then block it
-for name in [k for k in sys.modules if k.split(".")[0].startswith("jax")]:
+import hashlib, json, sys
+# an interpreter may import jax at start-up: drop it, then block it and the
+# JAX package
+for name in [k for k in sys.modules
+             if k.split(".")[0].startswith("jax")
+             or k.split(".")[0] == "metaeuk_tpu"]:
     del sys.modules[name]
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
+sys.modules["metaeuk_tpu"] = None
 
 import metaeuk_tpu_torch.cli
 import metaeuk_tpu_torch.pipeline.predict
+from metaeuk_tpu_torch.params import Params
 from metaeuk_tpu_torch.pipeline.predict import EasyPredict
 
-data, golden, out = sys.argv[1:4]
-EasyPredict(device="cpu").run(f"{data}/contigs.fna", f"{data}/proteins.faa",
-                              out)
-for s in ("fas", "codon.fas", "headersMap.tsv", "gff"):
-    with open(f"{out}.{s}", "rb") as a, \
-            open(f"{golden}/easypredict.{s}", "rb") as b:
-        assert a.read() == b.read(), s
-loaded = [k for k, v in sys.modules.items()
-          if v is not None and k.split(".")[0].startswith("jax")]
+data, golden, out, mode = sys.argv[1:5]
+EasyPredict(Params(prefilter_mode=mode), device="cpu").run(
+    f"{data}/contigs.fna", f"{data}/proteins.faa", out)
+suffixes = ("fas", "codon.fas", "headersMap.tsv", "gff")
+if mode == "kmer":
+    for s in suffixes:
+        with open(f"{out}.{s}", "rb") as a, \
+                open(f"{golden}/easypredict.{s}", "rb") as b:
+            assert a.read() == b.read(), s
+else:
+    with open(f"{golden}/ungapped_slice.json") as f:
+        want = json.load(f)["fixture"]["sha256"]
+    for s in suffixes:
+        with open(f"{out}.{s}", "rb") as a:
+            assert hashlib.sha256(a.read()).hexdigest() == want[s], s
+loaded = [k for k, v in sys.modules.items() if v is not None and (
+    k.split(".")[0].startswith("jax") or k.split(".")[0] == "metaeuk_tpu")]
 assert not loaded, loaded
-for mod in ("metaeuk_tpu.search.driver", "metaeuk_tpu.pipeline.predict",
-            "metaeuk_tpu.ops.sw_pallas", "metaeuk_tpu.ops.sw_jax"):
-    assert mod not in sys.modules, mod
 print("jax-free run ok")
 """
 
 
-def test_no_jax_import_in_port_sources():
+def _sources():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 8
-    for f in files:
+    assert len(files) > 30
+    return files
+
+
+def test_no_jax_import_in_port_sources():
+    for f in _sources():
         text = f.read_text()
         assert "import jax" not in text and "from jax" not in text, f
 
 
-def test_port_runs_with_jax_blocked(tmp_path):
+def test_no_jax_package_import_in_port_sources():
+    for f in _sources():
+        hit = JAX_PACKAGE_IMPORT.search(f.read_text())
+        assert hit is None, (f, hit and hit.group(0))
+
+
+def test_import_pattern_catches_the_jax_package_only():
+    for line in ("from metaeuk_tpu.io.seqdb import SeqDB",
+                 "    from metaeuk_tpu import native",
+                 "import metaeuk_tpu.search.driver as d", "import metaeuk_tpu"):
+        assert JAX_PACKAGE_IMPORT.search(line), line
+    for line in ("from metaeuk_tpu_torch.ops import sw_cuda",
+                 "import metaeuk_tpu_torch.cli", "from .io import seqdb",
+                 "# copied from metaeuk_tpu/search/driver.py"):
+        assert not JAX_PACKAGE_IMPORT.search(line), line
+
+
+def _blocked_run(tmp_path, mode):
     res = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN, str(ROOT / "tests" / "data"),
-         str(ROOT / "tests" / "golden"), str(tmp_path / "preds")],
+         str(ROOT / "tests" / "golden"), str(tmp_path / "preds"), mode],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
         env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert res.returncode == 0, res.stderr[-3000:]
     assert "jax-free run ok" in res.stdout
+
+
+def test_port_runs_with_jax_blocked(tmp_path):
+    """The k-mer fixture run with jax and metaeuk_tpu blocked."""
+    _blocked_run(tmp_path, "kmer")
+
+
+def test_ungapped_port_runs_with_jax_blocked(tmp_path):
+    """The ungapped fixture run with jax and metaeuk_tpu blocked."""
+    _blocked_run(tmp_path, "ungapped")

@@ -1,0 +1,181 @@
+"""The port's gapless scores and ungapped prefilter (metaeuk_tpu_torch) against
+the JAX package.
+
+The plain gapless version (what the wrapper runs on a CPU tensor) is held to
+metaeuk_tpu/ops/ungapped.py's XLA scan and to its Pallas kernel in
+interpret mode; the port's UngappedPrefilter to the JAX package's, pair
+array for pair array. Every output is an integer: the tolerance is exact
+equality. The CUDA kernel is held to the plain version on the card (marker
+gpu).
+"""
+
+import pathlib
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from metaeuk_tpu.io.seqdb import DBTYPE_AA, DBTYPE_NUCL, SeqDB
+from metaeuk_tpu.ops.orf import OrfExtractor
+from metaeuk_tpu.ops.ungapped import gapless_scores, gapless_scores_xla
+from metaeuk_tpu.params import Params
+from metaeuk_tpu.search.prefilter import UngappedPrefilter as JaxPrefilter
+from metaeuk_tpu_torch.ops import ungapped_cuda, ungapped_torch
+from metaeuk_tpu_torch.search import prefilter
+
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+ROOT = pathlib.Path(__file__).parent.parent
+DATA = ROOT / "tests" / "data"
+
+
+def _pairs(seed, B, Lq, Lt):
+    """Per-pair batch with ragged and zero lengths, a no-hit pair, repeated
+    pairs and implanted shared segments; numpy int32."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 20, (B, Lq)).astype(np.int32)
+    t = rng.integers(0, 20, (B, Lt)).astype(np.int32)
+    qb = rng.integers(-3, 4, (B, Lq)).astype(np.int32)
+    ql = rng.integers(1, Lq + 1, B).astype(np.int32)
+    tl = rng.integers(1, Lt + 1, B).astype(np.int32)
+    ql[0], tl[1] = 0, 0
+    for b in range(3, B, 4):
+        n = int(min(ql[b], tl[b], 20))
+        t[b, 2:2 + n] = q[b, :n]
+    q[5::7], qb[5::7], ql[5::7] = q[4], qb[4], ql[4]
+    t[5::7], tl[5::7] = t[4], tl[4]
+    return q, qb, ql, t, tl
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("B,Lq,Lt", [(64, 48, 80), (40, 130, 33)])
+def test_plain_gapless_matches_xla(B, Lq, Lt):
+    q, qb, ql, t, tl = _pairs(Lq, B, Lq, Lt)
+    ref = np.asarray(gapless_scores_xla(q, qb, ql, t, Lq, Lt, t_len=tl))
+    got = ungapped_cuda.gapless_scores(*_torch(q, qb, ql, t, tl)).numpy()
+    np.testing.assert_array_equal(ref, got)
+    assert ref.max() > 15
+
+
+def test_plain_gapless_matches_pallas_interpret():
+    B, Lq, Lt = 128, 32, 40
+    q, qb, ql, t, tl = _pairs(3, B, Lq, Lt)
+    ref = gapless_scores(q, qb, ql, t, tl, interpret=True)
+    got = ungapped_cuda.gapless_scores(*_torch(q, qb, ql, t, tl)).numpy()
+    np.testing.assert_array_equal(ref, got)
+
+
+def test_gathered_pairs_and_out_of_range_indices():
+    """The gathered form scores staged rows by index; an index out of range
+    scores 0 (the JAX package pads with li = -1)."""
+    nq, Lq, nt, Lt = 6, 40, 9, 56
+    q, qb, ql, _, _ = _pairs(1, nq, Lq, Lt)
+    _, _, _, t, tl = _pairs(2, nt, Lq, Lt)
+    rng = np.random.default_rng(4)
+    li = rng.integers(-1, nq + 1, 80).astype(np.int32)
+    lj = rng.integers(-1, nt + 1, 80).astype(np.int32)
+    got = ungapped_cuda.gapless_scores_gathered(
+        *_torch(q, qb, ql, t, tl, li, lj)).numpy()
+    ok = (li >= 0) & (li < nq) & (lj >= 0) & (lj < nt)
+    lic, ljc = np.where(ok, li, 0), np.where(ok, lj, 0)
+    ref = np.asarray(gapless_scores_xla(q[lic], qb[lic], ql[lic], t[ljc], Lq,
+                                        Lt, t_len=tl[ljc]))
+    np.testing.assert_array_equal(np.where(ok, ref, 0), got)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    args = _torch(*_pairs(5, 16, 24, 24))
+    ungapped_cuda.reset_counts()
+    got = ungapped_cuda.gapless_scores(*args)
+    assert ungapped_cuda.PLAIN_CALLS == {"gapless_pair": 1}
+    assert ungapped_cuda.LAUNCHES == {"gapless_pair": 0}
+    pairs = torch.arange(16)
+    assert torch.equal(got, ungapped_torch.gapless_gathered(*args, pairs,
+                                                            pairs))
+
+
+def test_other_devices_raise():
+    args = [a.to("meta") for a in _torch(*_pairs(5, 8, 24, 24))]
+    pairs = torch.arange(8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ungapped_cuda.gapless_scores_gathered(*args, pairs, pairs)
+
+
+def _fragments(contigs_path):
+    contigs = SeqDB.from_fasta(contigs_path, DBTYPE_NUCL)
+    ex = OrfExtractor(Params())
+    frags = []
+    for ci in range(len(contigs)):
+        _, f = ex.extract_contig(contigs.seq_bytes(ci), ci)
+        frags.extend(ex.translate_fragments(f))
+    return frags
+
+
+def _assert_same_pairs(frags, targets, p):
+    ref = JaxPrefilter(p, targets, p.min_diag_score).candidate_pairs(frags)
+    prefilter.CELLS["gapless"] = 0
+    got = prefilter.UngappedPrefilter(p, targets, p.min_diag_score,
+                                      device="cpu").candidate_pairs(frags)
+    assert got.dtype == np.int64 and got.shape == ref.shape
+    np.testing.assert_array_equal(ref, got)
+    lens = sum(len(f) for f in frags) * targets.total_residues()
+    assert prefilter.CELLS["gapless"] == lens
+    return got
+
+
+def test_prefilter_pairs_match_jax_on_fixture():
+    targets = SeqDB.from_fasta(DATA / "proteins.faa", DBTYPE_AA)
+    got = _assert_same_pairs(_fragments(DATA / "contigs.fna"), targets,
+                             Params(prefilter_mode="ungapped"))
+    assert len(got) > 100
+
+
+def test_prefilter_pairs_match_jax_truncated_and_thresholded():
+    """A tight --max-seqs and a high --min-ungapped-score cut every list."""
+    targets = SeqDB.from_fasta(DATA / "proteins.faa", DBTYPE_AA)
+    p = Params(prefilter_mode="ungapped", max_res_list_len=3,
+               min_diag_score=25)
+    got = _assert_same_pairs(_fragments(DATA / "contigs.fna"), targets, p)
+    assert np.bincount(got[:, 0]).max() == 3
+
+
+def test_prefilter_pairs_match_jax_on_metagenome(tmp_path):
+    sys.path.insert(0, str(ROOT))
+    from tools.make_metagenome import make_metagenome, write_fasta
+    contigs, proteins = make_metagenome(0.003, 60)
+    write_fasta(tmp_path / "c.fna", contigs)
+    write_fasta(tmp_path / "p.faa", proteins)
+    targets = SeqDB.from_fasta(tmp_path / "p.faa", DBTYPE_AA)
+    got = _assert_same_pairs(_fragments(tmp_path / "c.fna"), targets,
+                             Params(prefilter_mode="ungapped"))
+    assert len(got) > 1000
+
+
+def test_prefilter_of_nothing_is_empty():
+    targets = SeqDB.from_fasta(DATA / "proteins.faa", DBTYPE_AA)
+    pf = prefilter.UngappedPrefilter(Params(), targets, device="cpu")
+    assert pf.candidate_pairs([]).shape == (0, 2)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Lq,Lt", [(64, 48, 80), (300, 4096, 700)])
+def test_kernel_matches_plain_on_card(cuda_device, B, Lq, Lt):
+    args = [a.to(cuda_device) for a in _torch(*_pairs(Lq, B, Lq, Lt))]
+    pairs = torch.arange(B, device=cuda_device)
+    ref = ungapped_torch.gapless_gathered(*args, pairs, pairs)
+    ungapped_cuda.reset_counts()
+    got = ungapped_cuda.gapless_scores(*args)
+    torch.cuda.synchronize()
+    assert ungapped_cuda.LAUNCHES == {"gapless_pair": 1}
+    assert torch.equal(got, ref)
