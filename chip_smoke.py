@@ -12,9 +12,12 @@ Phases, each fatal on failure:
      with torch.equal (all outputs are integers: the tolerance is zero): the
      pair kernels on seeded ragged batches at the driver's bucket shapes (Lq
      up to 4608), the query-major kernels on seeded tiles at Lq 64..4096
-     with Lt across 512 and the gapless kernel on seeded pairs, both with
-     padding lanes and tiles, repeated targets (ties), implanted shared
-     segments and zero-length sequences
+     with Lt across 512, the row-tiled query-major kernels at a row tile
+     of 64 on Lq 256..1024 and at the real one on the 16384 and 65536 tiers
+     (true lengths up to 32,734, Lt up to 4096, equal scores planted in
+     different row tiles at different columns) and the gapless kernel on
+     seeded pairs, all with padding lanes and tiles, repeated targets
+     (ties), implanted shared segments and zero-length sequences
   4. easy-predict through the metaeuk-tpu-torch CLI on tests/data: the four
      outputs byte-identical to tests/golden/easypredict.*
   4b. easy-predict --prefilter-mode ungapped on tests/data and on the
@@ -22,6 +25,10 @@ Phases, each fatal on failure:
      tests/golden/ungapped_slice.json (the JAX package's outputs); the
      metagenome run goes through the query-major kernels under the default
      routing
+  4c. easy-predict in k-mer and in ungapped mode on the long-frame golden
+     input (make_long_slice.GOLDEN_INPUT: fragments in the 16384 and 65536
+     tiers): sha256 digests equal to tests/golden/long_slice.json (the JAX
+     package's outputs), the row-tiled kernels launched
   5. the k-mer main path at a real size: easy-predict on the 1.6 Mbp /
      3000-target synthetic metagenome of tests/golden/multichip_slice.json;
      the four sha256 digests equal the file's, the pair kernels launched and
@@ -32,6 +39,14 @@ Phases, each fatal on failure:
      gapless and query-major kernels launched and no plain version called;
      the same candidate pairs aligned again through the driver with
      METAEUK_QM=off (the pair kernels) give a hit array equal field by field
+  5c. the row-tiled path at full width: easy-predict --prefilter-mode
+     ungapped on the 0.4 Mbp slice plus 48 contigs with frames of 4,200 to
+     32,700 aa (make_long_slice.CHIP_SLICE); the gapless, query-major and
+     row-tiled kernels launched and no plain version called; the same
+     pairs through the pair kernels give an equal hit array; then the
+     long-frame contigs alone in k-mer mode under the default routing and
+     under METAEUK_QM=off, hits and outputs equal; wall, stage and
+     align-phase seconds, cells and launches of each run
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
@@ -40,6 +55,7 @@ The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 """
 
+import contextlib
 import hashlib
 import json
 import os
@@ -60,10 +76,13 @@ KERNELS = {
     "sw_pair_starts": ("sw_pair.cu", "metaeuk_tpu/ops/sw_pallas.py:220"),
     "sw_qm_ends": ("sw_qm.cu", "metaeuk_tpu/ops/sw_pallas.py:405"),
     "sw_qm_starts": ("sw_qm.cu", "metaeuk_tpu/ops/sw_pallas.py:462"),
+    "sw_qm_rt_ends": ("sw_qm_rt.cu", "metaeuk_tpu/ops/sw_pallas.py:539"),
+    "sw_qm_rt_starts": ("sw_qm_rt.cu", "metaeuk_tpu/ops/sw_pallas.py:627"),
     "gapless_pair": ("gapless.cu", "metaeuk_tpu/ops/ungapped.py:44"),
 }
 PAIR_KERNELS = ("sw_pair_ends", "sw_pair_starts")
 UNGAPPED_KERNELS = ("gapless_pair", "sw_qm_ends", "sw_qm_starts")
+RT_KERNELS = ("sw_qm_rt_ends", "sw_qm_rt_starts")
 # (Lq, Lt, pairs): the driver's length tiers, plus one tier above the TPU
 # kernels' 4096-row bound
 CHECK_SHAPES = ((64, 64, 1024), (128, 256, 1024), (256, 512, 2048),
@@ -73,6 +92,15 @@ CHECK_SHAPES = ((64, 64, 1024), (128, 256, 1024), (256, 512, 2048),
 QM_SHAPES = ((64, 512, 64, 300, 96), (128, 1024, 64, 300, 64),
              (256, 256, 32, 300, 48), (1024, 1024, 8, 200, 12),
              (4096, 1024, 4, 100, 4))
+# (Lq, Lt, query rows, target rows, tiles, row tile, query lengths): the
+# row-tiled kernels at a shrunk row tile of 64 (many tile boundaries), then
+# at the real one (None: sw_torch.TQ_RT) on the 16384 and 65536 tiers with
+# true lengths up to 32,734 and Lt up to 4096
+QM_RT_SHAPES = ((256, 512, 8, 300, 24, 64, (1, 256)),
+                (1024, 1024, 4, 200, 12, 64, (1, 1024)),
+                (16384, 512, 4, 300, 8, None, (4097, 16384)),
+                (16384, 4096, 2, 64, 3, None, (4097, 6200)),
+                (65536, 512, 3, 200, 6, None, (16385, 32734)))
 # (Lq, Lt, query rows, target rows): gapless prefilter buckets, the last
 # as large as one of the ungapped slice's launches (4.2M pairs)
 GAPLESS_SHAPES = ((32, 64, 64, 300), (128, 512, 64, 300),
@@ -80,10 +108,16 @@ GAPLESS_SHAPES = ((32, 64, 64, 300), (128, 512, 64, 300),
                   (64, 512, 1400, 3000))
 # the ungapped slice of phase 5b: the 1.6 Mbp slice's generator and targets
 UNGAPPED_SLICE = dict(mbp=0.4, targets=3000, seed=20260820)
+# pair-launch cell budget of phase 5c's METAEUK_QM=off runs: every pair of
+# a long-frame tier in one launch (the driver's default is 1 << 32)
+OFF_CELL_BUDGET = 1 << 39
 # timing shapes: pair kernels (Lq, Lt, pairs); query-major (Lq, Lt, tiles),
 # timed with the pair kernels on the same pairs; gapless (Lq, Lt, pairs)
 TIME_SHAPE = (256, 512, 4096)
 QM_TIME_SHAPE = (128, 512, 512)
+# row-tiled (Lq tier, Lt, tiles), query lengths 8192..16384, timed with the
+# pair kernels on the same pairs
+QM_RT_TIME_SHAPE = (16384, 512, 64)
 GAPLESS_TIME_SHAPE = (128, 512, 1 << 18)
 # H100 SXM peaks: int32 operations (64 INT32 lanes per SM, half the 128 FP32
 # lanes behind the data sheet's 67 TFLOP/s, which counts an FMA as two) and
@@ -148,6 +182,30 @@ def staged_batch(torch, rng, Lq, Lt, nq, nt, device, lo=1):
         device=device, dtype=dt)
     return (mk(q, torch.uint8), mk(qb, torch.int8), mk(ql, torch.int32),
             mk(t, torch.uint8), mk(tl, torch.int32))
+
+
+@contextlib.contextmanager
+def pair_kernels_only(driver):
+    """METAEUK_QM=off, with pair launches of up to OFF_CELL_BUDGET cells: one
+    thread aligns one pair, so a launch takes as long as its longest pair,
+    and the default budget cuts the 65536 tier into launches of 64 pairs."""
+    budget = driver.CELL_BUDGET["cuda"]
+    os.environ["METAEUK_QM"] = "off"
+    driver.CELL_BUDGET["cuda"] = OFF_CELL_BUDGET
+    try:
+        yield
+    finally:
+        del os.environ["METAEUK_QM"]
+        driver.CELL_BUDGET["cuda"] = budget
+
+
+def same_hits(np, ref, got, what):
+    if len(ref) != len(got) or any(not np.array_equal(ref[f], got[f])
+                                   for f in ref.dtype.names):
+        raise AssertionError(f"{what}: query-major and pair-kernel hit "
+                             "arrays differ")
+    print(f"{what}: query-major and pair-kernel hit arrays equal "
+          f"({len(ref)} hits)", flush=True)
 
 
 def max_err(torch, got, ref):
@@ -224,6 +282,72 @@ def check_qm_kernels(torch, sw_cuda, sw_torch, errs):
             raise AssertionError("reverse score differs from forward best")
         print(f"query-major Lq={Lq} Lt={Lt} tiles={nT}: ends and starts "
               f"equal ({int((ref[0] > 0).sum())} lanes with a hit)",
+              flush=True)
+
+
+def plant_row_tile_ties(q, qb, ql, t, tl, tq, rng, n=24):
+    """Query 0 gets a segment A in its first row tile and a permutation B of
+    A (the same self-score) two row tiles down, and a bias of -4 on its
+    other rows; target 0 (and its repeat, target 1) holds B early and A
+    late, target 2 the other way round: equal scores in different row tiles
+    at different columns, forward and reverse."""
+    rA, rB, cE, cL = 5, 2 * tq + 5, 3, 200
+    A = rng.integers(0, 20, n)
+    B = rng.permutation(A)
+    ql[0] = max(ql[0], rB + n + 1)
+    q[0, rA:rA + n], q[0, rB:rB + n] = A, B
+    qb[0] = -4
+    qb[0, rA:rA + n] = qb[0, rB:rB + n] = 0
+    for k, (early, late) in ((0, (B, A)), (2, (A, B))):
+        t[k, cE:cE + n], t[k, cL:cL + n] = early, late
+        tl[k] = max(tl[k], cL + n + 1)
+    t[1], tl[1] = t[0], tl[0]
+
+
+def check_qm_rt_kernels(torch, sw_cuda, sw_torch, errs):
+    import numpy as np
+    rng = np.random.default_rng(20260823)
+    TB = sw_torch.TB
+    for Lq, Lt, nq, nt, nT, tq, (lo, hi) in QM_RT_SHAPES:
+        tq = tq or sw_torch.TQ_RT
+        q, qb, _, t, tl = (a.numpy().copy() for a in staged_batch(
+            torch, rng, Lq, Lt, nq, nt, "cpu"))
+        ql = rng.integers(lo, hi + 1, nq).astype(np.int32)
+        ql[5::13] = 0
+        plant_row_tile_ties(q, qb, ql, t, tl, tq, rng)
+        qidx = rng.integers(0, nq, nT).astype(np.int32)
+        qidx[:2] = 0                        # query 0's ties
+        qidx[-1] = -1                       # a padding tile
+        lj = rng.integers(0, nt, (nT, TB)).astype(np.int32)
+        lj[:, 100:] = -1                    # padding lanes
+        lj[1, :] = np.arange(TB) % nt       # every target, repeats included
+        lj[2, 5:40] = 1                     # one target many times (ties)
+        args = tuple(torch.from_numpy(a).cuda() for a in (
+            q, qb, ql, t, tl, qidx, lj.reshape(-1)))
+        got = sw_cuda.qm_ends_rt(*args, tq=tq)
+        torch.cuda.synchronize()
+        ref = sw_torch.qm_ends_rt(*args, tq=tq)
+        errs["sw_qm_rt_ends"] = max(errs["sw_qm_rt_ends"],
+                                    max_err(torch, got, ref))
+        B = nT * TB
+        ends = [(torch.clamp_min(ref[1], 0), torch.clamp_min(ref[2], 0))]
+        if tq < sw_torch.TQ_RT:   # random ends, past the lengths and -1
+            ends.append(tuple(torch.from_numpy(rng.integers(-1, n + 2, B))
+                              .int().cuda() for n in (Lq, Lt)))
+        for k, (qe, te) in enumerate(ends):
+            got = sw_cuda.qm_starts_rt(*args, qe, te, tq=tq)
+            torch.cuda.synchronize()
+            ref2 = sw_torch.qm_starts_rt(*args, qe, te, tq=tq)
+            errs["sw_qm_rt_starts"] = max(errs["sw_qm_rt_starts"],
+                                          max_err(torch, got, ref2))
+            if k == 0 and not torch.equal(ref[0], ref2[0]):
+                raise AssertionError("reverse score differs from forward "
+                                     "best")
+        tie = [int(ref[k][TB]) for k in range(3)]   # tile 1, lane 0: target 0
+        print(f"row-tiled Lq={Lq} Lt={Lt} tiles={nT} row tile {tq}, query "
+              f"lengths up to {int(ql.max())}: ends and starts equal "
+              f"({int((ref[0] > 0).sum())} lanes with a hit; planted tie "
+              f"won at row {tie[1]}, column {tie[2]}, score {tie[0]})",
               flush=True)
 
 
@@ -409,6 +533,52 @@ def time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
     return out, same
 
 
+def time_qm_rt(torch, np, sw_cuda, sw_torch, errs):
+    """{name: (ms, plain_ms, bound_ms, bound_by)} of the row-tiled kernels at
+    QM_RT_TIME_SHAPE, one query per tile and 128 distinct targets per tile,
+    each kernel's output there equal to its plain version's; and the pair
+    kernels' (ends, starts) ms on the same pairs."""
+    Lq, Lt, nT = QM_RT_TIME_SHAPE
+    rng = np.random.default_rng(10)
+    TB, nt, dev = sw_torch.TB, 3000, "cuda"
+    q, qb, _, t, _ = staged_batch(torch, rng, Lq, Lt, nT, nt, dev)
+    ql = torch.from_numpy(rng.integers(Lq // 2, Lq + 1, nT)).int().cuda()
+    tl = torch.from_numpy(rng.integers(Lt // 2, Lt + 1, nt)).int().cuda()
+    qidx = torch.arange(nT, device=dev, dtype=torch.int32)
+    lj = torch.from_numpy(np.stack([rng.choice(nt, TB, replace=False)
+                                    for _ in range(nT)]).reshape(-1)).int()
+    args = (q, qb, ql, t, tl, qidx, lj.cuda())
+    ends = sw_cuda.qm_ends_rt(*args)
+    qe, te = torch.clamp_min(ends[1], 0), torch.clamp_min(ends[2], 0)
+    lane_q = qidx.long().repeat_interleave(TB)
+    q_len, t_len = ql[lane_q], tl[args[-1].long()]
+    fwd = int((q_len.long() * t_len.long()).sum())
+    rev = int(((torch.minimum(qe, q_len - 1).long() + 1)
+               * (torch.minimum(te, t_len - 1).long() + 1)).sum())
+    errs["sw_qm_rt_ends"] = max(errs["sw_qm_rt_ends"], max_err(
+        torch, ends, sw_torch.qm_ends_rt(*args)))
+    starts = sw_cuda.qm_starts_rt(*args, qe, te)
+    errs["sw_qm_rt_starts"] = max(errs["sw_qm_rt_starts"], max_err(
+        torch, starts, sw_torch.qm_starts_rt(*args, qe, te)))
+    out = {
+        "sw_qm_rt_ends": (
+            time_ms(torch, lambda: sw_cuda.qm_ends_rt(*args), 2),
+            time_ms(torch, lambda: sw_torch.qm_ends_rt(*args), 1),
+            *bound(fwd, SW_OPS, (*args, *ends))),
+        "sw_qm_rt_starts": (
+            time_ms(torch, lambda: sw_cuda.qm_starts_rt(*args, qe, te), 2),
+            time_ms(torch, lambda: sw_torch.qm_starts_rt(*args, qe, te), 1),
+            *bound(rev, SW_OPS, (*args, qe, te, *starts)))}
+    pair_args = (q[lane_q], qb[lane_q], q_len, t[args[-1].long()], t_len)
+    same = (time_ms(torch, lambda: sw_cuda.sw_ends(*pair_args), 1),
+            time_ms(torch, lambda: sw_cuda.sw_starts(*pair_args, qe, te), 1))
+    print(f"row-tiled tiles={nT} (pairs {nT * TB}) Lq={Lq} Lt={Lt}: {fwd} "
+          f"forward cells, {rev} reverse cells; pair kernels on the same "
+          f"pairs: ends {same[0]:.4f} ms, starts {same[1]:.4f} ms",
+          flush=True)
+    return out, same
+
+
 def main():
     if not (ROOT / CSRC / "sw_pair.cu").exists():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -459,9 +629,12 @@ def main():
     errs = dict.fromkeys(KERNELS, 0)
     check_pair_kernels(torch, sw_cuda, sw_torch, errs)
     check_qm_kernels(torch, sw_cuda, sw_torch, errs)
+    check_qm_rt_kernels(torch, sw_cuda, sw_torch, errs)
     check_gapless_kernel(torch, ungapped_cuda, ungapped_torch, errs)
 
     from tools.make_metagenome import make_metagenome, write_fasta
+    sys.path.insert(0, str(GOLDEN))
+    import make_long_slice as mls
     ungapped = json.loads((GOLDEN / "ungapped_slice.json").read_text())
     launches = {}
     with tempfile.TemporaryDirectory(prefix="meuk_smoke") as td:
@@ -523,6 +696,33 @@ def main():
                                  "kernels")
         print("ungapped: fixture and metagenome digests equal "
               "ungapped_slice.json", flush=True)
+
+        phase("4c easy-predict on long frames against the JAX package's "
+              "digests")
+        long_golden = json.loads((GOLDEN / "long_slice.json").read_text())
+        if long_golden["input"] != mls.GOLDEN_INPUT:
+            raise AssertionError("long_slice.json was made from another "
+                                 "input than make_long_slice.GOLDEN_INPUT")
+        contigs, proteins = mls.long_slice(mls.GOLDEN_INPUT)
+        write_fasta(td / "g.fna", contigs)
+        write_fasta(td / "g.faa", proteins)
+        for mode in ("kmer", "ungapped"):
+            reset(torch, counters, driver, prefilter)
+            out = td / f"long_{mode}"
+            t0 = time.perf_counter()
+            EasyPredict(Params(prefilter_mode=mode), device="cuda").run(
+                str(td / "g.fna"), str(td / "g.faa"), str(out))
+            run_l, run_p = counts(counters)
+            print(f"long-frame golden, {mode} mode: wall "
+                  f"{time.perf_counter() - t0:.2f} s, launches {run_l}, "
+                  f"plain {run_p}")
+            if digests(out) != long_golden[mode]["sha256"]:
+                raise AssertionError(f"long-frame {mode} digests differ")
+            if min(run_l[k] for k in RT_KERNELS) == 0 or any(run_p.values()):
+                raise AssertionError(f"long-frame {mode} run did not go "
+                                     "through the row-tiled kernels")
+        print("long frames: k-mer and ungapped digests equal long_slice.json",
+              flush=True)
 
         phase("5 k-mer main path: 1.6 Mbp / 3000-target slice")
         golden = json.loads((GOLDEN / "multichip_slice.json").read_text())
@@ -622,17 +822,110 @@ def main():
               "align phase seconds (METAEUK_QM=off) "
               + json.dumps(driver.PHASE_SECONDS))
         print(f"launches {run_l}", flush=True)
-        if len(hits_pair) != len(hits_qm) or any(
-                not np.array_equal(hits_pair[f], hits_qm[f])
-                for f in hits_qm.dtype.names):
-            raise AssertionError("query-major and pair-kernel hit arrays "
-                                 "differ")
-        print(f"ungapped slice: query-major and pair-kernel hit arrays "
-              f"equal ({len(hits_qm)} hits)", flush=True)
+        same_hits(np, hits_qm, hits_pair, "ungapped slice")
+
+        phase("5c long frames at full width: the ungapped slice plus "
+              f"{mls.CHIP_SLICE['n_mid'] + mls.CHIP_SLICE['n_long']} "
+              "long-frame contigs")
+        t0 = time.perf_counter()
+        contigs, proteins = mls.long_slice(mls.CHIP_SLICE)
+        write_fasta(td / "l.fna", contigs)
+        write_fasta(td / "l.faa", proteins)
+        long_contigs = [c for c in contigs if c[0].startswith("long")]
+        write_fasta(td / "lo.fna", long_contigs)
+        frames = mls.chip_slice_lengths()
+        print(f"generated {len(contigs)} contigs ({len(frames)} long frames "
+              f"of {min(frames)}-{max(frames)} aa in "
+              f"{sum(len(c[1]) for c in long_contigs)} nt of contigs), "
+              f"{len(proteins)} targets in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        tmp = td / "l_tmp"
+        p = Params(prefilter_mode="ungapped")
+        reset(torch, counters, driver, prefilter)
+        t0 = time.perf_counter()
+        ep = EasyPredict(p, device="cuda")
+        ep.run(str(td / "l.fna"), str(td / "l.faa"), str(td / "l_slice"),
+               tmp_dir=str(tmp))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_l, run_p = counts(counters)
+        pairs = np.load(tmp / "pref_pairs.npy")
+        hits_qm = np.load(tmp / "search_hits.npy")
+        print(f"long-frame slice wall {wall:.3f} s, {len(pairs)} candidate "
+              f"pairs, {len(hits_qm)} hits")
+        print("stage seconds " + json.dumps(
+            {**ep.predict_stage_seconds, **ep.stage_seconds}))
+        print("align phase seconds (default routing) "
+              + json.dumps(driver.PHASE_SECONDS))
+        print(f"gapless cells {prefilter.CELLS['gapless']}; cells "
+              f"{json.dumps(driver.CELLS)}")
+        print(f"launches {run_l} plain {run_p}", flush=True)
+        if min(run_l[k] for k in (*UNGAPPED_KERNELS, *RT_KERNELS)) == 0 \
+                or any(run_p.values()):
+            raise AssertionError("long-frame slice did not go through the "
+                                 "gapless, query-major and row-tiled "
+                                 "kernels")
+        for k in RT_KERNELS:
+            launches[k] = run_l[k]
+        orf_aa = fragments(OrfExtractor(p),
+                           SeqDB.from_fasta(str(td / "l.fna"), DBTYPE_NUCL))
+        lens = np.array([len(a) for a in orf_aa])
+        cands = np.bincount(pairs[:, 0], minlength=len(lens))[lens > 4096]
+        print(f"{len(cands)} fragments over 4096 aa: {int(cands.sum())} "
+              f"candidate pairs, {int(cands.min())}-{int(cands.max())} each",
+              flush=True)
+
+        # the same pairs through the pair kernels (K1/K2)
+        targets = SeqDB.from_fasta(str(td / "l.faa"), DBTYPE_AA)
+        reset(torch, counters, driver, prefilter)
+        with pair_kernels_only(driver):
+            t0 = time.perf_counter()
+            hits_pair = driver.SearchDriver(p, targets, "cuda").search(
+                orf_aa, pair_generator=pairs)
+            torch.cuda.synchronize()
+            pair_wall = time.perf_counter() - t0
+        run_l, _ = counts(counters)
+        print(f"pair-kernel alignment of the same pairs {pair_wall:.3f} s; "
+              "align phase seconds (METAEUK_QM=off, pair launches up to "
+              f"{OFF_CELL_BUDGET} cells) " + json.dumps(driver.PHASE_SECONDS))
+        print(f"launches {run_l}", flush=True)
+        same_hits(np, hits_qm, hits_pair, "long-frame slice")
+
+        # k-mer mode on the long-frame contigs alone, both routings
+        hits_k, align_s = {}, {}
+        for mode in ("auto", "off"):
+            reset(torch, counters, driver, prefilter)
+            ctx = pair_kernels_only(driver) if mode == "off" else \
+                contextlib.nullcontext()
+            with ctx:
+                t0 = time.perf_counter()
+                EasyPredict(device="cuda").run(
+                    str(td / "lo.fna"), str(td / "l.faa"),
+                    str(td / f"lk_{mode}"), tmp_dir=str(td / f"lk_{mode}_tmp"))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            run_l, run_p = counts(counters)
+            hits_k[mode] = np.load(td / f"lk_{mode}_tmp" / "search_hits.npy")
+            align_s[mode] = sum(driver.PHASE_SECONDS.values())
+            print(f"long-frame contigs, k-mer mode, METAEUK_QM={mode}: wall "
+                  f"{wall:.3f} s, align phases {align_s[mode]:.3f} s "
+                  + json.dumps(driver.PHASE_SECONDS))
+            print(f"cells {json.dumps(driver.CELLS)}; launches {run_l} "
+                  f"plain {run_p}", flush=True)
+            if any(run_p.values()) or (mode == "auto" and min(
+                    run_l[k] for k in RT_KERNELS) == 0):
+                raise AssertionError("k-mer long-frame run did not go "
+                                     "through the kernels")
+        same_hits(np, hits_k["auto"], hits_k["off"], "k-mer long-frame run")
+        if digests(td / "lk_auto") != digests(td / "lk_off"):
+            raise AssertionError("k-mer long-frame outputs differ between "
+                                 "the routings")
 
     phase("6 kernel and plain-version times")
     times, same = time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
                                ungapped_torch, errs)
+    rt_times, _ = time_qm_rt(torch, np, sw_cuda, sw_torch, errs)
+    times.update(rt_times)
     for k, (ms, plain_ms, bound_ms, by) in times.items():
         print(f"{k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({by}); output equal to the plain "

@@ -1,6 +1,7 @@
 """Smith-Waterman alignment: wrappers over the CUDA kernels in
-csrc/sw_pair.cu (pair-batched) and csrc/sw_qm.cu (query-major), dispatched
-by the device of the tensors given.
+csrc/sw_pair.cu (pair-batched), csrc/sw_qm.cu (query-major) and
+csrc/sw_qm_rt.cu (query-major in row tiles, for long queries), dispatched by
+the device of the tensors given.
 
 - A CPU tensor goes to the plain PyTorch version (ops/sw_torch.py).
 - A CUDA tensor launches the kernel, or raises. There is no fallback.
@@ -12,6 +13,8 @@ _align_from_S. Batches need no padding to a tile multiple: the kernels run
 one thread per pair. qm_ends and qm_starts are _align_ends_qm and
 _align_starts_qm over build_prof_tiles / build_tcodes_T (K3, K4): one query
 row per tile of TB = 128 target lanes, read from the staged matrices.
+qm_ends_rt and qm_starts_rt are the same calls for Lq > 4096, which the JAX
+package runs on the row-tiled _qm_call_rt (K5, K6; csrc/sw_qm_rt.cu).
 
 LAUNCHES counts kernel launches and PLAIN_CALLS calls that went to the plain
 version, per kernel; reset_counts() sets both to zero.
@@ -25,11 +28,14 @@ import torch
 from . import _build, sw_torch
 from ..state import default_scoring
 
-KERNELS = ("sw_pair_ends", "sw_pair_starts", "sw_qm_ends", "sw_qm_starts")
+KERNELS = ("sw_pair_ends", "sw_pair_starts", "sw_qm_ends", "sw_qm_starts",
+           "sw_qm_rt_ends", "sw_qm_rt_starts")
 # the .cu source (csrc/<name>.cu) of each kernel
 SOURCES = {"sw_pair_ends": "sw_pair", "sw_pair_starts": "sw_pair",
-           "sw_qm_ends": "sw_qm", "sw_qm_starts": "sw_qm"}
-# dynamic shared memory a block may hold on an H100 (the query profile)
+           "sw_qm_ends": "sw_qm", "sw_qm_starts": "sw_qm",
+           "sw_qm_rt_ends": "sw_qm_rt", "sw_qm_rt_starts": "sw_qm_rt"}
+# dynamic shared memory a block may hold on an H100 (the query profile, or
+# one row tile of it)
 MAX_SMEM = 232448
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
@@ -51,6 +57,13 @@ _ARGTYPES = {
     # as above with q_end, t_end after lj
     "sw_qm_starts": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
                      _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    # as sw_qm_ends with the row-tile size after n_tiles and the boundary
+    # scratch after the H/E scratch
+    "sw_qm_rt_ends": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I,
+                      _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # as sw_qm_starts, the same two additions
+    "sw_qm_rt_starts": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
+                        _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -154,9 +167,10 @@ def align_full(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
 
 
 def _qm_inputs(scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,
-               *extra):
-    """Checks one CUDA device, the shapes and the profile's shared-memory
-    size; returns the kernel's contiguous operands."""
+               *extra, profile_rows):
+    """Checks one CUDA device, the shapes and the shared-memory size of the
+    profile_rows query rows that a block stages; returns the kernel's
+    contiguous operands."""
     dev = q_mat.device
     tensors = (q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, *extra,
                scoring.submat)
@@ -173,9 +187,9 @@ def _qm_inputs(scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,
     if scoring.submat.shape != (alph, alph) or alph > 32:
         raise ValueError("sw kernels take a square substitution matrix of "
                          "at most 32 classes")
-    if Lq * alph * 2 > MAX_SMEM:
-        raise ValueError(f"sw_qm kernels: a {Lq}-row query profile exceeds "
-                         "the shared memory of a block; use the pair kernels")
+    if profile_rows * alph * 2 > MAX_SMEM:
+        raise ValueError(f"sw_qm kernels: a {profile_rows}-row query profile "
+                         "exceeds the shared memory of a block")
     return (scoring.submat.to(torch.int32).contiguous(),
             q_mat.to(torch.uint8).contiguous(),
             qb_mat.to(torch.int8).contiguous(),
@@ -186,21 +200,33 @@ def _qm_inputs(scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,
             *(v.to(torch.int32).contiguous() for v in (lj, *extra)))
 
 
-def _qm_launch(name, scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx,
+def _qm_launch(name, scoring, tq, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx,
                lj, *extra):
+    """Launches a query-major kernel: K3/K4 (tq None) with an H/E scratch of
+    (tiles, Lq, 128) words, or the row-tiled K5/K6 with one of (tiles, tq,
+    128) words and a boundary of (tiles, Lt, 128) words."""
+    Lq = q_mat.shape[1]
+    rows = Lq if tq is None else max(1, min(int(tq), Lq))
     sub, q, qb, ql, t, tl, qi, *lanes = _qm_inputs(
-        scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, *extra)
-    (nq, Lq), (nt, Lt), nT = q.shape, t.shape, qi.shape[0]
+        scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, *extra,
+        profile_rows=rows)
+    nq, (nt, Lt), nT = q.shape[0], t.shape, qi.shape[0]
     dev = q_mat.device
-    scratch = torch.empty((nT, Lq, sw_torch.TB), dtype=torch.int32,
-                          device=dev)
+    scratch = [torch.empty((nT, rows, sw_torch.TB), dtype=torch.int32,
+                           device=dev)]
+    tiling = [nT]
+    if tq is not None:
+        scratch.append(torch.empty((nT, Lt, sw_torch.TB), dtype=torch.int32,
+                                   device=dev))
+        tiling.append(rows)
     outs = [torch.empty(nT * sw_torch.TB, dtype=torch.int32, device=dev)
             for _ in range(3)]
     _launch(name, [
         sub.data_ptr(), sub.shape[0], q.data_ptr(), qb.data_ptr(),
         ql.data_ptr(), nq, Lq, t.data_ptr(), tl.data_ptr(), nt, Lt,
-        qi.data_ptr(), *(v.data_ptr() for v in lanes), nT, scoring.go,
-        scoring.ge, scratch.data_ptr(), *(o.data_ptr() for o in outs)])
+        qi.data_ptr(), *(v.data_ptr() for v in lanes), *tiling, scoring.go,
+        scoring.ge, *(s.data_ptr() for s in scratch),
+        *(o.data_ptr() for o in outs)])
     return tuple(outs)
 
 
@@ -213,8 +239,8 @@ def qm_ends(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, scoring=None):
         PLAIN_CALLS["sw_qm_ends"] += 1
         return sw_torch.qm_ends(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx,
                                 lj, scoring=scoring)
-    return _qm_launch("sw_qm_ends", scoring, q_mat, qb_mat, q_lens, t_mat,
-                      t_lens, qidx, lj)
+    return _qm_launch("sw_qm_ends", scoring, None, q_mat, qb_mat, q_lens,
+                      t_mat, t_lens, qidx, lj)
 
 
 def qm_starts(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, q_end, t_end,
@@ -226,5 +252,34 @@ def qm_starts(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, q_end, t_end,
         PLAIN_CALLS["sw_qm_starts"] += 1
         return sw_torch.qm_starts(q_mat, qb_mat, q_lens, t_mat, t_lens,
                                   qidx, lj, q_end, t_end, scoring=scoring)
-    return _qm_launch("sw_qm_starts", scoring, q_mat, qb_mat, q_lens, t_mat,
-                      t_lens, qidx, lj, q_end, t_end)
+    return _qm_launch("sw_qm_starts", scoring, None, q_mat, qb_mat, q_lens,
+                      t_mat, t_lens, qidx, lj, q_end, t_end)
+
+
+def qm_ends_rt(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, scoring=None,
+               tq=sw_torch.TQ_RT):
+    """Row-tiled query-major forward ends (K5), for query rows longer than
+    a block's shared memory holds as one profile: qm_ends' function, the
+    query swept in row tiles of tq. (score, q_end, t_end), each
+    (n_tiles * 128,) int32."""
+    scoring = scoring or default_scoring(q_mat.device)
+    if q_mat.device.type == "cpu":
+        PLAIN_CALLS["sw_qm_rt_ends"] += 1
+        return sw_torch.qm_ends_rt(q_mat, qb_mat, q_lens, t_mat, t_lens,
+                                   qidx, lj, scoring=scoring, tq=tq)
+    return _qm_launch("sw_qm_rt_ends", scoring, tq, q_mat, qb_mat, q_lens,
+                      t_mat, t_lens, qidx, lj)
+
+
+def qm_starts_rt(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, q_end,
+                 t_end, scoring=None, tq=sw_torch.TQ_RT):
+    """Row-tiled query-major reverse-prefix starts (K6) from known per-lane
+    ends: (score, q_start, t_start), each (n_tiles * 128,) int32."""
+    scoring = scoring or default_scoring(q_mat.device)
+    if q_mat.device.type == "cpu":
+        PLAIN_CALLS["sw_qm_rt_starts"] += 1
+        return sw_torch.qm_starts_rt(q_mat, qb_mat, q_lens, t_mat, t_lens,
+                                     qidx, lj, q_end, t_end, scoring=scoring,
+                                     tq=tq)
+    return _qm_launch("sw_qm_rt_starts", scoring, tq, q_mat, qb_mat, q_lens,
+                      t_mat, t_lens, qidx, lj, q_end, t_end)

@@ -1,13 +1,15 @@
 """Plain PyTorch Smith-Waterman ends and starts: the contract of the Pallas
 pair kernels, vectorised over pairs, one loop step per target column.
 
-These are the plain versions of the CUDA kernels in csrc/sw_pair.cu and
-csrc/sw_qm.cu:
+These are the plain versions of the CUDA kernels in csrc/sw_pair.cu,
+csrc/sw_qm.cu and csrc/sw_qm_rt.cu:
 
-- sw_ends   <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel (K1)
-- sw_starts <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_rev (K2)
-- qm_ends   <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_qm (K3)
-- qm_starts <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_qm_rev (K4)
+- sw_ends      <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel (K1)
+- sw_starts    <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_rev (K2)
+- qm_ends      <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_qm (K3)
+- qm_starts    <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_qm_rev (K4)
+- qm_ends_rt   <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_qm_rt (K5)
+- qm_starts_rt <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_qm_rev_rt (K6)
 
 The pair versions take one query and one target row per pair; the
 query-major ones take staged (nq, Lq) / (nt, Lt) matrices, one query row per
@@ -35,6 +37,9 @@ from ..state import NEG, PAD_SCORE, SCORE_CAP, default_scoring
 
 TB = 128     # target lanes per query-major tile (sw_pallas.py TB)
 PCOLS = 32   # profile columns of a query-major tile (sw_pallas.py PCOLS)
+# query rows per row tile of the row-tiled kernels (sw_pallas.py QM_TQ):
+# a tile's int16 profile at 21 classes is 86 KB of a block's shared memory
+TQ_RT = 2048
 
 
 def _profile(scoring, q_enc, q_bias, q_len):
@@ -65,77 +70,112 @@ def _trim(q_enc, q_bias, q_len, t_enc, t_len):
     return q_enc[:, :lq], q_bias[:, :lq], t_enc[:, :lt]
 
 
-def _column(prof, tcls, j):
-    B, Lq, _ = prof.shape
-    idx = tcls[:, j].view(B, 1, 1).expand(B, Lq, 1)
-    return prof.gather(2, idx).squeeze(2)
+def _column(prof, tcls, j, lo, hi):
+    B = prof.shape[0]
+    idx = tcls[:, j].view(B, 1, 1).expand(B, hi - lo, 1)
+    return prof[:, lo:hi].gather(2, idx).squeeze(2)
 
 
-def _ends_loop(column, n_cols, B, Lq, Lq_full, scoring, dev):
-    """The forward recurrence over columns 0..n_cols-1; column(j) gives the
-    (B, Lq) int32 scores of column j (PAD_SCORE on padded cells)."""
+def _ends_loop(column, n_cols, B, Lq, Lq_full, scoring, dev, tq=None):
+    """The forward recurrence over columns 0..n_cols-1; column(j, lo, hi)
+    gives the (B, hi - lo) int32 scores of column j on rows lo..hi-1
+    (PAD_SCORE on padded cells). The rows run in tiles of tq (one tile when
+    tq is None), top tile first, each swept over every column; per column,
+    the last row's H (hb) and the inclusive F-chain max A = max_k G(k) +
+    k * ge over the rows above (ab) carry into the next tile (sw_pallas.py
+    _dp_kernel_qm_rt). The tie-break keeps the earlier column across
+    tiles: an earlier tile's best is kept only on an equal score and
+    column, which gives its smaller row."""
     go, ge = scoring.go, scoring.ge
-    rows = torch.arange(Lq, device=dev, dtype=torch.int32)
-    igge = rows * ge
-    f_base = -go - (rows - 1) * ge
     i32 = dict(dtype=torch.int32, device=dev)
-    H = torch.zeros((B, Lq), **i32)
-    E = torch.full((B, Lq), -go, **i32)
-    zero_row = torch.zeros((B, 1), **i32)
+    hb = torch.zeros((B, n_cols), **i32)
+    ab = torch.full((B, n_cols), NEG, **i32)
     neg_row = torch.full((B, 1), NEG, **i32)
     best = torch.zeros(B, **i32)
     q_end = torch.full((B,), Lq_full - 1, **i32)
     t_end = torch.full((B,), -1, **i32)
-    for j in range(n_cols):
-        s = column(j)
-        Hd = torch.cat([zero_row, H[:, :-1]], dim=1)
-        G = torch.clamp_min(torch.maximum(Hd + s, E), 0)
-        A = torch.cummax(G + igge, dim=1).values
-        F = torch.cat([neg_row, A[:, :-1]], dim=1) + f_base
-        H = torch.clamp_max(torch.maximum(G, F), SCORE_CAP)
-        col_max, col_row = torch.max(H, dim=1)
-        better = col_max > best
-        best = torch.where(better, col_max, best)
-        q_end = torch.where(better, col_row.to(torch.int32), q_end)
-        t_end = torch.where(better, j, t_end)
-        E = torch.maximum(E - ge, H - go)
+    tq = tq or Lq
+    for lo in range(0, Lq, tq):
+        hi = min(lo + tq, Lq)
+        rows = torch.arange(lo, hi, **i32)
+        igge = rows * ge
+        f_base = -go - (rows - 1) * ge
+        H = torch.zeros((B, hi - lo), **i32)
+        E = torch.full((B, hi - lo), -go, **i32)
+        hbp = torch.zeros((B, 1), **i32)   # hb of the previous column
+        for j in range(n_cols):
+            s = column(j, lo, hi)
+            Hd = torch.cat([hbp, H[:, :-1]], dim=1)
+            hbp = hb[:, j:j + 1].clone()
+            G = torch.clamp_min(torch.maximum(Hd + s, E), 0)
+            A = torch.cummax(G + igge, dim=1).values
+            Aex = torch.maximum(torch.cat([neg_row, A[:, :-1]], dim=1),
+                                ab[:, j:j + 1])
+            H = torch.clamp_max(torch.maximum(G, Aex + f_base), SCORE_CAP)
+            col_max, col_row = torch.max(H, dim=1)
+            better = (col_max > best) | ((col_max == best) & (best > 0)
+                                         & (j < t_end))
+            best = torch.where(better, col_max, best)
+            q_end = torch.where(better, (col_row + lo).to(torch.int32),
+                                q_end)
+            t_end = torch.where(better, j, t_end)
+            E = torch.maximum(E - ge, H - go)
+            hb[:, j] = H[:, -1]
+            ab[:, j] = torch.maximum(A[:, -1], ab[:, j])
     return best, q_end, t_end
 
 
-def _starts_loop(column, n_cols, B, Lq, q_end, t_end, scoring, dev):
+def _starts_loop(column, n_cols, B, Lq, q_end, t_end, scoring, dev,
+                 tq=None):
     """The reverse-prefix recurrence over columns n_cols-1..0, rows <= q_end
-    and columns <= t_end; column(j) as for _ends_loop."""
+    and columns <= t_end; column as for _ends_loop. The rows run in tiles of
+    tq (one tile when tq is None), bottom tile first; per column, the first
+    row's H and the suffix F-chain max over the rows below carry into the
+    tile above (sw_pallas.py _dp_kernel_qm_rev_rt). The tie-break keeps the
+    last column across tiles: a lower tile's best is kept only on an equal
+    score and column, which gives its larger row."""
     go, ge = scoring.go, scoring.ge
-    rows = torch.arange(Lq, device=dev, dtype=torch.int32)
-    q_mask = rows[None, :] <= q_end.to(torch.int32)[:, None]
-    t_end = t_end.to(torch.int32)
-    igge = rows * ge
-    f_base = -go + (rows + 1) * ge
     i32 = dict(dtype=torch.int32, device=dev)
-    H = torch.zeros((B, Lq), **i32)
-    E = torch.full((B, Lq), -go, **i32)
-    zero_row = torch.zeros((B, 1), **i32)
+    q_end = q_end.to(torch.int32)
+    t_end = t_end.to(torch.int32)
+    hb = torch.zeros((B, n_cols), **i32)
+    ab = torch.full((B, n_cols), NEG, **i32)
     neg_row = torch.full((B, 1), NEG, **i32)
     best = torch.zeros(B, **i32)
     q_start = torch.zeros(B, **i32)
     t_start = torch.full((B,), -1, **i32)
-    for j in range(n_cols - 1, -1, -1):
-        live = q_mask & (j <= t_end)[:, None]
-        s = torch.where(live, column(j), NEG)
-        # the diagonal predecessor is one row below (i+1, j+1)
-        Hd = torch.cat([H[:, 1:], zero_row], dim=1)
-        G = torch.clamp_min(torch.maximum(Hd + s, E), 0)
-        # F(i) = max_{k>i} G(k) - go - (k-1-i)*ge: a suffix cummax
-        A = torch.cummax((G - igge).flip(1), dim=1).values.flip(1)
-        F = torch.cat([A[:, 1:], neg_row], dim=1) + f_base
-        H = torch.clamp_max(torch.maximum(G, F), SCORE_CAP)
-        col_max, col_last = torch.max(H.flip(1), dim=1)
-        better = col_max > best
-        best = torch.where(better, col_max, best)
-        q_start = torch.where(better, (Lq - 1 - col_last).to(torch.int32),
-                              q_start)
-        t_start = torch.where(better, j, t_start)
-        E = torch.maximum(E - ge, H - go)
+    tq = tq or Lq
+    for lo in reversed(range(0, Lq, tq)):
+        hi = min(lo + tq, Lq)
+        rows = torch.arange(lo, hi, **i32)
+        q_mask = rows[None, :] <= q_end[:, None]
+        igge = rows * ge
+        f_base = -go + (rows + 1) * ge
+        H = torch.zeros((B, hi - lo), **i32)
+        E = torch.full((B, hi - lo), -go, **i32)
+        hbp = torch.zeros((B, 1), **i32)   # hb of column j + 1
+        for j in range(n_cols - 1, -1, -1):
+            live = q_mask & (j <= t_end)[:, None]
+            s = torch.where(live, column(j, lo, hi), NEG)
+            # the diagonal predecessor is one row below (i+1, j+1)
+            Hd = torch.cat([H[:, 1:], hbp], dim=1)
+            hbp = hb[:, j:j + 1].clone()
+            G = torch.clamp_min(torch.maximum(Hd + s, E), 0)
+            # F(i) = max_{k>i} G(k) - go - (k-1-i)*ge: a suffix cummax
+            A = torch.cummax((G - igge).flip(1), dim=1).values.flip(1)
+            Aex = torch.maximum(torch.cat([A[:, 1:], neg_row], dim=1),
+                                ab[:, j:j + 1])
+            H = torch.clamp_max(torch.maximum(G, Aex + f_base), SCORE_CAP)
+            col_max, col_last = torch.max(H.flip(1), dim=1)
+            better = (col_max > best) | ((col_max == best) & (best > 0)
+                                         & (j > t_start))
+            best = torch.where(better, col_max, best)
+            q_start = torch.where(better, (hi - 1 - col_last).to(torch.int32),
+                                  q_start)
+            t_start = torch.where(better, j, t_start)
+            E = torch.maximum(E - ge, H - go)
+            hb[:, j] = H[:, 0]
+            ab[:, j] = torch.maximum(A[:, 0], ab[:, j])
     return best, q_start, t_start
 
 
@@ -146,8 +186,9 @@ def sw_ends(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
     q_enc, q_bias, t_enc = _trim(q_enc, q_bias, q_len, t_enc, t_len)
     prof = _profile(scoring, q_enc, q_bias, q_len)
     tcls = _target_classes(scoring, t_enc, t_len)
-    return _ends_loop(lambda j: _column(prof, tcls, j), t_enc.shape[1], B,
-                      q_enc.shape[1], Lq_full, scoring, q_enc.device)
+    return _ends_loop(lambda j, lo, hi: _column(prof, tcls, j, lo, hi),
+                      t_enc.shape[1], B, q_enc.shape[1], Lq_full, scoring,
+                      q_enc.device)
 
 
 def sw_starts(q_enc, q_bias, q_len, t_enc, t_len, q_end, t_end,
@@ -159,8 +200,9 @@ def sw_starts(q_enc, q_bias, q_len, t_enc, t_len, q_end, t_end,
     B, Lq = q_enc.shape
     prof = _profile(scoring, q_enc, q_bias, q_len)
     tcls = _target_classes(scoring, t_enc, t_len)
-    return _starts_loop(lambda j: _column(prof, tcls, j), t_enc.shape[1], B,
-                        Lq, q_end, t_end, scoring, q_enc.device)
+    return _starts_loop(lambda j, lo, hi: _column(prof, tcls, j, lo, hi),
+                        t_enc.shape[1], B, Lq, q_end, t_end, scoring,
+                        q_enc.device)
 
 
 def build_prof_tiles(q_mat, qb_mat, q_lens, qidx, scoring=None):
@@ -219,10 +261,12 @@ def _qm_setup(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, scoring):
     lt = max(1, min(tc.shape[0], int(tl.max()) if len(tl) else 1))
     prof = prof[:, :lq]
 
-    def column(j):
-        # one query profile per tile, gathered at each lane's residue
-        idx = tc[j].view(nT, 1, TB).expand(nT, lq, TB).long()
-        return prof.gather(2, idx).transpose(1, 2).reshape(B, lq)
+    def column(j, lo, hi):
+        # one query profile per tile, gathered at each lane's residue, on
+        # query rows lo..hi-1
+        idx = tc[j].view(nT, 1, TB).expand(nT, hi - lo, TB).long()
+        return prof[:, lo:hi].gather(2, idx).transpose(1, 2).reshape(
+            B, hi - lo)
     return column, lt, B, lq
 
 
@@ -246,6 +290,30 @@ def qm_starts(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, q_end, t_end,
                                       qidx, lj, scoring)
     return _starts_loop(column, n_cols, B, Lq, q_end, t_end, scoring,
                         q_mat.device)
+
+
+def qm_ends_rt(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, scoring=None,
+               tq=TQ_RT):
+    """Row-tiled query-major forward ends (K5), for queries longer than the
+    shared memory of a block holds: qm_ends' function, the query rows swept
+    in tiles of tq. (score, q_end, t_end), each (n_tiles * TB,) int32."""
+    scoring = scoring or default_scoring(q_mat.device)
+    column, n_cols, B, Lq = _qm_setup(q_mat, qb_mat, q_lens, t_mat, t_lens,
+                                      qidx, lj, scoring)
+    return _ends_loop(column, n_cols, B, Lq, q_mat.shape[1], scoring,
+                      q_mat.device, tq)
+
+
+def qm_starts_rt(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, q_end,
+                 t_end, scoring=None, tq=TQ_RT):
+    """Row-tiled query-major reverse-prefix starts (K6) from known ends:
+    qm_starts' function, the query rows swept in tiles of tq from the
+    bottom. (score, q_start, t_start), each (n_tiles * TB,) int32."""
+    scoring = scoring or default_scoring(q_mat.device)
+    column, n_cols, B, Lq = _qm_setup(q_mat, qb_mat, q_lens, t_mat, t_lens,
+                                      qidx, lj, scoring)
+    return _starts_loop(column, n_cols, B, Lq, q_end, t_end, scoring,
+                        q_mat.device, tq)
 
 
 def align_full(q_enc, q_bias, q_len, t_enc, t_len, scoring=None,

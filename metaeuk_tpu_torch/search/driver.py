@@ -10,15 +10,16 @@ hit array is the JAX driver's, field for field.
 Routing (driver.py _qm_mode, _split_qm and the gate of search()): a query
 with at least QM_MIN_CANDS candidates in its bucket goes to the query-major
 kernels (K3/K4, one query against tiles of TB = 128 target lanes), every
-other pair to the pair kernels (K1/K2). METAEUK_QM=off sends every pair to
-the pair kernels, METAEUK_QM=force routes by candidate count alone, and the
-default auto also needs the dense queries to carry at least
-max(100 000, pairs / 20) pairs, on every device. Queries longer than 4096
-stay on the pair kernels, which take any length, until the row-tiled
-query-major kernels (K5/K6) are ported; the JAX driver sends them to K5/K6,
-and its gate always opens when there is one, which this gate does not.
-There is none of the TPU-link machinery (device result accumulators,
-prewarm, fixed launch shapes, uint16 result packs).
+other pair to the pair kernels (K1/K2). A query longer than QM_MAX_LQ goes
+to the row-tiled query-major kernels (K5/K6) whatever its candidate count,
+unless its target tier is longer than QM_MAX_LQ too: such pairs take the
+pair kernels, which take any length (the JAX driver's XLA scan). METAEUK_QM=
+off sends every pair to the pair kernels, METAEUK_QM=force routes by length
+and candidate count alone, and the default auto also needs the dense
+queries to carry at least max(100 000, pairs / 20) pairs, on every device,
+unless a query longer than QM_MAX_LQ is present. There is none of the
+TPU-link machinery (device result accumulators, prewarm, fixed launch
+shapes, uint16 result packs).
 
 The jax-free host helpers of the JAX driver module are copied here, because
 that module imports jax at the top; each names its origin.
@@ -34,7 +35,7 @@ import torch
 from .. import state
 from ..data.submat import composition_bias_rounded_batch, encode_aa
 from ..ops import sw_cuda
-from ..ops.sw_torch import TB
+from ..ops.sw_torch import TB, TQ_RT
 from ..utils import log
 from .evalue import EvalueComputation
 
@@ -72,13 +73,16 @@ MAX_PAIRS_PER_LAUNCH = 1 << 16
 # kernels (driver.py:143): below this, padding each query's candidates to
 # TB = 128 lanes wastes more than the pair kernels cost
 QM_MIN_CANDS = int(os.environ.get("METAEUK_QM_MIN", "48"))
-# query-major DP cells per launch (tiles * TB * Lq * Lt_pad), by device
-# type. A CUDA launch runs one block of 128 threads per tile and holds 4 B of
-# H/E scratch per (tile, row, lane), so it needs a thousand tiles or more to
-# fill an H100; the plain CPU version keeps the pair launches' budget.
+# query-major DP cells per launch (tiles * TB * Lq * Lt_pad; the row-tiled
+# kernels count their scratch rows, TQ_RT + Lt_pad, in place of Lq), by
+# device type. A CUDA launch runs one block of 128 threads per tile and
+# holds 4 B of scratch per (tile, row, lane), so it needs a thousand tiles
+# or more to fill an H100; the plain CPU version keeps the pair launches'
+# budget.
 QM_CELL_BUDGET = {"cuda": 1 << 35, "cpu": 1 << 27}
-# longest query row the query-major kernels take here (the JAX driver sends
-# longer ones to the row-tiled K5/K6, not ported yet)
+# longest query tier of K3/K4 (driver.py:959, sw_pallas.py 2 * QM_TQ);
+# longer queries take the row-tiled K5/K6, whose per-column boundary
+# scratch takes target tiers up to this length too
 QM_MAX_LQ = 4096
 
 
@@ -310,9 +314,17 @@ class SearchDriver:
     def _split_qm(self, ctx, rows, li_rows, qm_on):
         """Route each candidate pair to the query-major kernels (queries with
         >= QM_MIN_CANDS candidates in this bucket) or the pair kernels
-        (driver.py:950). Returns (qm_rows, pair_rows). Queries longer than
-        QM_MAX_LQ stay on the pair kernels."""
-        if not qm_on or not len(rows) or ctx["Lq"] > QM_MAX_LQ:
+        (driver.py:950-968). Returns (qm_rows, pair_rows). A bucket of
+        queries longer than QM_MAX_LQ goes query-major (row-tiled) whole, or
+        to the pair kernels whole if its target tier is longer too."""
+        if not qm_on or not len(rows):
+            return rows[:0], rows
+        if ctx["Lq"] > QM_MAX_LQ:
+            if ctx["Lt"] <= QM_MAX_LQ:
+                return rows, rows[:0]
+            log.warning(f"SW bucket Lq={ctx['Lq']} Lt={ctx['Lt']}: both axes "
+                        "exceed the row-tiled kernels' bounds; using the "
+                        "pair kernels")
             return rows[:0], rows
         counts = np.bincount(li_rows, minlength=ctx["nq"])
         m = counts[li_rows] >= QM_MIN_CANDS
@@ -321,8 +333,10 @@ class SearchDriver:
     def _qm_chunks(self, ctx, rows, oi, ti, ends):
         """Tile `rows` by query (driver.py _submit_qm :1028) and launch the
         query-major forward kernel (ends None) or the reverse one (ends =
-        host (qe, te) arrays); yields (lane -> pair row map, -1 on padding
-        lanes; device outputs) per chunk of tiles."""
+        host (qe, te) arrays), row-tiled for queries longer than QM_MAX_LQ
+        (sw_pallas.py _align_ends_qm :814, _align_starts_qm :832); yields
+        (lane -> pair row map, -1 on padding lanes; device outputs) per chunk
+        of tiles."""
         if not len(rows):
             return
         dev = self.device
@@ -331,22 +345,28 @@ class SearchDriver:
         qidx, ljt, lane_pair = _make_qm_tiles(
             ctx["q_remap"][oi[rows]], ctx["t_remap"][ti[rows]], rows)
         budget = QM_CELL_BUDGET.get(dev.type, QM_CELL_BUDGET["cpu"])
-        cap = max(8, budget // (Lq * Lt_pad * TB))
+        if Lq > QM_MAX_LQ:
+            # a row-tiled tile's scratch: TQ_RT rows of H/E and Lt columns
+            # of boundary, 128 lanes each
+            fwd, rev = sw_cuda.qm_ends_rt, sw_cuda.qm_starts_rt
+            cap = max(8, budget // ((TQ_RT + Lt_pad) * Lt_pad * TB))
+        else:
+            fwd, rev = sw_cuda.qm_ends, sw_cuda.qm_starts
+            cap = max(8, budget // (Lq * Lt_pad * TB))
         for s in range(0, len(qidx), cap):
             lanes = lane_pair[s:s + cap].reshape(-1)
             args = (ctx["q_mat"], ctx["qb_mat"], ctx["q_lens"], ctx["t_mat"],
                     ctx["t_lens"], torch.from_numpy(qidx[s:s + cap]).to(dev),
                     torch.from_numpy(ljt[s:s + cap].reshape(-1)).to(dev))
             if ends is None:
-                outs = sw_cuda.qm_ends(*args, scoring=self.scoring)
+                outs = fwd(*args, scoring=self.scoring)
             else:
                 ok = lanes >= 0
                 qe = np.zeros(len(lanes), np.int32)
                 te = np.zeros(len(lanes), np.int32)
                 qe[ok], te[ok] = ends[0][lanes[ok]], ends[1][lanes[ok]]
-                outs = sw_cuda.qm_starts(*args, torch.from_numpy(qe).to(dev),
-                                         torch.from_numpy(te).to(dev),
-                                         scoring=self.scoring)
+                outs = rev(*args, torch.from_numpy(qe).to(dev),
+                           torch.from_numpy(te).to(dev), scoring=self.scoring)
             yield lanes, outs
 
     @staticmethod
@@ -402,10 +422,13 @@ class SearchDriver:
         qm_on, gated = _qm_mode()
         if qm_on and gated:
             # the query-major path pays only when a meaningful share of the
-            # pairs belongs to dense-candidate queries (driver.py:710-720)
+            # pairs belongs to dense-candidate queries (driver.py:710-720);
+            # a query longer than QM_MAX_LQ keeps it open for the row-tiled
+            # kernels
             cand_counts = np.bincount(oi, minlength=n_orfs)
             qm_share = int(cand_counts[cand_counts >= QM_MIN_CANDS].sum())
-            if qm_share < max(100_000, n_pairs // 20):
+            if qm_share < max(100_000, n_pairs // 20) \
+                    and int(lq_b.max()) <= QM_MAX_LQ:
                 qm_on = False
         mark("prep")
 

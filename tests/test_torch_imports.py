@@ -14,7 +14,7 @@ JAX_PACKAGE_IMPORT = re.compile(
     r"^\s*(from\s+metaeuk_tpu(\.\S+)?\s+import|import\s+metaeuk_tpu(\.|\s|$))",
     re.M)
 
-_BLOCKED_RUN = r"""
+_BLOCK = r"""
 import hashlib, json, sys
 # an interpreter may import jax at start-up: drop it, then block it and the
 # JAX package
@@ -25,6 +25,9 @@ for name in [k for k in sys.modules
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
 sys.modules["metaeuk_tpu"] = None
+"""
+
+_BLOCKED_RUN = _BLOCK + r"""
 
 import metaeuk_tpu_torch.cli
 import metaeuk_tpu_torch.pipeline.predict
@@ -47,6 +50,28 @@ else:
         with open(f"{out}.{s}", "rb") as a:
             assert hashlib.sha256(a.read()).hexdigest() == want[s], s
 loaded = [k for k, v in sys.modules.items() if v is not None and (
+    k.split(".")[0].startswith("jax") or k.split(".")[0] == "metaeuk_tpu")]
+assert not loaded, loaded
+print("jax-free run ok")
+"""
+
+# chip_smoke.py's long-frame phases import the generator of
+# tests/golden/make_long_slice.py (whose golden writer alone imports jax)
+_BLOCKED_LONG_SLICE = _BLOCK + r"""
+sys.path.insert(0, "tests/golden")
+import make_long_slice as mls
+from metaeuk_tpu_torch.ops.orf import OrfExtractor
+from metaeuk_tpu_torch.params import Params
+
+contigs, _ = mls.long_slice(mls.GOLDEN_INPUT)
+ex = OrfExtractor(Params())
+long_frames = []
+for name, seq in contigs:
+    _, frags = ex.extract_contig(seq, 0)
+    long_frames += [len(a) for a in ex.translate_fragments(frags)
+                    if len(a) > 4096]
+assert sorted(long_frames) == mls.GOLDEN_INPUT["frame_lengths"], long_frames
+loaded = [k for k in sys.modules if sys.modules[k] is not None and (
     k.split(".")[0].startswith("jax") or k.split(".")[0] == "metaeuk_tpu")]
 assert not loaded, loaded
 print("jax-free run ok")
@@ -82,9 +107,9 @@ def test_import_pattern_catches_the_jax_package_only():
         assert not JAX_PACKAGE_IMPORT.search(line), line
 
 
-def _blocked_run(tmp_path, mode):
+def _blocked_run(tmp_path, mode, code=_BLOCKED_RUN):
     res = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT / "tests" / "data"),
+        [sys.executable, "-c", code, str(ROOT / "tests" / "data"),
          str(ROOT / "tests" / "golden"), str(tmp_path / "preds"), mode],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
         env=dict(os.environ, OMP_NUM_THREADS="1"))
@@ -100,3 +125,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
 def test_ungapped_port_runs_with_jax_blocked(tmp_path):
     """The ungapped fixture run with jax and metaeuk_tpu blocked."""
     _blocked_run(tmp_path, "ungapped")
+
+
+def test_long_slice_generator_runs_with_jax_blocked(tmp_path):
+    """The long-frame generator that chip_smoke.py imports plants, with jax
+    and metaeuk_tpu blocked, one open frame of each asked length."""
+    _blocked_run(tmp_path, "kmer", _BLOCKED_LONG_SLICE)

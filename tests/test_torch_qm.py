@@ -169,7 +169,7 @@ class _TargetDB:
 
 def _synthetic(long_query=False):
     """test_sw_pallas.py:201's fragments and targets; long_query adds a
-    fragment past the 4096-row bound of the query-major kernels."""
+    fragment past the 4096-row bound of K3/K4."""
     aas = b"ACDEFGHIKLMNPQRSTVWY"
     r = np.random.default_rng(5)
     targets = [bytes(aas[c] for c in r.integers(0, 20, int(n)))
@@ -200,11 +200,12 @@ def _assert_same_hits(ref, got):
         np.testing.assert_array_equal(ref[name], got[name], name)
 
 
-def _jax_hits(orfs, targets, p):
+def _jax_hits(orfs, targets, p, pairs=None):
     old = os.environ.get("METAEUK_QM")
     os.environ["METAEUK_QM"] = "off"
     try:
-        return jax_driver.SearchDriver(p, _TargetDB(targets)).search(orfs)
+        return jax_driver.SearchDriver(p, _TargetDB(targets)).search(orfs,
+                                                                    pairs)
     finally:
         if old is None:
             del os.environ["METAEUK_QM"]
@@ -247,34 +248,40 @@ def test_driver_gate_keeps_small_runs_on_the_pair_kernels(qm_env, mode):
 
 
 def test_driver_keeps_long_queries_on_the_pair_kernels(qm_env):
-    """A fragment past 4096 aa stays on the pair kernels under force (K5/K6
-    are not ported); the others go query-major; the hits are the JAX
-    driver's."""
+    """A fragment past 4096 aa stays on the pair kernels under METAEUK_QM=off
+    and, under force, against a target past 4096 aa (both axes exceed the
+    row-tiled kernels' bounds, driver.py:959-966); against shorter targets
+    under force it takes the row-tiled kernels (tests/test_torch_qm_rt.py).
+    The hits are the JAX driver's; the JAX reference leaves out the pair of
+    two long sequences, whose (16384, 16384) score tensor is gigabytes on
+    the CPU, and the port's two routings agree on it."""
     orfs, targets = _synthetic(long_query=True)
+    r = np.random.default_rng(6)
+    aas = b"ACDEFGHIKLMNPQRSTVWY"
+    targets.append(bytes(aas[c] for c in r.integers(0, 20, 4000))
+                   + orfs[-1][2000:2300])
     p = Params()
     p.search_evalue_thr = 1e5
+    long_q, long_t = len(orfs) - 1, len(targets) - 1
     pairs = np.stack(np.meshgrid(np.arange(len(orfs)),
                                  np.arange(len(targets)),
                                  indexing="ij"), -1).reshape(-1, 2)
-    pairs = pairs[(pairs[:, 0] == len(orfs) - 1) | (pairs[:, 1] < 12)]
-    old = os.environ.get("METAEUK_QM")
-    os.environ["METAEUK_QM"] = "off"
-    try:
-        ref = jax_driver.SearchDriver(p, _TargetDB(targets)).search(orfs,
-                                                                    pairs)
-    finally:
-        if old is None:
-            del os.environ["METAEUK_QM"]
-        else:
-            os.environ["METAEUK_QM"] = old
-    qm_env("force", 1)
-    sw_cuda.reset_counts()
-    got = torch_driver.SearchDriver(p, _TargetDB(targets), "cpu").search(
-        orfs, pairs)
-    assert sw_cuda.PLAIN_CALLS["sw_qm_ends"] > 0
-    assert sw_cuda.PLAIN_CALLS["sw_pair_ends"] > 0
-    assert (got["orf_idx"] == len(orfs) - 1).any()
-    _assert_same_hits(ref, got)
+    pairs = pairs[(pairs[:, 0] == long_q) | (pairs[:, 1] < 12)]
+    both_long = (pairs[:, 0] == long_q) & (pairs[:, 1] == long_t)
+    ref = _jax_hits(orfs, targets, p, pairs[~both_long])
+    hits = {}
+    for mode in ("off", "force"):
+        qm_env(mode, 1)
+        sw_cuda.reset_counts()
+        hits[mode] = torch_driver.SearchDriver(
+            p, _TargetDB(targets), "cpu").search(orfs, pairs)
+        assert sw_cuda.PLAIN_CALLS["sw_pair_ends"] > 0
+        assert (sw_cuda.PLAIN_CALLS["sw_qm_rt_ends"] > 0) == (mode == "force")
+    _assert_same_hits(hits["off"], hits["force"])
+    got = hits["force"]
+    long_hit = (got["orf_idx"] == long_q) & (got["target_idx"] == long_t)
+    assert long_hit.sum() == 1
+    _assert_same_hits(ref, got[~long_hit])
 
 
 def test_make_qm_tiles_matches_jax():
