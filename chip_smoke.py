@@ -18,6 +18,14 @@ Phases, each fatal on failure:
      different row tiles at different columns) and the gapless kernel on
      seeded pairs, all with padding lanes and tiles, repeated targets
      (ties), implanted shared segments and zero-length sequences
+  3b. the microbenchmark kernels against their plain versions, bit for bit
+     (floats compared as their bits): every case of tools/kbench.py (T1-T3)
+     at its TPU shape (256, 512) and REPS 512 on seeded non-zero inputs,
+     T1 also at n_ops 2 and on one warp, every shift amount kb_shift is
+     built for with both fills, a scan with values below NEG; every T4
+     variant and the uN / tjN sweeps at tools/kernel_variants.py's default
+     shape (32 tiles, Lq 256, Lt 2048), a small ragged shape with lanes
+     that never score and repeated lanes, and a shape where H passes 32767
   4. easy-predict through the metaeuk-tpu-torch CLI on tests/data: the four
      outputs byte-identical to tests/golden/easypredict.*
   4b. easy-predict --prefilter-mode ungapped on tests/data and on the
@@ -51,6 +59,13 @@ Phases, each fatal on failure:
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
      rate and its bytes over its memory rate)
+  6b. the microbenchmark entry points (python -m metaeuk_tpu_torch.tools.
+     kbench, .kernel_variants) over all their cases, the kernels launched
+     and no plain version called; each new kernel's time beside its bound
+     (T1 at the rate of each dtype's pipe) and its plain version's; T1 on
+     one warp in cycles per dependent step at the SM clock nvidia-smi reads
+     during the run; 64 x torch.cummax as T3's library yardstick; the SASS
+     opcodes of each T1 chain (cuobjdump)
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 """
@@ -79,6 +94,10 @@ KERNELS = {
     "sw_qm_rt_ends": ("sw_qm_rt.cu", "metaeuk_tpu/ops/sw_pallas.py:539"),
     "sw_qm_rt_starts": ("sw_qm_rt.cu", "metaeuk_tpu/ops/sw_pallas.py:627"),
     "gapless_pair": ("gapless.cu", "metaeuk_tpu/ops/ungapped.py:44"),
+    "kb_alu": ("kbench.cu", "tools/kbench.py:50"),
+    "kb_shift": ("kbench.cu", "tools/kbench.py:79"),
+    "kb_scan": ("kbench.cu", "tools/kbench.py:111"),
+    "qm_variant_ends": ("qm_variants.cu", "tools/kernel_variants.py:48"),
 }
 PAIR_KERNELS = ("sw_pair_ends", "sw_pair_starts")
 UNGAPPED_KERNELS = ("gapless_pair", "sw_qm_ends", "sw_qm_starts")
@@ -579,6 +598,278 @@ def time_qm_rt(torch, np, sw_cuda, sw_torch, errs):
     return out, same
 
 
+def bits(torch, t):
+    """Floats as their bit patterns, so equality is exact to the bit."""
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(
+        t.dtype)
+    return t if view is None else t.view(view)
+
+
+def check_kbench_kernels(torch, kbench_cuda, kbench_torch, kb, errs):
+    """Every kbench case at the TPU shape and REPS on seeded non-zero
+    inputs, each dtype's chain also at n_ops 2 and on one warp, and every
+    shift amount the kernel is built for, both fills."""
+    checks = [(name, kb.SHAPE, kb.REPS, {}) for name in kb.CASES]
+    for name in ("alu_i32", "alu_i16", "alu_f32", "alu_bf16"):
+        checks.append((name, kb.SHAPE, kb.REPS, {"n_ops": 2}))
+        words = 64 if name in ("alu_i16", "alu_bf16") else 32
+        checks.append((name, (1, words), kb.REPS, {}))
+    for amount in kbench_cuda.SHIFT_AMOUNTS:
+        for roll in (False, True):
+            checks.append(("shift_i32", kb.SHAPE, 64,
+                           {"amount": amount, "roll": roll}))
+    checks.append(("shift_i16", kb.SHAPE, kb.REPS, {"amount": 3}))
+    checks.append(("shift_i16", kb.SHAPE, kb.REPS, {"amount": 64,
+                                                    "roll": True}))
+    kernel_of = {"alu": "kb_alu", "shift": "kb_shift", "scan": "kb_scan"}
+    for seed, (name, shape, reps, extra) in enumerate(checks, 1):
+        kind, _, kw = kb.CASES[name]
+        kw = {**kw, **extra}
+        x = kb.case_input(name, "cuda", seed=seed, shape=shape)
+        got = getattr(kbench_cuda, kind)(x, reps, **kw)
+        torch.cuda.synchronize()
+        ref = getattr(kbench_torch, kind)(x, reps, **kw)
+        k = kernel_of[kind]
+        errs[k] = max(errs[k], max_err(torch, (bits(torch, got),),
+                                       (bits(torch, ref),)))
+    # columns below NEG, where the Pallas scan's fill reaches every row but
+    # the last
+    x = kb.case_input("scan256", "cuda", seed=len(checks) + 1)
+    x[:, :3] = -2_000_000 - torch.arange(256, device="cuda",
+                                         dtype=torch.int32)[:, None]
+    errs["kb_scan"] = max(errs["kb_scan"], max_err(
+        torch, (kbench_cuda.scan(x),), (kbench_torch.scan(x),)))
+    print(f"kbench: {len(checks) + 1} cases equal to the plain versions bit "
+          f"for bit (the 11 cases at {kb.SHAPE}, REPS {kb.REPS}; n_ops 2; one "
+          f"warp; shift amounts {kbench_cuda.SHIFT_AMOUNTS} with zero fill "
+          "and wrapped; a scan with columns below NEG)", flush=True)
+
+
+def variant_checks(torch, np, kvar):
+    """(what, prof, tc, variant, tj, unroll) on the card: every variant and
+    the uN / tjN sweeps at the TPU tool's default shape; every variant on a
+    small shape with lanes that never score (codes at -128 or outside the
+    profile), repeated lanes and a narrow score range (ties); every variant
+    where H passes 32767."""
+    V = ("base", "fold", "nocap", "fold_nocap", "nof")
+    for v in V:
+        yield (v, *kvar.variant_inputs(v, 256, 2048, 32, "cuda"), v, 256, 8)
+    for u in (1, 2, 4, 16):
+        yield (f"u{u}", *kvar.variant_inputs("base", 256, 2048, 32, "cuda"),
+               "base", 256, u)
+    for tj in (100, 1024):
+        yield (f"tj{tj}", *kvar.variant_inputs("base", 256, 2048, 32,
+                                               "cuda"), "base", tj, 8)
+    rng = np.random.default_rng(20261016)
+    Lq, Lt, nT = 96, 300, 3
+    prof = rng.integers(0, 3, (nT, Lq, 32)).astype(np.float32)
+    prof[:, :, 21:] = -128
+    tc = rng.integers(0, 20, (Lt, nT * 128)).astype(np.int32)
+    tc[:, 7] = 25                          # every cell at -128
+    tc[:, 8] = 40                          # outside the profile: 0
+    tc[:, 9] = -1
+    tc[:, 10:40] = tc[:, 5:6]              # one lane repeated
+    cap = np.full((1, 256, 32), 200, np.float32)
+    cap[:, :, 21:] = -128
+    cap_tc = np.zeros((512, 128), np.int32)
+    cap_tc[:, 1] = 25
+    for v in V:
+        shift = 1 if v in ("fold", "fold_nocap") else 0
+        p = prof.copy()
+        p[:, :, :21] += shift
+        yield (f"ragged {v}", torch.from_numpy(p).bfloat16().cuda(),
+               torch.from_numpy(tc).cuda(), v, 100, 8)
+        p = cap.copy()
+        p[:, :, :21] += shift
+        yield (f"cap {v}", torch.from_numpy(p).bfloat16().cuda(),
+               torch.from_numpy(cap_tc).cuda(), v, 512, 8)
+
+
+def check_variant_kernel(torch, np, qm_variants_cuda, qm_variants_torch,
+                         kvar, errs):
+    for what, prof, tc, v, tj, u in variant_checks(torch, np, kvar):
+        got = qm_variants_cuda.qm_variant_ends(prof, tc, v, tj, u)
+        torch.cuda.synchronize()
+        ref = qm_variants_torch.qm_variant_ends(prof, tc, v, tj, u)
+        errs["qm_variant_ends"] = max(errs["qm_variant_ends"],
+                                      max_err(torch, got, ref))
+        if what.startswith("cap"):
+            over = int(ref[0][0]) > 32767
+            if over != (v in ("nocap", "fold_nocap")) or int(ref[0][1]):
+                raise AssertionError(f"{what}: best {int(ref[0][0])}, the "
+                                     "cap case does not pass 32767")
+        print(f"variant {what} (Lq {prof.shape[1]}, Lt {tc.shape[0]}, "
+              f"tiles {prof.shape[0]}, tj {tj}, u {u}): equal; lane 0 "
+              f"{[int(o[0]) for o in ref]}, {int((ref[0] > 0).sum())} lanes "
+              "with a hit", flush=True)
+
+
+# T1's pipes on an H100 SXM: int32 at INT32_OPS_PER_S (one DPX add-max a
+# step; __viaddmax_s16x2 two lanes a step); float32 and packed bfloat16 at
+# the FP32 instruction rate (128 lanes an SM, half the data sheet's 67
+# TFLOP/s that counts an FMA as two), add and max one instruction each,
+# two lanes an instruction for bfloat16
+FP32_INSTR_PER_S = 67e12 / 2
+ALU_PIPE = {   # case: (instructions a step, their rate)
+    "alu_i32": (1, INT32_OPS_PER_S), "alu_i16": (0.5, INT32_OPS_PER_S),
+    "alu_f32": (2, FP32_INSTR_PER_S), "alu_bf16": (1, FP32_INSTR_PER_S)}
+
+
+def kbench_bound(kb, name, x):
+    """(bound_ms, bound_by, rule) of a kbench case on x: the least
+    instructions over the pipe's rate, or its bytes (x read, out written)
+    over the memory rate. T2 needs one max an element a rep (the move can be
+    a register rename; int16 packed two a word); T3 n - 1 max and one
+    subtraction an element a pass."""
+    kind = kb.CASES[name][0]
+    n = x.numel()
+    if kind == "alu":
+        per_step, rate = ALU_PIPE[name]
+        instr = kb.REPS * 4 * n * per_step
+        rule = f"{per_step} instr/step at {rate:.4g}/s"
+    elif kind == "shift":
+        rate = INT32_OPS_PER_S
+        instr = kb.REPS * n * (0.5 if x.dtype.itemsize == 2 else 1)
+        rule = f"1 max/element/rep at {rate:.4g}/s"
+    else:
+        rate = INT32_OPS_PER_S
+        instr = (kb.REPS // 8) * 2 * n
+        rule = f"2 ops/element/pass at {rate:.4g}/s"
+    ops_ms = instr / rate * 1e3
+    byte_ms = 2 * n * x.element_size() / BYTES_PER_S * 1e3
+    return (ops_ms, "operations", rule) if ops_ms >= byte_ms else \
+        (byte_ms, "bytes", rule)
+
+
+def sm_clock_mhz():
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+def one_warp_latency(torch, kbench_cuda, kb):
+    """T1 on one warp (32 words): ms per call over about 1.5 s of queued
+    calls, the SM clock read by nvidia-smi while they run, and the cycles
+    per dependent step (one add-max) and per operation (two a step)."""
+    reps = 16384
+    for name in ("alu_i32", "alu_i16", "alu_f32", "alu_bf16"):
+        words = 64 if name in ("alu_i16", "alu_bf16") else 32
+        x = kb.case_input(name, "cuda", seed=3, shape=(1, words))
+        run = lambda: kbench_cuda.alu(x, reps)
+        per_call = time_ms(torch, run, 20)
+        n = max(20, int(1500 / per_call))
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            run()
+        stop.record()
+        mhz = sm_clock_mhz()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop) / n
+        cyc = ms * 1e-3 * mhz * 1e6 / (reps * 4)
+        print(f"{name} on one warp: {ms:.4f} ms per call of {reps} reps x 4 "
+              f"dependent steps, SM clock {mhz:.0f} MHz during the run: "
+              f"{cyc:.2f} cycles per dependent step, {cyc / 2:.2f} per "
+              "operation (latency)", flush=True)
+
+
+def sass_census(_build):
+    """The opcodes of each kb_alu chain at n_ops 8 (the kernel unrolled for
+    n_ops / 2 = 4 steps), from cuobjdump -sass of the built library (what
+    T1's dtypes end in)."""
+    import re
+    import shutil
+    from collections import Counter
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        print("cuobjdump not found: SASS census not taken", flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", str(_build.build("kbench"))],
+                          capture_output=True, text=True, check=True).stdout
+    op = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
+    found = 0
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        tag = next((t for t in ("AluI16x2", "AluBF16x2", "AluI32", "AluF32")
+                    if t in name), None)
+        if tag is None or "Li4E" not in name:
+            continue
+        found += 1
+        ops = Counter(op.findall(fn))
+        print(f"SASS {tag} (n_ops 8): " + ", ".join(
+            f"{k} {v}" for k, v in ops.most_common(8)), flush=True)
+    if found != 4:
+        raise AssertionError(f"cuobjdump showed {found} of the 4 kb_alu "
+                             "chains at n_ops 8")
+
+
+def run_tools(torch, np, kb, kvar, kbench_cuda, kbench_torch,
+              qm_variants_cuda, qm_variants_torch, _build):
+    """Both entry points over all their cases, counted; then each new
+    kernel's time beside its bound and its plain version's, T1 on one warp,
+    T3's torch.cummax yardstick and the SASS census. ({name: (ms, plain_ms,
+    bound_ms, bound_by)}, launches, {name: library_ms})."""
+    for c in (kbench_cuda, qm_variants_cuda):
+        c.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kres = kb.main([])
+    kvar.main([])
+    kvar.main(["u1", "u2", "u4", "u16", "tj64", "tj1024"])
+    torch.cuda.synchronize()
+    launches, plain = counts((kbench_cuda, qm_variants_cuda))
+    print(f"entry points: {time.perf_counter() - t0:.2f} s, launches "
+          f"{launches}, plain {plain}", flush=True)
+    if min(launches.values()) == 0 or any(plain.values()):
+        raise AssertionError("the entry points did not go through the "
+                             "kernels")
+    out, library = {}, {}
+    rows = {}
+    for name in kb.CASES:
+        x = kb.case_input(name, "cuda")
+        kind, _, kw = kb.CASES[name]
+        plain_ms = time_ms(torch, lambda: getattr(kbench_torch, kind)(
+            x, kb.REPS, **kw), 2)
+        bound_ms, by, rule = kbench_bound(kb, name, x)
+        rows[name] = (kres[name][0] / 1e3, plain_ms, bound_ms, by)
+        print(f"{name}: kernel {kres[name][0] / 1e3:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}: {rule})",
+              flush=True)
+    for k, name in (("kb_alu", "alu_i32"), ("kb_shift", "shift_i32"),
+                    ("kb_scan", "scan256")):
+        out[k] = rows[name]
+    x = kb.case_input("scan256", "cuda", seed=5)
+
+    def cummax_yardstick():
+        a = x
+        for _ in range(kb.REPS // 8):
+            a = torch.cummax(a, 0).values - 1
+        return a
+    library["kb_scan"] = time_ms(torch, cummax_yardstick, 10)
+    if not torch.equal(cummax_yardstick(), kbench_cuda.scan(x)):
+        raise AssertionError("torch.cummax yardstick differs from kb_scan")
+    print(f"scan256 library yardstick, {kb.REPS // 8} x (torch.cummax(a, "
+          f"0).values - 1): {library['kb_scan']:.4f} ms (equal output)",
+          flush=True)
+    prof, tc = kvar.variant_inputs("base", 256, 2048, 32, "cuda")
+    cells = 32 * 128 * 256 * 2048
+    run = lambda: qm_variants_cuda.qm_variant_ends(prof, tc)
+    out["qm_variant_ends"] = (
+        time_ms(torch, run, 10),
+        time_ms(torch, lambda: qm_variants_torch.qm_variant_ends(prof, tc),
+                1),
+        *bound(cells, SW_OPS, (prof, tc, *run())))
+    print(f"qm_variant_ends base, 32 tiles, Lq 256, Lt 2048 ({cells} cells):"
+          f" kernel {out['qm_variant_ends'][0]:.4f} ms, plain "
+          f"{out['qm_variant_ends'][1]:.4f} ms, bound "
+          f"{out['qm_variant_ends'][2]:.4f} ms", flush=True)
+    one_warp_latency(torch, kbench_cuda, kb)
+    sass_census(_build)
+    return out, launches, library
+
+
 def main():
     if not (ROOT / CSRC / "sw_pair.cu").exists():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -606,7 +897,11 @@ def main():
     from metaeuk_tpu_torch.ops.orf import OrfExtractor
     from metaeuk_tpu_torch.params import Params
     from metaeuk_tpu_torch.pipeline.predict import EasyPredict
+    from metaeuk_tpu_torch.ops import (kbench_cuda, kbench_torch,
+                                       qm_variants_cuda, qm_variants_torch)
     from metaeuk_tpu_torch.search import driver, prefilter
+    from metaeuk_tpu_torch.tools import kbench as kb
+    from metaeuk_tpu_torch.tools import kernel_variants as kvar
     counters = (sw_cuda, ungapped_cuda)
 
     phase("2 build")
@@ -631,6 +926,13 @@ def main():
     check_qm_kernels(torch, sw_cuda, sw_torch, errs)
     check_qm_rt_kernels(torch, sw_cuda, sw_torch, errs)
     check_gapless_kernel(torch, ungapped_cuda, ungapped_torch, errs)
+
+    phase("3b microbenchmark kernels against their plain versions")
+    t0 = time.perf_counter()
+    check_kbench_kernels(torch, kbench_cuda, kbench_torch, kb, errs)
+    check_variant_kernel(torch, np, qm_variants_cuda, qm_variants_torch,
+                         kvar, errs)
+    print(f"phase 3b: {time.perf_counter() - t0:.2f} s", flush=True)
 
     from tools.make_metagenome import make_metagenome, write_fasta
     sys.path.insert(0, str(GOLDEN))
@@ -931,12 +1233,22 @@ def main():
               f"{bound_ms:.4f} ms ({by}); output equal to the plain "
               "version's", flush=True)
 
+    phase("6b the microbenchmark entry points: kbench (T1-T3) and "
+          "kernel_variants (T4)")
+    t0 = time.perf_counter()
+    tool_times, tool_launches, library = run_tools(
+        torch, np, kb, kvar, kbench_cuda, kbench_torch, qm_variants_cuda,
+        qm_variants_torch, _build)
+    times.update(tool_times)
+    launches.update(tool_launches)
+    print(f"phase 6b: {time.perf_counter() - t0:.2f} s", flush=True)
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"{CSRC}/{src}",
          "replaces": rep, "launches": launches[k], "max_abs_err": errs[k],
          "ms": times[k][0], "plain_ms": times[k][1],
          "bound_ms": times[k][2], "bound_by": times[k][3],
-         "library_ms": None}
+         "library_ms": library.get(k)}
         for k, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

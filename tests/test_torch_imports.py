@@ -78,6 +78,31 @@ print("jax-free run ok")
 """
 
 
+# the port's microbenchmarks: both entry points on the CPU, jax blocked
+_BLOCKED_TOOLS = _BLOCK + r"""
+import metaeuk_tpu_torch.ops.kbench_cuda
+import metaeuk_tpu_torch.ops.kbench_torch
+import metaeuk_tpu_torch.ops.qm_variants_cuda
+import metaeuk_tpu_torch.ops.qm_variants_torch
+from metaeuk_tpu_torch.tools import kbench, kernel_variants
+
+res = kbench.main(["--device", "cpu", "alu_i32"])
+assert int(res["alu_i32"][2].min()) == 512 * 4
+res = kernel_variants.main(["--device", "cpu", "--lq", "32", "--lt", "64",
+                            "--tiles", "1", "base"])
+assert int(res["base"][1][0]) > 0
+loaded = [k for k in sys.modules if sys.modules[k] is not None and (
+    k.split(".")[0].startswith("jax") or k.split(".")[0] in (
+        "metaeuk_tpu", "tools"))]
+assert not loaded, loaded
+print("jax-free run ok")
+"""
+
+# an import of the repository's tools/ package, whose modules import jax
+TOOLS_IMPORT = re.compile(
+    r"^\s*(from\s+tools(\.|\s)|import\s+tools(\.|\s|$))", re.M)
+
+
 def _sources():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
@@ -94,6 +119,15 @@ def test_no_jax_package_import_in_port_sources():
     for f in _sources():
         hit = JAX_PACKAGE_IMPORT.search(f.read_text())
         assert hit is None, (f, hit and hit.group(0))
+
+
+def test_no_repo_tools_import_in_port_package():
+    for f in sorted(PKG.rglob("*.py")):
+        hit = TOOLS_IMPORT.search(f.read_text())
+        assert hit is None, (f, hit and hit.group(0))
+    assert TOOLS_IMPORT.search("from tools import kbench")
+    assert not TOOLS_IMPORT.search("from .tools import kbench")
+    assert not TOOLS_IMPORT.search("from metaeuk_tpu_torch.tools import x")
 
 
 def test_import_pattern_catches_the_jax_package_only():
@@ -131,3 +165,12 @@ def test_long_slice_generator_runs_with_jax_blocked(tmp_path):
     """The long-frame generator that chip_smoke.py imports plants, with jax
     and metaeuk_tpu blocked, one open frame of each asked length."""
     _blocked_run(tmp_path, "kmer", _BLOCKED_LONG_SLICE)
+
+
+def test_microbenchmark_entry_points_run_with_jax_blocked(tmp_path):
+    """The six modules of T1-T4 import, and `kbench --device cpu alu_i32`
+    and `kernel_variants --device cpu base` run, with jax, metaeuk_tpu and
+    the repository's tools/ blocked."""
+    _blocked_run(tmp_path, "kmer", _BLOCKED_TOOLS.replace(
+        'sys.modules["metaeuk_tpu"] = None',
+        'sys.modules["metaeuk_tpu"] = None\nsys.modules["tools"] = None'))
