@@ -7,17 +7,20 @@ Phases, each fatal on failure:
   1. require a CUDA device; print the card's name and power limit
   2. build the CUDA kernels from metaeuk_tpu_torch/csrc with nvcc (one
      process per source, all started together) and the host library from
-     native/ with g++
+     native/ with g++; ptxas's registers and spill bytes of K5/K6
   3. each kernel against its plain PyTorch version on the card, compared
      with torch.equal (all outputs are integers: the tolerance is zero): the
      pair kernels on seeded ragged batches at the driver's bucket shapes (Lq
      up to 4608), the query-major kernels on seeded tiles at Lq 64..4096
-     with Lt across 512, the row-tiled query-major kernels at a row tile
-     of 64 on Lq 256..1024 and at the real one on the 16384 and 65536 tiers
-     (true lengths up to 32,734, Lt up to 4096, equal scores planted in
-     different row tiles at different columns) and the gapless kernel on
-     seeded pairs, all with padding lanes and tiles, repeated targets
-     (ties), implanted shared segments and zero-length sequences
+     with Lt across 512, the long-query kernels K5/K6 on Lq 256..1024 and
+     on the 16384 and 65536 tiers (true lengths up to 32,734, Lt up to 4096;
+     the plain versions at a row tile of 64, then at the real one), with
+     equal scores planted in different row tiles at different columns and
+     on either side of the kernels' column boundaries (15/16, a thread's
+     edge; 511/512, a stripe's) in a long query's first and last rows, the
+     reverse pass also over every lane's whole matrix; and the gapless
+     kernel on seeded pairs, all with padding lanes and tiles, repeated
+     targets (ties), implanted shared segments and zero-length sequences
   3b. the microbenchmark kernels against their plain versions, bit for bit
      (floats compared as their bits): every case of tools/kbench.py (T1-T3)
      at its TPU shape (256, 512) and REPS 512 on seeded non-zero inputs,
@@ -54,11 +57,14 @@ Phases, each fatal on failure:
      pairs through the pair kernels give an equal hit array; then the
      long-frame contigs alone in k-mer mode under the default routing and
      under METAEUK_QM=off, hits and outputs equal; wall, stage and
-     align-phase seconds, cells and launches of each run
+     align-phase seconds, cells and launches of each run, and each
+     kernel's summed time in the first run (K7's on long rows among them;
+     CUDA events around each launch, put there by a hook of this script)
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
-     rate and its bytes over its memory rate)
+     rate and its bytes over its memory rate); K5/K6 also against the Lt
+     1024 tier (targets of 513-600 aa)
   6b. the microbenchmark entry points (python -m metaeuk_tpu_torch.tools.
      kbench, .kernel_variants) over all their cases, the kernels launched
      and no plain version called; each new kernel's time beside its bound
@@ -102,6 +108,10 @@ KERNELS = {
 PAIR_KERNELS = ("sw_pair_ends", "sw_pair_starts")
 UNGAPPED_KERNELS = ("gapless_pair", "sw_qm_ends", "sw_qm_starts")
 RT_KERNELS = ("sw_qm_rt_ends", "sw_qm_rt_starts")
+# K5/K6's __global__ function in ptxas's report (the instance of its
+# template for the forward and the reverse pass)
+RT_KERNEL_SYMBOLS = {"sw_qm_rt_ends": "sw_qm_rt_kernelILb0E",
+                     "sw_qm_rt_starts": "sw_qm_rt_kernelILb1E"}
 # (Lq, Lt, pairs): the driver's length tiers, plus one tier above the TPU
 # kernels' 4096-row bound
 CHECK_SHAPES = ((64, 64, 1024), (128, 256, 1024), (256, 512, 2048),
@@ -111,14 +121,15 @@ CHECK_SHAPES = ((64, 64, 1024), (128, 256, 1024), (256, 512, 2048),
 QM_SHAPES = ((64, 512, 64, 300, 96), (128, 1024, 64, 300, 64),
              (256, 256, 32, 300, 48), (1024, 1024, 8, 200, 12),
              (4096, 1024, 4, 100, 4))
-# (Lq, Lt, query rows, target rows, tiles, row tile, query lengths): the
-# row-tiled kernels at a shrunk row tile of 64 (many tile boundaries), then
-# at the real one (None: sw_torch.TQ_RT) on the 16384 and 65536 tiers with
-# true lengths up to 32,734 and Lt up to 4096
+# (Lq, Lt, query rows, target rows, tiles, row tile, query lengths): K5/K6
+# with the plain versions at a shrunk row tile of 64 (many tile
+# boundaries), then at the real one (None: sw_torch.TQ_RT) on the 16384 and
+# 65536 tiers with true lengths up to 32,734 and Lt up to 4096 (eight
+# stripes of 512)
 QM_RT_SHAPES = ((256, 512, 8, 300, 24, 64, (1, 256)),
                 (1024, 1024, 4, 200, 12, 64, (1, 1024)),
                 (16384, 512, 4, 300, 8, None, (4097, 16384)),
-                (16384, 4096, 2, 64, 3, None, (4097, 6200)),
+                (16384, 4096, 2, 64, 4, None, (4097, 6200)),
                 (65536, 512, 3, 200, 6, None, (16385, 32734)))
 # (Lq, Lt, query rows, target rows): gapless prefilter buckets, the last
 # as large as one of the ungapped slice's launches (4.2M pairs)
@@ -134,9 +145,11 @@ OFF_CELL_BUDGET = 1 << 39
 # timed with the pair kernels on the same pairs; gapless (Lq, Lt, pairs)
 TIME_SHAPE = (256, 512, 4096)
 QM_TIME_SHAPE = (128, 512, 512)
-# row-tiled (Lq tier, Lt, tiles), query lengths 8192..16384, timed with the
-# pair kernels on the same pairs
+# K5/K6 (Lq tier, Lt, tiles), query lengths 8192..16384, timed with the
+# pair kernels on the same pairs (targets of 256-512 aa); then the Lt 1024
+# tier, targets of 513-600 aa (two stripes)
 QM_RT_TIME_SHAPE = (16384, 512, 64)
+QM_RT_WIDE_SHAPE = (16384, 1024, 64, 513, 600)
 GAPLESS_TIME_SHAPE = (128, 512, 1 << 18)
 # H100 SXM peaks: int32 operations (64 INT32 lanes per SM, half the 128 FP32
 # lanes behind the data sheet's 67 TFLOP/s, which counts an FMA as two) and
@@ -216,6 +229,54 @@ def pair_kernels_only(driver):
     finally:
         del os.environ["METAEUK_QM"]
         driver.CELL_BUDGET["cuda"] = budget
+
+
+@contextlib.contextmanager
+def launch_events(torch, module):
+    """Brackets each launch through module._kernel (the ctypes entry points
+    of ops/sw_cuda.py and ops/ungapped_cuda.py) with CUDA events on the
+    current stream, for this script's measurement only; yields {kernel:
+    [(start, stop)]}, read after a synchronise."""
+    kernel, events = module._kernel, {}
+
+    def timed_kernel(*key):
+        fn = kernel(*key)
+
+        def launch(*args):
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+            rc = fn(*args)
+            stop.record()
+            events.setdefault(fn.__name__, []).append((start, stop))
+            return rc
+        return launch
+    module._kernel = timed_kernel
+    try:
+        yield events
+    finally:
+        module._kernel = kernel
+
+
+def ptxas_usage(text):
+    """{function: [registers, spill store bytes, spill load bytes]} from
+    nvcc's -Xptxas -v report."""
+    import re
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, [0, 0, 0])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return out
 
 
 def same_hits(np, ref, got, what):
@@ -323,6 +384,33 @@ def plant_row_tile_ties(q, qb, ql, t, tl, tq, rng, n=24):
     t[1], tl[1] = t[0], tl[0]
 
 
+def plant_column_ties(q, qb, ql, t, tl, rng):
+    """Query 1 gets W (bias -2) in its first row and C (bias 0) in its last,
+    each scoring 9 against its own residue, and other residues with a bias
+    of -9 elsewhere, so no other cell scores above 0; targets 3 and 4 (and 5
+    and 6 where the tier is wider than 512) hold a W and a C on either side
+    of a K5/K6 column boundary, 15/16 (a thread's edge) and 511/512 (a
+    stripe's edge), at full length (16 columns a thread). Returns {target:
+    (forward end, reverse start over the whole matrix)} as (row, column):
+    the first column wins forward, the last one in reverse."""
+    from metaeuk_tpu_torch.data.submat import encode_aa
+    W, C = (int(encode_aa(r)[0]) for r in (b"W", b"C"))
+    other = [a for a in range(20) if a not in (W, C)]
+    ql[1] = max(ql[1], 2)
+    Lt, last = t.shape[1], int(ql[1]) - 1
+    q[1], qb[1] = rng.choice(other, q.shape[1]), -9
+    (q[1, 0], qb[1, 0]), (q[1, last], qb[1, last]) = (W, -2), (C, 0)
+    cases = [(3, 16, 15), (4, 15, 16)]
+    if Lt > 512:
+        cases += [(5, 512, 511), (6, 511, 512)]
+    expect = {}
+    for k, w, c in cases:
+        t[k], tl[k] = rng.choice(other, Lt), Lt
+        t[k, w], t[k, c] = W, C
+        expect[k] = ((last, c), (0, w)) if c < w else ((0, w), (last, c))
+    return expect
+
+
 def check_qm_rt_kernels(torch, sw_cuda, sw_torch, errs):
     import numpy as np
     rng = np.random.default_rng(20260823)
@@ -334,13 +422,16 @@ def check_qm_rt_kernels(torch, sw_cuda, sw_torch, errs):
         ql = rng.integers(lo, hi + 1, nq).astype(np.int32)
         ql[5::13] = 0
         plant_row_tile_ties(q, qb, ql, t, tl, tq, rng)
+        col_ties = plant_column_ties(q, qb, ql, t, tl, rng)
         qidx = rng.integers(0, nq, nT).astype(np.int32)
-        qidx[:2] = 0                        # query 0's ties
+        qidx[:2] = 0                        # query 0's row-tile ties
+        qidx[-2] = 1                        # query 1's column ties
         qidx[-1] = -1                       # a padding tile
         lj = rng.integers(0, nt, (nT, TB)).astype(np.int32)
         lj[:, 100:] = -1                    # padding lanes
         lj[1, :] = np.arange(TB) % nt       # every target, repeats included
         lj[2, 5:40] = 1                     # one target many times (ties)
+        lj[-2, :len(col_ties)] = list(col_ties)
         args = tuple(torch.from_numpy(a).cuda() for a in (
             q, qb, ql, t, tl, qidx, lj.reshape(-1)))
         got = sw_cuda.qm_ends_rt(*args, tq=tq)
@@ -349,25 +440,38 @@ def check_qm_rt_kernels(torch, sw_cuda, sw_torch, errs):
         errs["sw_qm_rt_ends"] = max(errs["sw_qm_rt_ends"],
                                     max_err(torch, got, ref))
         B = nT * TB
-        ends = [(torch.clamp_min(ref[1], 0), torch.clamp_min(ref[2], 0))]
+        whole = tuple(torch.full((B,), n - 1, dtype=torch.int32,
+                                 device="cuda") for n in (Lq, Lt))
+        ends = [(torch.clamp_min(ref[1], 0), torch.clamp_min(ref[2], 0)),
+                whole]
         if tq < sw_torch.TQ_RT:   # random ends, past the lengths and -1
             ends.append(tuple(torch.from_numpy(rng.integers(-1, n + 2, B))
                               .int().cuda() for n in (Lq, Lt)))
+        starts = []
         for k, (qe, te) in enumerate(ends):
             got = sw_cuda.qm_starts_rt(*args, qe, te, tq=tq)
             torch.cuda.synchronize()
-            ref2 = sw_torch.qm_starts_rt(*args, qe, te, tq=tq)
+            starts.append(sw_torch.qm_starts_rt(*args, qe, te, tq=tq))
             errs["sw_qm_rt_starts"] = max(errs["sw_qm_rt_starts"],
-                                          max_err(torch, got, ref2))
-            if k == 0 and not torch.equal(ref[0], ref2[0]):
+                                          max_err(torch, got, starts[-1]))
+            if k == 0 and not torch.equal(ref[0], starts[-1][0]):
                 raise AssertionError("reverse score differs from forward "
                                      "best")
+        base = (nT - 2) * TB
+        for lane, (k, (fwd, rev)) in enumerate(col_ties.items()):
+            b = base + lane
+            got_fwd = (int(ref[1][b]), int(ref[2][b]))
+            got_rev = (int(starts[1][1][b]), int(starts[1][2][b]))
+            if int(ref[0][b]) != 9 or got_fwd != fwd or got_rev != rev:
+                raise AssertionError(
+                    f"column tie of target {k}: score {int(ref[0][b])}, end "
+                    f"{got_fwd}, start {got_rev}; expected 9, {fwd}, {rev}")
         tie = [int(ref[k][TB]) for k in range(3)]   # tile 1, lane 0: target 0
-        print(f"row-tiled Lq={Lq} Lt={Lt} tiles={nT} row tile {tq}, query "
-              f"lengths up to {int(ql.max())}: ends and starts equal "
-              f"({int((ref[0] > 0).sum())} lanes with a hit; planted tie "
-              f"won at row {tie[1]}, column {tie[2]}, score {tie[0]})",
-              flush=True)
+        print(f"long-query Lq={Lq} Lt={Lt} tiles={nT} (plain row tile {tq}),"
+              f" query lengths up to {int(ql.max())}: ends and starts equal "
+              f"({int((ref[0] > 0).sum())} lanes with a hit; planted row-tile"
+              f" tie won at row {tie[1]}, column {tie[2]}, score {tie[0]}; "
+              f"{len(col_ties)} column-boundary ties as expected)", flush=True)
 
 
 def check_gapless_kernel(torch, ungapped_cuda, ungapped_torch, errs):
@@ -553,48 +657,61 @@ def time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
 
 
 def time_qm_rt(torch, np, sw_cuda, sw_torch, errs):
-    """{name: (ms, plain_ms, bound_ms, bound_by)} of the row-tiled kernels at
+    """{name: (ms, plain_ms, bound_ms, bound_by)} of K5/K6 at
     QM_RT_TIME_SHAPE, one query per tile and 128 distinct targets per tile,
-    each kernel's output there equal to its plain version's; and the pair
-    kernels' (ends, starts) ms on the same pairs."""
+    each kernel's output there equal to its plain version's, and the pair
+    kernels' (ends, starts) ms on the same pairs; then the same for K5/K6 at
+    QM_RT_WIDE_SHAPE, printed only."""
     Lq, Lt, nT = QM_RT_TIME_SHAPE
-    rng = np.random.default_rng(10)
-    TB, nt, dev = sw_torch.TB, 3000, "cuda"
-    q, qb, _, t, _ = staged_batch(torch, rng, Lq, Lt, nT, nt, dev)
-    ql = torch.from_numpy(rng.integers(Lq // 2, Lq + 1, nT)).int().cuda()
-    tl = torch.from_numpy(rng.integers(Lt // 2, Lt + 1, nt)).int().cuda()
-    qidx = torch.arange(nT, device=dev, dtype=torch.int32)
-    lj = torch.from_numpy(np.stack([rng.choice(nt, TB, replace=False)
-                                    for _ in range(nT)]).reshape(-1)).int()
-    args = (q, qb, ql, t, tl, qidx, lj.cuda())
-    ends = sw_cuda.qm_ends_rt(*args)
-    qe, te = torch.clamp_min(ends[1], 0), torch.clamp_min(ends[2], 0)
-    lane_q = qidx.long().repeat_interleave(TB)
-    q_len, t_len = ql[lane_q], tl[args[-1].long()]
-    fwd = int((q_len.long() * t_len.long()).sum())
-    rev = int(((torch.minimum(qe, q_len - 1).long() + 1)
-               * (torch.minimum(te, t_len - 1).long() + 1)).sum())
-    errs["sw_qm_rt_ends"] = max(errs["sw_qm_rt_ends"], max_err(
-        torch, ends, sw_torch.qm_ends_rt(*args)))
-    starts = sw_cuda.qm_starts_rt(*args, qe, te)
-    errs["sw_qm_rt_starts"] = max(errs["sw_qm_rt_starts"], max_err(
-        torch, starts, sw_torch.qm_starts_rt(*args, qe, te)))
-    out = {
-        "sw_qm_rt_ends": (
-            time_ms(torch, lambda: sw_cuda.qm_ends_rt(*args), 2),
-            time_ms(torch, lambda: sw_torch.qm_ends_rt(*args), 1),
-            *bound(fwd, SW_OPS, (*args, *ends))),
-        "sw_qm_rt_starts": (
-            time_ms(torch, lambda: sw_cuda.qm_starts_rt(*args, qe, te), 2),
-            time_ms(torch, lambda: sw_torch.qm_starts_rt(*args, qe, te), 1),
-            *bound(rev, SW_OPS, (*args, qe, te, *starts)))}
-    pair_args = (q[lane_q], qb[lane_q], q_len, t[args[-1].long()], t_len)
-    same = (time_ms(torch, lambda: sw_cuda.sw_ends(*pair_args), 1),
-            time_ms(torch, lambda: sw_cuda.sw_starts(*pair_args, qe, te), 1))
-    print(f"row-tiled tiles={nT} (pairs {nT * TB}) Lq={Lq} Lt={Lt}: {fwd} "
-          f"forward cells, {rev} reverse cells; pair kernels on the same "
-          f"pairs: ends {same[0]:.4f} ms, starts {same[1]:.4f} ms",
-          flush=True)
+    cases = ((10, Lq, Lt, nT, Lt // 2, Lt), (11, *QM_RT_WIDE_SHAPE))
+    for seed, Lq, Lt, nT, t_lo, t_hi in cases:
+        rng = np.random.default_rng(seed)
+        TB, nt, dev = sw_torch.TB, 3000, "cuda"
+        q, qb, _, t, _ = staged_batch(torch, rng, Lq, Lt, nT, nt, dev)
+        ql = torch.from_numpy(rng.integers(Lq // 2, Lq + 1, nT)).int().cuda()
+        tl = torch.from_numpy(rng.integers(t_lo, t_hi + 1, nt)).int().cuda()
+        qidx = torch.arange(nT, device=dev, dtype=torch.int32)
+        lj = torch.from_numpy(np.stack([rng.choice(nt, TB, replace=False)
+                                        for _ in range(nT)]).reshape(-1))
+        args = (q, qb, ql, t, tl, qidx, lj.int().cuda())
+        ends = sw_cuda.qm_ends_rt(*args)
+        qe, te = torch.clamp_min(ends[1], 0), torch.clamp_min(ends[2], 0)
+        lane_q = qidx.long().repeat_interleave(TB)
+        q_len, t_len = ql[lane_q], tl[args[-1].long()]
+        fwd = int((q_len.long() * t_len.long()).sum())
+        rev = int(((torch.minimum(qe, q_len - 1).long() + 1)
+                   * (torch.minimum(te, t_len - 1).long() + 1)).sum())
+        errs["sw_qm_rt_ends"] = max(errs["sw_qm_rt_ends"], max_err(
+            torch, ends, sw_torch.qm_ends_rt(*args)))
+        starts = sw_cuda.qm_starts_rt(*args, qe, te)
+        errs["sw_qm_rt_starts"] = max(errs["sw_qm_rt_starts"], max_err(
+            torch, starts, sw_torch.qm_starts_rt(*args, qe, te)))
+        row = {
+            "sw_qm_rt_ends": (
+                time_ms(torch, lambda: sw_cuda.qm_ends_rt(*args), 3),
+                time_ms(torch, lambda: sw_torch.qm_ends_rt(*args), 1),
+                *bound(fwd, SW_OPS, (*args, *ends))),
+            "sw_qm_rt_starts": (
+                time_ms(torch, lambda: sw_cuda.qm_starts_rt(*args, qe, te),
+                        3),
+                time_ms(torch, lambda: sw_torch.qm_starts_rt(*args, qe, te),
+                        1),
+                *bound(rev, SW_OPS, (*args, qe, te, *starts)))}
+        print(f"long-query tiles={nT} (pairs {nT * TB}) Lq={Lq} Lt={Lt}, "
+              f"targets {t_lo}-{t_hi} aa: {fwd} forward cells, {rev} reverse "
+              "cells", flush=True)
+        for k, (ms, plain_ms, bound_ms, by) in row.items():
+            print(f"  {k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({by})", flush=True)
+        if seed == cases[0][0]:
+            out = row
+            pair_args = (q[lane_q], qb[lane_q], q_len, t[args[-1].long()],
+                         t_len)
+            same = (time_ms(torch, lambda: sw_cuda.sw_ends(*pair_args), 1),
+                    time_ms(torch, lambda: sw_cuda.sw_starts(*pair_args, qe,
+                                                             te), 1))
+            print(f"  pair kernels on the same pairs: ends {same[0]:.4f} ms,"
+                  f" starts {same[1]:.4f} ms", flush=True)
     return out, same
 
 
@@ -919,6 +1036,13 @@ def main():
         b = _build.BUILT.get(s, {})
         print(f"{s}.cu {b.get('seconds', 0.0):.2f} s")
         print(b.get("ptxas", "(cached)"), flush=True)
+    usage = ptxas_usage(_build.BUILT.get("sw_qm_rt", {}).get("ptxas", ""))
+    for k, tag in RT_KERNEL_SYMBOLS.items():
+        found = [v for n, v in usage.items() if tag in n]
+        print(f"{k}: " + (f"{found[0][0]} registers, {found[0][1]} bytes "
+                          f"spill stores, {found[0][2]} bytes spill loads"
+                          if found else "no ptxas report (a cached build)"),
+              flush=True)
 
     phase("3 kernels against their plain versions")
     errs = dict.fromkeys(KERNELS, 0)
@@ -1145,11 +1269,17 @@ def main():
         p = Params(prefilter_mode="ungapped")
         reset(torch, counters, driver, prefilter)
         t0 = time.perf_counter()
-        ep = EasyPredict(p, device="cuda")
-        ep.run(str(td / "l.fna"), str(td / "l.faa"), str(td / "l_slice"),
-               tmp_dir=str(tmp))
-        torch.cuda.synchronize()
+        with launch_events(torch, sw_cuda) as sw_ev, \
+                launch_events(torch, ungapped_cuda) as gap_ev:
+            ep = EasyPredict(p, device="cuda")
+            ep.run(str(td / "l.fna"), str(td / "l.faa"), str(td / "l_slice"),
+                   tmp_dir=str(tmp))
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        for k, evs in sorted({**sw_ev, **gap_ev}.items()):
+            ms = sum(a.elapsed_time(b) for a, b in evs)
+            print(f"{k}: {len(evs)} launches, {ms:.3f} ms of kernel time "
+                  "(CUDA events around each launch)", flush=True)
         run_l, run_p = counts(counters)
         pairs = np.load(tmp / "pref_pairs.npy")
         hits_qm = np.load(tmp / "search_hits.npy")

@@ -1,7 +1,7 @@
 """Smith-Waterman alignment: wrappers over the CUDA kernels in
 csrc/sw_pair.cu (pair-batched), csrc/sw_qm.cu (query-major) and
-csrc/sw_qm_rt.cu (query-major in row tiles, for long queries), dispatched by
-the device of the tensors given.
+csrc/sw_qm_rt.cu (query-major for long queries, a warp per pair),
+dispatched by the device of the tensors given.
 
 - A CPU tensor goes to the plain PyTorch version (ops/sw_torch.py).
 - A CUDA tensor launches the kernel, or raises. There is no fallback.
@@ -14,7 +14,9 @@ one thread per pair. qm_ends and qm_starts are _align_ends_qm and
 _align_starts_qm over build_prof_tiles / build_tcodes_T (K3, K4): one query
 row per tile of TB = 128 target lanes, read from the staged matrices.
 qm_ends_rt and qm_starts_rt are the same calls for Lq > 4096, which the JAX
-package runs on the row-tiled _qm_call_rt (K5, K6; csrc/sw_qm_rt.cu).
+package runs on the row-tiled _qm_call_rt (K5, K6). Their CUDA kernels
+(csrc/sw_qm_rt.cu) take no row tile: a warp aligns one lane's pair with the
+target's columns in registers and no H/E scratch.
 
 LAUNCHES counts kernel launches and PLAIN_CALLS calls that went to the plain
 version, per kernel; reset_counts() sets both to zero.
@@ -34,9 +36,12 @@ KERNELS = ("sw_pair_ends", "sw_pair_starts", "sw_qm_ends", "sw_qm_starts",
 SOURCES = {"sw_pair_ends": "sw_pair", "sw_pair_starts": "sw_pair",
            "sw_qm_ends": "sw_qm", "sw_qm_starts": "sw_qm",
            "sw_qm_rt_ends": "sw_qm_rt", "sw_qm_rt_starts": "sw_qm_rt"}
-# dynamic shared memory a block may hold on an H100 (the query profile, or
-# one row tile of it)
+# dynamic shared memory a block may hold on an H100 (K3/K4's query profile)
 MAX_SMEM = 232448
+# target columns the long-query kernels (K5/K6) sweep at once: a staged
+# target tier wider than this needs their stripe hand-off, one word per
+# (lane, query row)
+RT_STRIPE = 512
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
@@ -57,14 +62,11 @@ _ARGTYPES = {
     # as above with q_end, t_end after lj
     "sw_qm_starts": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
                      _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    # as sw_qm_ends with the row-tile size after n_tiles and the boundary
-    # scratch after the H/E scratch
-    "sw_qm_rt_ends": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I,
-                      _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    # as sw_qm_starts, the same two additions
-    "sw_qm_rt_starts": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
-                        _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 }
+# as sw_qm_ends / sw_qm_starts, with the stripe hand-off (or NULL) in place
+# of the H/E scratch
+_ARGTYPES["sw_qm_rt_ends"] = _ARGTYPES["sw_qm_ends"]
+_ARGTYPES["sw_qm_rt_starts"] = _ARGTYPES["sw_qm_starts"]
 
 
 def reset_counts():
@@ -167,10 +169,10 @@ def align_full(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
 
 
 def _qm_inputs(scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,
-               *extra, profile_rows):
+               *extra, profile_rows=None):
     """Checks one CUDA device, the shapes and the shared-memory size of the
-    profile_rows query rows that a block stages; returns the kernel's
-    contiguous operands."""
+    profile_rows query rows that a block stages (K3/K4; None for K5/K6);
+    returns the kernel's contiguous operands."""
     dev = q_mat.device
     tensors = (q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, *extra,
                scoring.submat)
@@ -187,7 +189,7 @@ def _qm_inputs(scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,
     if scoring.submat.shape != (alph, alph) or alph > 32:
         raise ValueError("sw kernels take a square substitution matrix of "
                          "at most 32 classes")
-    if profile_rows * alph * 2 > MAX_SMEM:
+    if profile_rows is not None and profile_rows * alph * 2 > MAX_SMEM:
         raise ValueError(f"sw_qm kernels: a {profile_rows}-row query profile "
                          "exceeds the shared memory of a block")
     return (scoring.submat.to(torch.int32).contiguous(),
@@ -200,32 +202,50 @@ def _qm_inputs(scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,
             *(v.to(torch.int32).contiguous() for v in (lj, *extra)))
 
 
-def _qm_launch(name, scoring, tq, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx,
-               lj, *extra):
-    """Launches a query-major kernel: K3/K4 (tq None) with an H/E scratch of
-    (tiles, Lq, 128) words, or the row-tiled K5/K6 with one of (tiles, tq,
-    128) words and a boundary of (tiles, Lt, 128) words."""
-    Lq = q_mat.shape[1]
-    rows = Lq if tq is None else max(1, min(int(tq), Lq))
+# id(submat) -> (submat, whether its scores fit int8): each matrix is read
+# back to the host once, and kept so that its id stays its own
+_FITS_INT8 = {}
+
+
+def _check_int8(submat):
+    """K5/K6 keep the target profile as int8: every score must fit."""
+    seen = _FITS_INT8.get(id(submat))
+    if seen is None:
+        lo, hi = torch.aminmax(submat)
+        seen = _FITS_INT8[id(submat)] = (submat,
+                                         -128 <= int(lo) and int(hi) <= 127)
+    if not seen[1]:
+        raise ValueError("sw_qm_rt kernels take substitution scores in "
+                         "[-128, 127]")
+
+
+def _qm_launch(name, scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,
+               *extra):
+    """Launches a query-major kernel: K3/K4 with an H/E scratch of (tiles,
+    Lq, 128) words, or K5/K6 (sw_qm_rt_*) with none, and with the stripe
+    hand-off of (tiles * 128, Lq) words only when the target tier is wider
+    than RT_STRIPE."""
+    long_query = name.startswith("sw_qm_rt")
+    Lq, Lt = q_mat.shape[1], t_mat.shape[1]
     sub, q, qb, ql, t, tl, qi, *lanes = _qm_inputs(
         scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, *extra,
-        profile_rows=rows)
-    nq, (nt, Lt), nT = q.shape[0], t.shape, qi.shape[0]
+        profile_rows=None if long_query else Lq)
+    nq, nt, nT = q.shape[0], t.shape[0], qi.shape[0]
     dev = q_mat.device
-    scratch = [torch.empty((nT, rows, sw_torch.TB), dtype=torch.int32,
-                           device=dev)]
-    tiling = [nT]
-    if tq is not None:
-        scratch.append(torch.empty((nT, Lt, sw_torch.TB), dtype=torch.int32,
-                                   device=dev))
-        tiling.append(rows)
+    if not long_query:
+        scratch = torch.empty((nT, Lq, sw_torch.TB), dtype=torch.int32,
+                              device=dev)
+    else:
+        _check_int8(scoring.submat)
+        scratch = torch.empty((nT * sw_torch.TB, Lq), dtype=torch.int32,
+                              device=dev) if Lt > RT_STRIPE else None
     outs = [torch.empty(nT * sw_torch.TB, dtype=torch.int32, device=dev)
             for _ in range(3)]
     _launch(name, [
         sub.data_ptr(), sub.shape[0], q.data_ptr(), qb.data_ptr(),
         ql.data_ptr(), nq, Lq, t.data_ptr(), tl.data_ptr(), nt, Lt,
-        qi.data_ptr(), *(v.data_ptr() for v in lanes), *tiling, scoring.go,
-        scoring.ge, *(s.data_ptr() for s in scratch),
+        qi.data_ptr(), *(v.data_ptr() for v in lanes), nT, scoring.go,
+        scoring.ge, None if scratch is None else scratch.data_ptr(),
         *(o.data_ptr() for o in outs)])
     return tuple(outs)
 
@@ -239,7 +259,7 @@ def qm_ends(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, scoring=None):
         PLAIN_CALLS["sw_qm_ends"] += 1
         return sw_torch.qm_ends(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx,
                                 lj, scoring=scoring)
-    return _qm_launch("sw_qm_ends", scoring, None, q_mat, qb_mat, q_lens,
+    return _qm_launch("sw_qm_ends", scoring, q_mat, qb_mat, q_lens,
                       t_mat, t_lens, qidx, lj)
 
 
@@ -252,34 +272,36 @@ def qm_starts(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, q_end, t_end,
         PLAIN_CALLS["sw_qm_starts"] += 1
         return sw_torch.qm_starts(q_mat, qb_mat, q_lens, t_mat, t_lens,
                                   qidx, lj, q_end, t_end, scoring=scoring)
-    return _qm_launch("sw_qm_starts", scoring, None, q_mat, qb_mat, q_lens,
+    return _qm_launch("sw_qm_starts", scoring, q_mat, qb_mat, q_lens,
                       t_mat, t_lens, qidx, lj, q_end, t_end)
 
 
 def qm_ends_rt(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, scoring=None,
                tq=sw_torch.TQ_RT):
-    """Row-tiled query-major forward ends (K5), for query rows longer than
-    a block's shared memory holds as one profile: qm_ends' function, the
-    query swept in row tiles of tq. (score, q_end, t_end), each
-    (n_tiles * 128,) int32."""
+    """Query-major forward ends for long query rows (K5), qm_ends'
+    function: (score, q_end, t_end), each (n_tiles * 128,) int32. tq, the
+    row tile of the JAX package's kernel, is taken by the plain version
+    only (it gives the same result for any tq); the CUDA kernel has no row
+    tile."""
     scoring = scoring or default_scoring(q_mat.device)
     if q_mat.device.type == "cpu":
         PLAIN_CALLS["sw_qm_rt_ends"] += 1
         return sw_torch.qm_ends_rt(q_mat, qb_mat, q_lens, t_mat, t_lens,
                                    qidx, lj, scoring=scoring, tq=tq)
-    return _qm_launch("sw_qm_rt_ends", scoring, tq, q_mat, qb_mat, q_lens,
-                      t_mat, t_lens, qidx, lj)
+    return _qm_launch("sw_qm_rt_ends", scoring, q_mat, qb_mat, q_lens, t_mat,
+                      t_lens, qidx, lj)
 
 
 def qm_starts_rt(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, q_end,
                  t_end, scoring=None, tq=sw_torch.TQ_RT):
-    """Row-tiled query-major reverse-prefix starts (K6) from known per-lane
-    ends: (score, q_start, t_start), each (n_tiles * 128,) int32."""
+    """Query-major reverse-prefix starts for long query rows (K6) from known
+    per-lane ends: (score, q_start, t_start), each (n_tiles * 128,) int32.
+    tq as for qm_ends_rt."""
     scoring = scoring or default_scoring(q_mat.device)
     if q_mat.device.type == "cpu":
         PLAIN_CALLS["sw_qm_rt_starts"] += 1
         return sw_torch.qm_starts_rt(q_mat, qb_mat, q_lens, t_mat, t_lens,
                                      qidx, lj, q_end, t_end, scoring=scoring,
                                      tq=tq)
-    return _qm_launch("sw_qm_rt_starts", scoring, tq, q_mat, qb_mat, q_lens,
+    return _qm_launch("sw_qm_rt_starts", scoring, q_mat, qb_mat, q_lens,
                       t_mat, t_lens, qidx, lj, q_end, t_end)

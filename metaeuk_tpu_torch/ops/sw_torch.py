@@ -37,8 +37,9 @@ from ..state import NEG, PAD_SCORE, SCORE_CAP, default_scoring
 
 TB = 128     # target lanes per query-major tile (sw_pallas.py TB)
 PCOLS = 32   # profile columns of a query-major tile (sw_pallas.py PCOLS)
-# query rows per row tile of the row-tiled kernels (sw_pallas.py QM_TQ):
-# a tile's int16 profile at 21 classes is 86 KB of a block's shared memory
+# query rows per row tile of the JAX package's row-tiled K5/K6
+# (sw_pallas.py QM_TQ), which qm_ends_rt / qm_starts_rt follow; their result
+# is the same for any row tile
 TQ_RT = 2048
 
 

@@ -11,11 +11,12 @@ Routing (driver.py _qm_mode, _split_qm and the gate of search()): a query
 with at least QM_MIN_CANDS candidates in its bucket goes to the query-major
 kernels (K3/K4, one query against tiles of TB = 128 target lanes), every
 other pair to the pair kernels (K1/K2). A query longer than QM_MAX_LQ goes
-to the row-tiled query-major kernels (K5/K6) whatever its candidate count,
-unless its target tier is longer than QM_MAX_LQ too: such pairs take the
-pair kernels, which take any length (the JAX driver's XLA scan). METAEUK_QM=
-off sends every pair to the pair kernels, METAEUK_QM=force routes by length
-and candidate count alone, and the default auto also needs the dense
+to the long-query kernels (K5/K6, the JAX package's row-tiled ones)
+whatever its candidate count, unless its target tier is longer than
+QM_MAX_LQ too: such pairs take the pair kernels, which take any length (the
+JAX driver's XLA scan). METAEUK_QM=off sends every pair to the pair
+kernels, METAEUK_QM=force routes by length and candidate count alone, and
+the default auto also needs the dense
 queries to carry at least max(100 000, pairs / 20) pairs, on every device,
 unless a query longer than QM_MAX_LQ is present. There is none of the
 TPU-link machinery (device result accumulators, prewarm, fixed launch
@@ -35,7 +36,7 @@ import torch
 from .. import state
 from ..data.submat import composition_bias_rounded_batch, encode_aa
 from ..ops import sw_cuda
-from ..ops.sw_torch import TB, TQ_RT
+from ..ops.sw_torch import TB
 from ..utils import log
 from .evalue import EvalueComputation
 
@@ -73,16 +74,19 @@ MAX_PAIRS_PER_LAUNCH = 1 << 16
 # kernels (driver.py:143): below this, padding each query's candidates to
 # TB = 128 lanes wastes more than the pair kernels cost
 QM_MIN_CANDS = int(os.environ.get("METAEUK_QM_MIN", "48"))
-# query-major DP cells per launch (tiles * TB * Lq * Lt_pad; the row-tiled
-# kernels count their scratch rows, TQ_RT + Lt_pad, in place of Lq), by
-# device type. A CUDA launch runs one block of 128 threads per tile and
-# holds 4 B of scratch per (tile, row, lane), so it needs a thousand tiles
-# or more to fill an H100; the plain CPU version keeps the pair launches'
-# budget.
+# query-major DP cells per launch (tiles * TB * Lq * Lt_pad), by device
+# type. A K3/K4 launch runs one block of 128 threads per tile and holds 4 B
+# of scratch per (tile, row, lane), so it needs a thousand tiles or more to
+# fill an H100; the plain CPU version keeps the pair launches' budget.
 QM_CELL_BUDGET = {"cuda": 1 << 35, "cpu": 1 << 27}
+# device memory a K5/K6 launch may hold for its stripe hand-off: 4 B per
+# (lane, query row) of a tile, only when the target tier is wider than
+# sw_cuda.RT_STRIPE. K5/K6 hold no other scratch (a warp per lane, its
+# state in registers), so a launch without the hand-off takes every tile.
+RT_STRIPE_BYTES = 1 << 31
 # longest query tier of K3/K4 (driver.py:959, sw_pallas.py 2 * QM_TQ);
-# longer queries take the row-tiled K5/K6, whose per-column boundary
-# scratch takes target tiers up to this length too
+# longer queries take K5/K6, which take target tiers up to this length too
+# (the bound of the Pallas kernels' per-column boundary scratch)
 QM_MAX_LQ = 4096
 
 
@@ -223,6 +227,20 @@ def target_tier_np(targets_enc, target_lens, Lt, fine):
         t_remap=t_remap)
 
 
+def qm_tiles_per_launch(device_type, Lq, Lt, Lt_pad, n_tiles):
+    """Tiles per query-major launch of a (Lq, Lt) bucket of n_tiles tiles.
+    K3/K4 and every plain version: QM_CELL_BUDGET cells of tiles * TB * Lq
+    * Lt_pad. K5/K6 on the card (Lq > QM_MAX_LQ): every tile, unless the
+    target tier is wider than one stripe; then RT_STRIPE_BYTES of stripe
+    hand-off, TB * Lq words a tile."""
+    if device_type == "cuda" and Lq > QM_MAX_LQ:
+        if Lt <= sw_cuda.RT_STRIPE:
+            return max(1, n_tiles)
+        return max(8, RT_STRIPE_BYTES // (4 * TB * Lq))
+    budget = QM_CELL_BUDGET.get(device_type, QM_CELL_BUDGET["cpu"])
+    return max(8, budget // (Lq * Lt_pad * TB))
+
+
 class SearchDriver:
     """Aligns encoded fragments against an encoded target DB on `device`."""
 
@@ -315,15 +333,15 @@ class SearchDriver:
         """Route each candidate pair to the query-major kernels (queries with
         >= QM_MIN_CANDS candidates in this bucket) or the pair kernels
         (driver.py:950-968). Returns (qm_rows, pair_rows). A bucket of
-        queries longer than QM_MAX_LQ goes query-major (row-tiled) whole, or
-        to the pair kernels whole if its target tier is longer too."""
+        queries longer than QM_MAX_LQ goes to K5/K6 whole, or to the pair
+        kernels whole if its target tier is longer too."""
         if not qm_on or not len(rows):
             return rows[:0], rows
         if ctx["Lq"] > QM_MAX_LQ:
             if ctx["Lt"] <= QM_MAX_LQ:
                 return rows, rows[:0]
             log.warning(f"SW bucket Lq={ctx['Lq']} Lt={ctx['Lt']}: both axes "
-                        "exceed the row-tiled kernels' bounds; using the "
+                        "exceed the long-query kernels' bounds; using the "
                         "pair kernels")
             return rows[:0], rows
         counts = np.bincount(li_rows, minlength=ctx["nq"])
@@ -333,7 +351,7 @@ class SearchDriver:
     def _qm_chunks(self, ctx, rows, oi, ti, ends):
         """Tile `rows` by query (driver.py _submit_qm :1028) and launch the
         query-major forward kernel (ends None) or the reverse one (ends =
-        host (qe, te) arrays), row-tiled for queries longer than QM_MAX_LQ
+        host (qe, te) arrays), K5/K6 for queries longer than QM_MAX_LQ
         (sw_pallas.py _align_ends_qm :814, _align_starts_qm :832); yields
         (lane -> pair row map, -1 on padding lanes; device outputs) per chunk
         of tiles."""
@@ -344,15 +362,11 @@ class SearchDriver:
         Lt_pad = Lt if Lt <= 512 else ((Lt + 511) // 512) * 512
         qidx, ljt, lane_pair = _make_qm_tiles(
             ctx["q_remap"][oi[rows]], ctx["t_remap"][ti[rows]], rows)
-        budget = QM_CELL_BUDGET.get(dev.type, QM_CELL_BUDGET["cpu"])
+        cap = qm_tiles_per_launch(dev.type, Lq, Lt, Lt_pad, len(qidx))
         if Lq > QM_MAX_LQ:
-            # a row-tiled tile's scratch: TQ_RT rows of H/E and Lt columns
-            # of boundary, 128 lanes each
             fwd, rev = sw_cuda.qm_ends_rt, sw_cuda.qm_starts_rt
-            cap = max(8, budget // ((TQ_RT + Lt_pad) * Lt_pad * TB))
         else:
             fwd, rev = sw_cuda.qm_ends, sw_cuda.qm_starts
-            cap = max(8, budget // (Lq * Lt_pad * TB))
         for s in range(0, len(qidx), cap):
             lanes = lane_pair[s:s + cap].reshape(-1)
             args = (ctx["q_mat"], ctx["qb_mat"], ctx["q_lens"], ctx["t_mat"],
@@ -423,7 +437,7 @@ class SearchDriver:
         if qm_on and gated:
             # the query-major path pays only when a meaningful share of the
             # pairs belongs to dense-candidate queries (driver.py:710-720);
-            # a query longer than QM_MAX_LQ keeps it open for the row-tiled
+            # a query longer than QM_MAX_LQ keeps it open for the long-query
             # kernels
             cand_counts = np.bincount(oi, minlength=n_orfs)
             qm_share = int(cand_counts[cand_counts >= QM_MIN_CANDS].sum())

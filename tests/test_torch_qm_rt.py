@@ -7,8 +7,11 @@ interpret mode (metaeuk_tpu/ops/sw_pallas.py _qm_call_rt, with QM_TQ shrunk
 to 64 as tests/test_sw_pallas.py does), and to the untiled plain versions;
 the port's driver, which sends fragments longer than 4096 aa to them, is
 held to the JAX driver's hit arrays. Every output is an integer: the
-tolerance is exact equality. The CUDA kernels are held to the plain
-versions on the card (marker gpu).
+tolerance is exact equality. The CUDA kernels (csrc/sw_qm_rt.cu: a warp per
+lane, 16 target columns a thread, stripes of 512 columns, no row tile) are
+held to the plain versions on the card (marker gpu); ties are planted on
+either side of their column boundaries, and the driver's launch cap for
+them is checked on the host.
 """
 
 import jax.numpy as jnp
@@ -19,6 +22,7 @@ import torch
 import metaeuk_tpu.ops.sw_pallas as sp
 import metaeuk_tpu_torch.search.driver as torch_driver
 from metaeuk_tpu.params import Params
+from metaeuk_tpu_torch.data.submat import encode_aa
 from metaeuk_tpu_torch.ops import sw_cuda, sw_torch
 
 from test_torch_qm import (_TargetDB, _assert_same_hits, _jax_hits, _staged,
@@ -47,8 +51,9 @@ def _tie_case(Lq, Lt, rA, rB, cA, cB, n=24, seed=31):
     return (q, qb, np.array([Lq], np.int32), t, np.array([Lt], np.int32))
 
 
-def _jax_rt(q, qb, ql, t, tl, qidx, lj, monkeypatch):
-    """Pallas K5 then K6 from its clamped ends, interpret mode, QM_TQ 64."""
+def _jax_rt(q, qb, ql, t, tl, qidx, lj, monkeypatch, rev_ends=None):
+    """Pallas K5 then K6 from its clamped ends (or from rev_ends, (qe, te)
+    per lane), interpret mode, QM_TQ 64."""
     monkeypatch.setattr(sp, "QM_TQ", TQ)
     Lq, Lt = q.shape[1], t.shape[1]
     prof = sp.build_prof_tiles(jnp.asarray(q), jnp.asarray(qb),
@@ -57,8 +62,9 @@ def _jax_rt(q, qb, ql, t, tl, qidx, lj, monkeypatch):
                            Lt)
     ends = [np.asarray(a) for a in sp._qm_call_rt(
         sp._dp_kernel_qm_rt, 0, Lq, Lt, len(qidx), prof, tc, (), 3, True)]
-    qe = jnp.asarray(np.maximum(ends[1], 0).reshape(1, -1))
-    te = jnp.asarray(np.maximum(ends[2], 0).reshape(1, -1))
+    qe, te = rev_ends or (np.maximum(ends[1], 0), np.maximum(ends[2], 0))
+    qe, te = (jnp.asarray(np.asarray(e, np.int32).reshape(1, -1))
+              for e in (qe, te))
     starts = [np.asarray(a) for a in sp._qm_call_rt(
         sp._dp_kernel_qm_rev_rt, 2, Lq, Lt, len(qidx), prof, tc, (qe, te), 3,
         True)]
@@ -128,6 +134,53 @@ def test_ties_across_row_tiles_follow_the_pallas_order(monkeypatch, rA, rB,
                   ("score", "q_start", "t_start"))
 
 
+# (W column, C column) of each lane's target: a tie one column apart on
+# either side of the CUDA kernels' thread edge (15/16, at 16 columns a
+# thread) and stripe edge (511/512)
+COLUMN_TIES = ((16, 15), (15, 16), (512, 511), (511, 512))
+
+
+@pytest.mark.parametrize("w_row", ["first", "last"])
+def test_ties_across_kernel_column_boundaries_follow_the_pallas_order(
+        monkeypatch, w_row):
+    """W (bias -2) and C (bias 0) each score 9 against their own residue,
+    one in the first and one in the last row of a query of three row tiles;
+    every other cell scores below 0. Each lane's target (600 of 1024
+    columns, so the kernels run 16 columns a thread and two stripes) holds
+    W and C one column apart across a boundary. Forward the first column
+    wins, reverse over the whole matrix the last one: the plain versions
+    against the Pallas kernels in interpret mode and against those cells."""
+    Lq, Lt, n_t = 3 * TQ, 1024, 600
+    W, C = (int(encode_aa(r)[0]) for r in (b"W", b"C"))
+    rng = np.random.default_rng(51)
+    other = [a for a in range(20) if a not in (W, C)]
+    q = rng.choice(other, (1, Lq)).astype(np.int32)
+    qb = np.full((1, Lq), -9, np.int32)
+    rW, rC = (0, Lq - 1) if w_row == "first" else (Lq - 1, 0)
+    q[0, rW], qb[0, rW], q[0, rC], qb[0, rC] = W, -2, C, 0
+    t = rng.choice(other, (len(COLUMN_TIES), Lt)).astype(np.int32)
+    for k, (w, c) in enumerate(COLUMN_TIES):
+        t[k, w], t[k, c] = W, C
+    ql = np.array([Lq], np.int32)
+    tl = np.full(len(COLUMN_TIES), n_t, np.int32)
+    qidx = np.zeros(1, np.int32)
+    lj = np.full((1, sw_torch.TB), -1, np.int32)
+    lj[0, :len(COLUMN_TIES)] = np.arange(len(COLUMN_TIES))
+    whole = (np.full(sw_torch.TB, Lq - 1), np.full(sw_torch.TB, n_t - 1))
+    ref_e, ref_s = _jax_rt(q, qb, ql, t, tl, qidx, lj, monkeypatch, whole)
+    args = _torch(q, qb, ql, t, tl, qidx, lj.reshape(-1))
+    got_e = [e.numpy() for e in sw_cuda.qm_ends_rt(*args, tq=TQ)]
+    got_s = [s.numpy() for s in sw_cuda.qm_starts_rt(
+        *args, *(torch.from_numpy(e).int() for e in whole), tq=TQ)]
+    _assert_equal(ref_e, got_e, ("score", "q_end", "t_end"))
+    _assert_equal(ref_s, got_s, ("score", "q_start", "t_start"))
+    for k, (w, c) in enumerate(COLUMN_TIES):
+        first, last = sorted([(w, rW), (c, rC)])
+        assert got_e[0][k] == got_s[0][k] == 9
+        assert (got_e[1][k], got_e[2][k]) == (first[1], first[0])
+        assert (got_s[1][k], got_s[2][k]) == (last[1], last[0])
+
+
 @pytest.mark.parametrize("tq", [1, 7, 64, 1000])
 def test_any_row_tile_gives_the_untiled_result(tq):
     """K5/K6's function does not depend on the row-tile size: tq 1, a size
@@ -195,6 +248,27 @@ def test_other_devices_raise():
         sw_cuda.qm_ends_rt(*args)
 
 
+@pytest.mark.parametrize("Lq", [16384, 65536])
+@pytest.mark.parametrize("Lt", [512, 4096])
+def test_long_query_launch_cap_follows_the_kernels_memory(Lq, Lt):
+    """On the card a K5/K6 launch holds no H/E scratch: against a target
+    tier of one stripe (Lt 512) it takes every tile of its bucket; against
+    a wider one (Lt 4096) it is cut only by its stripe hand-off, TB * Lq
+    words a tile, to RT_STRIPE_BYTES. The plain CPU version and K3/K4 keep
+    the query-major cell budget."""
+    TB, n_tiles = sw_torch.TB, 5000
+    cap = torch_driver.qm_tiles_per_launch("cuda", Lq, Lt, Lt, n_tiles)
+    if Lt <= sw_cuda.RT_STRIPE:
+        assert cap == n_tiles
+    else:
+        assert cap == torch_driver.RT_STRIPE_BYTES // (4 * TB * Lq)
+        assert cap * TB * Lq * 4 <= torch_driver.RT_STRIPE_BYTES
+        assert cap >= 64      # the old H/E scratch cut Lt 4096 to 10
+    assert torch_driver.qm_tiles_per_launch("cpu", Lq, Lt, Lt, n_tiles) == 8
+    assert torch_driver.qm_tiles_per_launch("cuda", 4096, Lt, Lt, n_tiles) \
+        == max(8, torch_driver.QM_CELL_BUDGET["cuda"] // (4096 * Lt * TB))
+
+
 @pytest.fixture(scope="module")
 def long_case():
     """test_sw_pallas.py:182's fragments plus one past 4096 aa; the long
@@ -247,7 +321,9 @@ def test_auto_gate_stays_open_with_a_long_query(qm_env, long_case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("nq,Lq,nt,Lt,nT,tq",
                          [(3, 256, 9, 72, 3, 64),
-                          (2, 16384, 20, 512, 3, sw_torch.TQ_RT)])
+                          (2, 16384, 20, 512, 3, sw_torch.TQ_RT),
+                          (2, 16384, 20, 1024, 3, sw_torch.TQ_RT),
+                          (2, 16384, 12, 4096, 3, sw_torch.TQ_RT)])
 def test_kernels_match_plain_on_card(cuda_device, nq, Lq, nt, Lt, nT, tq):
     q, qb, ql, t, tl = _staged(Lt, nq, Lq, nt, Lt)
     ql[0] = Lq - 5
