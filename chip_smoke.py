@@ -19,8 +19,13 @@ Phases, each fatal on failure:
      on either side of the kernels' column boundaries (15/16, a thread's
      edge; 511/512, a stripe's) in a long query's first and last rows, the
      reverse pass also over every lane's whole matrix; and the gapless
-     kernel on seeded pairs, all with padding lanes and tiles, repeated
-     targets (ties), implanted shared segments and zero-length sequences
+     kernels on seeded pairs, all with padding lanes and tiles, repeated
+     targets (ties), implanted shared segments and zero-length sequences;
+     gapless_long at the 1024, 8192 and 32768 buckets (true lengths up to
+     32,700, Lt across its column tiles of 512) on planted runs: the first
+     and last diagonals' single cells, runs at its 256-diagonal chunk edge
+     and across its tile edges, and runs over 128 that end at q_len - 1 or
+     t_len - 1 with padding that would extend them
   3b. the microbenchmark kernels against their plain versions, bit for bit
      (floats compared as their bits): every case of tools/kbench.py (T1-T3)
      at its TPU shape (256, 512) and REPS 512 on seeded non-zero inputs,
@@ -39,7 +44,8 @@ Phases, each fatal on failure:
   4c. easy-predict in k-mer and in ungapped mode on the long-frame golden
      input (make_long_slice.GOLDEN_INPUT: fragments in the 16384 and 65536
      tiers): sha256 digests equal to tests/golden/long_slice.json (the JAX
-     package's outputs), the row-tiled kernels launched
+     package's outputs), the row-tiled kernels launched, and gapless_long
+     in ungapped mode
   5. the k-mer main path at a real size: easy-predict on the 1.6 Mbp /
      3000-target synthetic metagenome of tests/golden/multichip_slice.json;
      the four sha256 digests equal the file's, the pair kernels launched and
@@ -52,19 +58,23 @@ Phases, each fatal on failure:
      METAEUK_QM=off (the pair kernels) give a hit array equal field by field
   5c. the row-tiled path at full width: easy-predict --prefilter-mode
      ungapped on the 0.4 Mbp slice plus 48 contigs with frames of 4,200 to
-     32,700 aa (make_long_slice.CHIP_SLICE); the gapless, query-major and
-     row-tiled kernels launched and no plain version called; the same
-     pairs through the pair kernels give an equal hit array; then the
+     32,700 aa (make_long_slice.CHIP_SLICE); both gapless kernels, the
+     query-major and the row-tiled kernels launched and no plain version
+     called; the same pairs through the pair kernels give an equal hit
+     array; then the
      long-frame contigs alone in k-mer mode under the default routing and
      under METAEUK_QM=off, hits and outputs equal; wall, stage and
      align-phase seconds, cells and launches of each run, and each
-     kernel's summed time in the first run (K7's on long rows among them;
-     CUDA events around each launch, put there by a hook of this script)
+     kernel's summed time in the first run, the gapless kernels' also by
+     staged query width (CUDA events around each launch, put there by a
+     hook of this script)
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
      rate and its bytes over its memory rate); K5/K6 also against the Lt
-     1024 tier (targets of 513-600 aa)
+     1024 tier (targets of 513-600 aa); gapless_long at one launch of the
+     long-frame slice (2 query rows of Lq 32768 x 1,687 targets of Lt
+     512), with gapless_pair's time on the same launch
   6b. the microbenchmark entry points (python -m metaeuk_tpu_torch.tools.
      kbench, .kernel_variants) over all their cases, the kernels launched
      and no plain version called; each new kernel's time beside its bound
@@ -100,6 +110,7 @@ KERNELS = {
     "sw_qm_rt_ends": ("sw_qm_rt.cu", "metaeuk_tpu/ops/sw_pallas.py:539"),
     "sw_qm_rt_starts": ("sw_qm_rt.cu", "metaeuk_tpu/ops/sw_pallas.py:627"),
     "gapless_pair": ("gapless.cu", "metaeuk_tpu/ops/ungapped.py:44"),
+    "gapless_long": ("gapless.cu", "metaeuk_tpu/ops/ungapped.py:44"),
     "kb_alu": ("kbench.cu", "tools/kbench.py:50"),
     "kb_shift": ("kbench.cu", "tools/kbench.py:79"),
     "kb_scan": ("kbench.cu", "tools/kbench.py:111"),
@@ -136,6 +147,14 @@ QM_RT_SHAPES = ((256, 512, 8, 300, 24, 64, (1, 256)),
 GAPLESS_SHAPES = ((32, 64, 64, 300), (128, 512, 64, 300),
                   (512, 1024, 16, 100), (4096, 1024, 4, 50),
                   (64, 512, 1400, 3000))
+# (Lq, Lt, query lengths, query rows, target rows): the prefilter's buckets
+# of long rows (gapless_long: LONG_ROWS, fragments over 4096 aa, and the
+# longest), with true lengths up to 32,700 and Lt across gapless_long's
+# column tiles of 512
+GAPLESS_LONG_SHAPES = ((1024, 1100, (513, 1024), 16, 300),
+                       (8192, 1100, (4097, 8192), 3, 300),
+                       (32768, 512, (16385, 32700), 2, 300),
+                       (32768, 1100, (16385, 32700), 2, 100))
 # the ungapped slice of phase 5b: the 1.6 Mbp slice's generator and targets
 UNGAPPED_SLICE = dict(mbp=0.4, targets=3000, seed=20260820)
 # pair-launch cell budget of phase 5c's METAEUK_QM=off runs: every pair of
@@ -151,6 +170,9 @@ QM_TIME_SHAPE = (128, 512, 512)
 QM_RT_TIME_SHAPE = (16384, 512, 64)
 QM_RT_WIDE_SHAPE = (16384, 1024, 64, 513, 600)
 GAPLESS_TIME_SHAPE = (128, 512, 1 << 18)
+# gapless_long at one launch of the long-frame slice's prefilter: (Lq, Lt,
+# query rows, query lengths, targets, target lengths)
+GAPLESS_LONG_TIME_SHAPE = (32768, 512, 2, (16400, 32700), 1687, (257, 512))
 # H100 SXM peaks: int32 operations (64 INT32 lanes per SM, half the 128 FP32
 # lanes behind the data sheet's 67 TFLOP/s, which counts an FMA as two) and
 # device memory bytes per second
@@ -232,11 +254,13 @@ def pair_kernels_only(driver):
 
 
 @contextlib.contextmanager
-def launch_events(torch, module):
+def launch_events(torch, module, by_lq=False):
     """Brackets each launch through module._kernel (the ctypes entry points
     of ops/sw_cuda.py and ops/ungapped_cuda.py) with CUDA events on the
     current stream, for this script's measurement only; yields {kernel:
-    [(start, stop)]}, read after a synchronise."""
+    [(start, stop)]}, read after a synchronise. With by_lq the key is
+    "kernel Lq N", N the staged query width (the 7th argument of the
+    gapless entry points)."""
     kernel, events = module._kernel, {}
 
     def timed_kernel(*key):
@@ -248,7 +272,8 @@ def launch_events(torch, module):
             start.record()
             rc = fn(*args)
             stop.record()
-            events.setdefault(fn.__name__, []).append((start, stop))
+            name = f"{fn.__name__} Lq {args[6]}" if by_lq else fn.__name__
+            events.setdefault(name, []).append((start, stop))
             return rc
         return launch
     module._kernel = timed_kernel
@@ -256,6 +281,20 @@ def launch_events(torch, module):
         yield events
     finally:
         module._kernel = kernel
+
+
+def event_ms(events):
+    """{key: [launches, summed ms]} of launch_events' events, with one more
+    entry per kernel that a by_lq key splits ("kernel": the sum over its
+    Lq buckets), in key order."""
+    out = {}
+    for k, evs in events.items():
+        out[k] = [len(evs), sum(a.elapsed_time(b) for a, b in evs)]
+        if " Lq " in k:
+            total = out.setdefault(k.split(" Lq ")[0], [0, 0.0])
+            total[0] += out[k][0]
+            total[1] += out[k][1]
+    return dict(sorted(out.items()))
 
 
 def ptxas_usage(text):
@@ -485,14 +524,120 @@ def check_gapless_kernel(torch, ungapped_cuda, ungapped_torch, errs):
         pairs = [((flat // nt).int(), (flat % nt).int()),
                  tuple(torch.from_numpy(rng.integers(-1, n + 1, 4096))
                        .int().cuda() for n in (nq, nt))]
+        name = ungapped_cuda.kernel_for(Lq)
         for li, lj in pairs:
             got = ungapped_cuda.gapless_scores_gathered(*staged, li, lj)
             torch.cuda.synchronize()
             ref = ungapped_torch.gapless_gathered(*staged, li, lj)
-            errs["gapless_pair"] = max(errs["gapless_pair"],
-                                       max_err(torch, (got,), (ref,)))
-        print(f"gapless Lq={Lq} Lt={Lt} pairs={nq * nt}: equal "
+            errs[name] = max(errs[name], max_err(torch, (got,), (ref,)))
+        print(f"gapless Lq={Lq} Lt={Lt} pairs={nq * nt}: {name} equal "
               f"(best {int(ref.max())})", flush=True)
+
+
+def long_gapless_pairs(np, rng, Lq, Lt, q_lo, q_hi):
+    """A per-pair numpy batch (q, qb, ql, t, tl) at a long-row width (q_lo
+    at least 400): three
+    random pairs sharing a segment (the third of query length 0), then
+    pairs on a quiet background (residues other than W and C, bias -9: no
+    cell scores above 0) with one planted run each, in this order: the
+    single cell of the first diagonal (row q_len - 1, column 0) and of the
+    last (row 0, column t_len - 1); a run on the last diagonal of
+    gapless_long's first 256-diagonal chunk and one on the first diagonal of
+    its second; a run across each column-tile edge (512, 1024) below Lt -
+    40; a run scoring over 128 that ends at row q_len - 1, then one that
+    ends at column t_len - 1, each with padding past the length that would
+    extend it."""
+    from metaeuk_tpu_torch.data.submat import encode_aa
+    W, C = (int(encode_aa(r)[0]) for r in (b"W", b"C"))
+    quiet = np.array([a for a in range(20) if a not in (W, C)])
+    edges = [e for e in (512, 1024) if e + 40 <= Lt]
+    plants = ["first", "last", "chunk_end", "chunk_start",
+              *(f"tile {e}" for e in edges), "row_end", "col_end"]
+    B = 3 + len(plants)
+    q = rng.integers(0, 20, (B, Lq))
+    qb = rng.integers(-3, 4, (B, Lq))
+    t = rng.integers(0, 20, (B, Lt))
+    ql = rng.integers(q_lo, q_hi + 1, B)
+    tl = rng.integers(Lt - Lt // 16, Lt + 1, B)
+    ql[2] = 0
+    for b in range(3):
+        n = min(200, int(tl[b]) - 5)
+        t[b, 5:5 + n] = q[b, 100:100 + n]
+    ext = min(50, Lt // 5)   # padding that would extend a run
+    for b, plant in enumerate(plants, start=3):
+        q[b], qb[b], t[b] = rng.choice(quiet, Lq), -9, rng.choice(quiet, Lt)
+        if plant == "row_end":
+            ql[b] = min(ql[b], Lq - ext)
+        if plant == "col_end":
+            tl[b] = Lt - ext
+        if plant.startswith("tile"):
+            tl[b] = max(tl[b], int(plant.split()[1]) + 40)
+        m, n = int(ql[b]), int(tl[b])
+
+        def put(i0, j0, seg):
+            q[b, i0:i0 + len(seg)], qb[b, i0:i0 + len(seg)] = seg, 0
+            t[b, j0:j0 + len(seg)] = seg
+        if plant == "first":
+            put(m - 1, 0, [W])
+        elif plant == "last":
+            put(0, n - 1, [W])
+        elif plant.startswith("chunk"):
+            # diagonal d = 1 - m + 255 (or 256) meets column 0 at row -d
+            put(m - 256 - (plant == "chunk_start"), 0, rng.integers(0, 20, 40))
+        elif plant.startswith("tile"):
+            put((m - 200) // 2, int(plant.split()[1]) - 40,
+                rng.integers(0, 20, 80))
+        elif plant == "row_end":
+            L = min(150, n - ext)
+            put(m - L, 0, rng.integers(0, 20, L))
+            put(m, L, rng.integers(0, 20, ext))
+        else:
+            L, r0 = min(150, n), (m - 200) // 2
+            put(r0, n - L, rng.integers(0, 20, L))
+            put(r0 + L, n, rng.integers(0, 20, ext))
+    return q, qb, ql, t, tl
+
+
+def check_gapless_long(torch, ungapped_cuda, ungapped_torch, errs):
+    """gapless_long against the plain version at the long-row buckets: the
+    planted pairs of long_gapless_pairs, then a staged cross product with
+    seeded pairs whose indices are out of range; each call must go to
+    gapless_long."""
+    import numpy as np
+    rng = np.random.default_rng(20260824)
+    mk = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(
+        device="cuda", dtype=dt)
+    for Lq, Lt, (q_lo, q_hi), nq, nt in GAPLESS_LONG_SHAPES:
+        q, qb, ql, t, tl = long_gapless_pairs(np, rng, Lq, Lt, q_lo, q_hi)
+        planted = (mk(q, torch.uint8), mk(qb, torch.int8),
+                   mk(ql, torch.int32), mk(t, torch.uint8),
+                   mk(tl, torch.int32))
+        pairs = torch.arange(len(q), device="cuda", dtype=torch.int32)
+        staged = staged_batch(torch, rng, Lq, Lt, nq, nt, "cuda")
+        staged = (staged[0], staged[1], mk(rng.integers(q_lo, q_hi + 1, nq),
+                                           torch.int32), *staged[3:])
+        flat = torch.arange(nq * nt, device="cuda")
+        oor = tuple(torch.from_numpy(rng.integers(-1, n + 1, 512)).int()
+                    .cuda() for n in (nq, nt))
+        for args, li, lj in ((planted, pairs, pairs),
+                             (staged, (flat // nt).int(), (flat % nt).int()),
+                             (staged, *oor)):
+            before = ungapped_cuda.LAUNCHES["gapless_long"]
+            got = ungapped_cuda.gapless_scores_gathered(*args, li, lj)
+            torch.cuda.synchronize()
+            if ungapped_cuda.LAUNCHES["gapless_long"] != before + 1:
+                raise AssertionError(f"Lq={Lq} did not go to gapless_long")
+            ref = ungapped_torch.gapless_gathered(*args, li, lj)
+            errs["gapless_long"] = max(errs["gapless_long"],
+                                       max_err(torch, (got,), (ref,)))
+            if args is planted:
+                scores = ref.tolist()
+        if min(scores[-2:]) <= 128:
+            raise AssertionError("the runs ending at q_len - 1 and t_len - 1 "
+                                 "should score over 128")
+        print(f"gapless_long Lq={Lq} Lt={Lt}: equal on {len(q)} planted "
+              f"pairs (scores {scores}) and {nq * nt} staged pairs plus 512 "
+              "with indices out of range", flush=True)
 
 
 def time_ms(torch, fn, reps):
@@ -654,6 +799,40 @@ def time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
         *bound(cells, GAPLESS_OPS, (*staged, li, lj, best)))
     print(f"gapless pairs={B} Lq={Lq} Lt={Lt}: {cells} cells", flush=True)
     return out, same
+
+
+def time_gapless_long(torch, np, ungapped_cuda, ungapped_torch, errs):
+    """(ms, plain_ms, bound_ms, bound_by) of gapless_long at
+    GAPLESS_LONG_TIME_SHAPE (the prefilter's cross product of the query
+    rows and the targets), its output there equal to the plain version's
+    and gapless_pair's; prints gapless_pair's ms on the same launch."""
+    Lq, Lt, nq, (q_lo, q_hi), nt, (t_lo, t_hi) = GAPLESS_LONG_TIME_SHAPE
+    rng = np.random.default_rng(12)
+    q, qb, _, t, _ = staged_batch(torch, rng, Lq, Lt, nq, nt, "cuda")
+    ql = torch.from_numpy(rng.integers(q_lo, q_hi + 1, nq)).int().cuda()
+    tl = torch.from_numpy(rng.integers(t_lo, t_hi + 1, nt)).int().cuda()
+    flat = torch.arange(nq * nt, device="cuda")
+    args = (q, qb, ql, t, tl, (flat // nt).int(), (flat % nt).int())
+    cells = int((ql[args[5].long()].long() * tl[args[6].long()].long())
+                .sum())
+    best = ungapped_cuda.launch("gapless_long", *args)
+    ref = ungapped_torch.gapless_gathered(*args)
+    errs["gapless_long"] = max(errs["gapless_long"],
+                               max_err(torch, (best,), (ref,)))
+    max_err(torch, (ungapped_cuda.launch("gapless_pair", *args),), (ref,))
+    row = (time_ms(torch, lambda: ungapped_cuda.launch("gapless_long", *args),
+                   10),
+           time_ms(torch, lambda: ungapped_torch.gapless_gathered(*args), 1),
+           *bound(cells, GAPLESS_OPS, (*args, best)))
+    pair_ms = time_ms(
+        torch, lambda: ungapped_cuda.launch("gapless_pair", *args), 1)
+    print(f"gapless_long: {nq} query rows of {q_lo}-{q_hi} aa (Lq {Lq}) x "
+          f"{nt} targets of {t_lo}-{t_hi} aa (Lt {Lt}), {cells} cells: "
+          f"kernel {row[0]:.4f} ms ({cells / row[0] * 1e3:.4e} cells/s), "
+          f"bound {row[2]:.4f} ms ({row[3]}), plain {row[1]:.4f} ms, "
+          f"gapless_pair {pair_ms:.4f} ms on the same launch; all three "
+          "outputs equal", flush=True)
+    return row
 
 
 def time_qm_rt(torch, np, sw_cuda, sw_torch, errs):
@@ -1050,6 +1229,7 @@ def main():
     check_qm_kernels(torch, sw_cuda, sw_torch, errs)
     check_qm_rt_kernels(torch, sw_cuda, sw_torch, errs)
     check_gapless_kernel(torch, ungapped_cuda, ungapped_torch, errs)
+    check_gapless_long(torch, ungapped_cuda, ungapped_torch, errs)
 
     phase("3b microbenchmark kernels against their plain versions")
     t0 = time.perf_counter()
@@ -1144,9 +1324,11 @@ def main():
                   f"plain {run_p}")
             if digests(out) != long_golden[mode]["sha256"]:
                 raise AssertionError(f"long-frame {mode} digests differ")
-            if min(run_l[k] for k in RT_KERNELS) == 0 or any(run_p.values()):
+            need = RT_KERNELS + (("gapless_long",) if mode == "ungapped"
+                                 else ())
+            if min(run_l[k] for k in need) == 0 or any(run_p.values()):
                 raise AssertionError(f"long-frame {mode} run did not go "
-                                     "through the row-tiled kernels")
+                                     f"through {need}")
         print("long frames: k-mer and ungapped digests equal long_slice.json",
               flush=True)
 
@@ -1270,15 +1452,14 @@ def main():
         reset(torch, counters, driver, prefilter)
         t0 = time.perf_counter()
         with launch_events(torch, sw_cuda) as sw_ev, \
-                launch_events(torch, ungapped_cuda) as gap_ev:
+                launch_events(torch, ungapped_cuda, by_lq=True) as gap_ev:
             ep = EasyPredict(p, device="cuda")
             ep.run(str(td / "l.fna"), str(td / "l.faa"), str(td / "l_slice"),
                    tmp_dir=str(tmp))
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        for k, evs in sorted({**sw_ev, **gap_ev}.items()):
-            ms = sum(a.elapsed_time(b) for a, b in evs)
-            print(f"{k}: {len(evs)} launches, {ms:.3f} ms of kernel time "
+        for k, (n, ms) in event_ms({**sw_ev, **gap_ev}).items():
+            print(f"{k}: {n} launches, {ms:.3f} ms of kernel time "
                   "(CUDA events around each launch)", flush=True)
         run_l, run_p = counts(counters)
         pairs = np.load(tmp / "pref_pairs.npy")
@@ -1292,12 +1473,13 @@ def main():
         print(f"gapless cells {prefilter.CELLS['gapless']}; cells "
               f"{json.dumps(driver.CELLS)}")
         print(f"launches {run_l} plain {run_p}", flush=True)
-        if min(run_l[k] for k in (*UNGAPPED_KERNELS, *RT_KERNELS)) == 0 \
+        if min(run_l[k] for k in (*UNGAPPED_KERNELS, *RT_KERNELS,
+                                  "gapless_long")) == 0 \
                 or any(run_p.values()):
             raise AssertionError("long-frame slice did not go through the "
-                                 "gapless, query-major and row-tiled "
+                                 "gapless (both), query-major and row-tiled "
                                  "kernels")
-        for k in RT_KERNELS:
+        for k in (*RT_KERNELS, "gapless_long"):
             launches[k] = run_l[k]
         orf_aa = fragments(OrfExtractor(p),
                            SeqDB.from_fasta(str(td / "l.fna"), DBTYPE_NUCL))
@@ -1358,6 +1540,8 @@ def main():
                                ungapped_torch, errs)
     rt_times, _ = time_qm_rt(torch, np, sw_cuda, sw_torch, errs)
     times.update(rt_times)
+    times["gapless_long"] = time_gapless_long(torch, np, ungapped_cuda,
+                                              ungapped_torch, errs)
     for k, (ms, plain_ms, bound_ms, by) in times.items():
         print(f"{k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({by}); output equal to the plain "

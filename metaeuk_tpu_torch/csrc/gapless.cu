@@ -101,3 +101,162 @@ extern "C" int gapless_pair(const int32_t* submat, int alph,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// gapless_long computes gapless_pair's function for long query rows (the
+// prefilter's buckets from ops/ungapped_cuda.py LONG_ROWS up). At the
+// longest (fragments over 4096 aa) a launch holds a few thousand pairs (the
+// prefilter sizes it to 2^36 cells), so a thread per pair leaves most SMs
+// idle, each thread walks about 1e7 cells one after the other, and each cell
+// waits on three byte loads from global memory.
+//
+// Design: a block of kLongThreads threads per (pair, chunk of kLongThreads
+// consecutive diagonals d = j - i), so a launch has hundreds of thousands of
+// blocks; thread k owns diagonal d0 + k and walks it with its run and its
+// best in registers. The columns go by in tiles of kTileCols. For each tile
+// the block stages in shared memory the tile's target codes, as byte offsets
+// into the profile, and the query profile of the kTileCols + kLongThreads -
+// 1 rows that its diagonals touch there, prof[a][r] = submat[q_r][a] +
+// bias_r in int16 (exact: |submat| < 32640 is checked by the wrapper),
+// alphabet-major: at one column the lanes of a warp read one offset (a
+// broadcast) and 32 consecutive profile entries (no bank conflict). The
+// queries are read row-major from the staged (nq, Lq) matrix, where one
+// query's rows are contiguous. A cell is one shared load, an add for its
+// address, __viaddmax_s32_relu (the run) and a max (the best); four column
+// offsets come in one 16-byte load. The run carries from one tile to the
+// next in its register. Each thread's loop covers exactly the cells of its
+// diagonal, rows < q_len and columns < t_len, so no padding can extend or
+// restart a run. The block's maximum goes through __reduce_max_sync and
+// shared memory into one atomicMax on the pair's score, which the entry
+// point zeroes first on the same stream: scores are >= 0 and max does not
+// depend on order, so the result is the same bit for bit however the
+// diagonals are split.
+//
+// What bounds it on an H100: the dispatch of about four instructions a
+// cell (two of them on the int32 pipe besides the DPX op) and one shared
+// load a cell; staging adds about alph / t_len + alph / kLongThreads profile
+// entries a cell.
+
+namespace {
+
+constexpr int kLongThreads = 256;  // diagonals per block, one per thread
+constexpr int kTileCols = 512;     // target columns per staged tile
+
+__device__ __forceinline__ void gapless_cell(const char* prof, int off,
+                                             int& run, int& best) {
+  const int s = *reinterpret_cast<const int16_t*>(prof + off);
+  run = __viaddmax_s32_relu(run, s, 0);
+  best = max(best, run);
+}
+
+__global__ void __launch_bounds__(kLongThreads) gapless_long_kernel(
+    const int32_t* __restrict__ submat, int alph,
+    const uint8_t* __restrict__ q_mat, const int8_t* __restrict__ qb_mat,
+    const int32_t* __restrict__ q_lens, int nq, int Lq,
+    const uint8_t* __restrict__ t_mat, const int32_t* __restrict__ t_lens,
+    int nt, int Lt, const int32_t* __restrict__ li,
+    const int32_t* __restrict__ lj, int chunks, int stride,
+    int32_t* __restrict__ best_out) {
+  // col_off: kTileCols byte offsets 2 * (t_code * stride + column); prof:
+  // (alph, stride) int16, row r - r_base of column block a
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int sub_t[kAlphPad * kAlphPad];  // [a][q] = submat[q][a]
+  __shared__ int warp_best[kLongThreads / 32];
+  int* col_off = reinterpret_cast<int*>(smem);
+  int16_t* prof = reinterpret_cast<int16_t*>(smem + kTileCols * sizeof(int));
+
+  const long long b = blockIdx.x / chunks;
+  const int chunk = blockIdx.x % chunks;
+  const int qi = li[b], tj = lj[b];
+  if (qi < 0 || qi >= nq || tj < 0 || tj >= nt) return;
+  const int m = max(0, min(q_lens[qi], Lq));
+  const int n = max(0, min(t_lens[tj], Lt));
+  const int d0 = 1 - m + chunk * kLongThreads;  // the block's first diagonal
+  if (m == 0 || n == 0 || d0 >= n) return;
+  for (int k = threadIdx.x; k < kAlphPad * kAlphPad; k += kLongThreads) {
+    const int a = k / kAlphPad, q = k % kAlphPad;
+    sub_t[k] = (a < alph && q < alph) ? submat[q * alph + a] : 0;
+  }
+  const int t = threadIdx.x, d = d0 + t;
+  const uint8_t* q_row = q_mat + static_cast<size_t>(qi) * Lq;
+  const int8_t* b_row = qb_mat + static_cast<size_t>(qi) * Lq;
+  const uint8_t* t_row = t_mat + static_cast<size_t>(tj) * Lt;
+  // the block's columns (j >= d0 for i >= 0, j < m + d for i < m) and this
+  // thread's; column j of diagonal d is row j - d, profile row
+  // (j - c0) + (kLongThreads - 1 - t) of the tile that starts at c0
+  const int j_lo = max(0, d0), j_hi = min(n, m + d0 + kLongThreads - 1);
+  const int my_lo = max(0, d), my_hi = min(n, m + d);
+  const char* my_prof =
+      reinterpret_cast<const char*>(prof + (kLongThreads - 1 - t));
+  int run = 0, best = 0;
+  for (int c0 = j_lo; c0 < j_hi; c0 += kTileCols) {
+    const int c1 = min(c0 + kTileCols, j_hi);
+    const int r_base = c0 - d0 - (kLongThreads - 1);
+    __syncthreads();  // sub_t is written and the last tile is read
+    for (int c = t; c < c1 - c0; c += kLongThreads)
+      col_off[c] = 2 * (t_row[c0 + c] * stride + c);
+    const int r_hi = min(m, c1 - d0);
+    for (int r = max(0, r_base) + t; r < r_hi; r += kLongThreads) {
+      const int q = q_row[r], bias = b_row[r];
+      int16_t* p = prof + (r - r_base);
+      for (int a = 0; a < alph; ++a)
+        p[a * stride] = static_cast<int16_t>(sub_t[a * kAlphPad + q] + bias);
+    }
+    __syncthreads();
+    int c = max(my_lo, c0) - c0;
+    const int ce = min(my_hi, c1) - c0;
+    for (; c < ce && (c & 3); ++c)
+      gapless_cell(my_prof, col_off[c], run, best);
+    for (; c + 4 <= ce; c += 4) {
+      const int4 o = *reinterpret_cast<const int4*>(col_off + c);
+      gapless_cell(my_prof, o.x, run, best);
+      gapless_cell(my_prof, o.y, run, best);
+      gapless_cell(my_prof, o.z, run, best);
+      gapless_cell(my_prof, o.w, run, best);
+    }
+    for (; c < ce; ++c) gapless_cell(my_prof, col_off[c], run, best);
+  }
+  best = __reduce_max_sync(0xffffffffu, best);
+  if ((t & 31) == 0) warp_best[t >> 5] = best;
+  __syncthreads();
+  if (t == 0) {
+    int v = 0;
+    for (int w = 0; w < kLongThreads / 32; ++w) v = max(v, warp_best[w]);
+    if (v > 0) atomicMax(best_out + b, v);
+  }
+}
+
+}  // namespace
+
+// The arguments of gapless_pair, but q_mat, qb_mat: (nq, Lq) staged query
+// codes and biases and t_mat: (nt, Lt) staged target codes, row-major (not
+// transposed). Zeroes best on `stream`, then launches B * ceil((Lq + Lt -
+// 1) / kLongThreads) blocks there; does not synchronise. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue when the grid would pass 2^31
+// - 1 blocks.
+extern "C" int gapless_long(const int32_t* submat, int alph,
+                            const uint8_t* q_mat, const int8_t* qb_mat,
+                            const int32_t* q_lens, int nq, int Lq,
+                            const uint8_t* t_mat, const int32_t* t_lens,
+                            int nt, int Lt, const int32_t* li,
+                            const int32_t* lj, long long B, int32_t* best,
+                            void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  cudaMemsetAsync(best, 0, static_cast<size_t>(B) * sizeof(int32_t), st);
+  const int chunks = (Lq + Lt - 1 + kLongThreads - 1) / kLongThreads;
+  const long long blocks = B * chunks;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks > 0) {
+    const int stride = min(kTileCols, Lt) + kLongThreads - 1;
+    const size_t shmem = kTileCols * sizeof(int) +
+                         static_cast<size_t>(alph) * stride * sizeof(int16_t);
+    cudaFuncSetAttribute(gapless_long_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(shmem));
+    gapless_long_kernel<<<static_cast<unsigned int>(blocks), kLongThreads,
+                          shmem, st>>>(submat, alph, q_mat, qb_mat, q_lens,
+                                       nq, Lq, t_mat, t_lens, nt, Lt, li, lj,
+                                       chunks, stride, best);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -202,21 +202,23 @@ def _qm_inputs(scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,
             *(v.to(torch.int32).contiguous() for v in (lj, *extra)))
 
 
-# id(submat) -> (submat, whether its scores fit int8): each matrix is read
-# back to the host once, and kept so that its id stays its own
-_FITS_INT8 = {}
+# (id(submat), lo, hi) -> (submat, whether its scores lie in [lo, hi]):
+# each matrix is read back to the host once per range, and kept so that its
+# id stays its own
+_FITS = {}
 
 
-def _check_int8(submat):
-    """K5/K6 keep the target profile as int8: every score must fit."""
-    seen = _FITS_INT8.get(id(submat))
+def check_scores_fit(submat, lo, hi, kernels):
+    """Raises unless every score of submat lies in [lo, hi], the range that
+    `kernels` keep their profiles in."""
+    key = (id(submat), lo, hi)
+    seen = _FITS.get(key)
     if seen is None:
-        lo, hi = torch.aminmax(submat)
-        seen = _FITS_INT8[id(submat)] = (submat,
-                                         -128 <= int(lo) and int(hi) <= 127)
+        a, b = torch.aminmax(submat)
+        seen = _FITS[key] = (submat, lo <= int(a) and int(b) <= hi)
     if not seen[1]:
-        raise ValueError("sw_qm_rt kernels take substitution scores in "
-                         "[-128, 127]")
+        raise ValueError(f"{kernels} take substitution scores in "
+                         f"[{lo}, {hi}]")
 
 
 def _qm_launch(name, scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,
@@ -236,7 +238,8 @@ def _qm_launch(name, scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,
         scratch = torch.empty((nT, Lq, sw_torch.TB), dtype=torch.int32,
                               device=dev)
     else:
-        _check_int8(scoring.submat)
+        # K5/K6 keep the target profile as int8
+        check_scores_fit(scoring.submat, -128, 127, "sw_qm_rt kernels")
         scratch = torch.empty((nT * sw_torch.TB, Lq), dtype=torch.int32,
                               device=dev) if Lt > RT_STRIPE else None
     outs = [torch.empty(nT * sw_torch.TB, dtype=torch.int32, device=dev)

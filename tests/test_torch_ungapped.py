@@ -3,10 +3,11 @@ the JAX package.
 
 The plain gapless version (what the wrapper runs on a CPU tensor) is held to
 metaeuk_tpu/ops/ungapped.py's XLA scan and to its Pallas kernel in
-interpret mode; the port's UngappedPrefilter to the JAX package's, pair
-array for pair array. Every output is an integer: the tolerance is exact
-equality. The CUDA kernel is held to the plain version on the card (marker
-gpu).
+interpret mode, also at the widths of gapless_long (staged Lq >= LONG_ROWS)
+on chip_smoke.py's planted runs; the port's UngappedPrefilter to the JAX
+package's, pair array for pair array. Every output is an integer: the
+tolerance is exact equality. The CUDA kernels are held to the plain version
+on the card (marker gpu).
 """
 
 import pathlib
@@ -52,6 +53,18 @@ def _torch(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
+def _long_pairs(Lq, Lt):
+    """chip_smoke.long_gapless_pairs at Lq with true lengths from Lq / 2 + 1
+    (to 6000 at most): random pairs, then planted runs on the first and
+    last diagonals, at gapless_long's chunk edge, across its column tiles
+    and up to q_len - 1 and t_len - 1 with padding that would extend
+    them."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    return chip_smoke.long_gapless_pairs(np, np.random.default_rng(Lt), Lq,
+                                         Lt, Lq // 2 + 1, min(Lq, 6000))
+
+
 @pytest.mark.parametrize("B,Lq,Lt", [(64, 48, 80), (40, 130, 33)])
 def test_plain_gapless_matches_xla(B, Lq, Lt):
     q, qb, ql, t, tl = _pairs(Lq, B, Lq, Lt)
@@ -67,6 +80,52 @@ def test_plain_gapless_matches_pallas_interpret():
     ref = gapless_scores(q, qb, ql, t, tl, interpret=True)
     got = ungapped_cuda.gapless_scores(*_torch(q, qb, ql, t, tl)).numpy()
     np.testing.assert_array_equal(ref, got)
+
+
+@pytest.mark.parametrize("Lq,Lt", [(8192, 64), (8192, 1100), (1024, 1100)])
+def test_plain_gapless_matches_xla_at_long_widths(Lq, Lt):
+    q, qb, ql, t, tl = _long_pairs(Lq, Lt)
+    ref = np.asarray(gapless_scores_xla(q, qb, ql, t, Lq, Lt, t_len=tl))
+    ungapped_cuda.reset_counts()
+    got = ungapped_cuda.gapless_scores(*_torch(q, qb, ql, t, tl)).numpy()
+    assert ungapped_cuda.PLAIN_CALLS == {"gapless_pair": 0,
+                                         "gapless_long": 1}
+    np.testing.assert_array_equal(ref, got)
+    # the single cells of the first and last diagonals score W-W (11), and
+    # the runs cut at q_len - 1 and t_len - 1 pass 128 but stop there
+    assert got[3] == got[4] == 11
+    assert min(got[-2:]) > 128
+    assert got[2] == 0
+
+
+def test_long_rows_route_to_gapless_long():
+    """Fragments over 512 aa (the prefilter's buckets from 1024 up) go to
+    gapless_long, shorter ones to gapless_pair; on the CPU both count as
+    plain calls under the kernel the route picked."""
+    assert ungapped_cuda.LONG_ROWS == 1024
+    for n, name in ((512, "gapless_pair"), (513, "gapless_long"),
+                    (4097, "gapless_long"), (32734, "gapless_long"),
+                    (20, "gapless_pair")):
+        assert ungapped_cuda.kernel_for(prefilter._bucket(n)) == name
+    ungapped_cuda.reset_counts()
+    for Lq in (512, 1024, 8192):
+        args = _torch(*_pairs(Lq, 8, Lq, 32))
+        ungapped_cuda.gapless_scores(*args)
+    assert ungapped_cuda.PLAIN_CALLS == {"gapless_pair": 1,
+                                         "gapless_long": 2}
+    assert ungapped_cuda.LAUNCHES == {"gapless_pair": 0, "gapless_long": 0}
+
+
+def test_long_kernel_takes_scores_that_fit_its_int16_profile():
+    """gapless_long keeps submat + bias (an int8) as int16: the wrapper's
+    check passes BLOSUM62 and refuses a score it could not hold."""
+    from metaeuk_tpu_torch.ops.sw_cuda import check_scores_fit
+    from metaeuk_tpu_torch.state import default_scoring
+    check_scores_fit(default_scoring("cpu").submat, -32640, 32639,
+                     "gapless_long")
+    big = torch.full((21, 21), 32640, dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"gapless_long .*\[-32640, 32639\]"):
+        check_scores_fit(big, -32640, 32639, "gapless_long")
 
 
 def test_gathered_pairs_and_out_of_range_indices():
@@ -91,8 +150,9 @@ def test_cpu_tensors_take_the_plain_version():
     args = _torch(*_pairs(5, 16, 24, 24))
     ungapped_cuda.reset_counts()
     got = ungapped_cuda.gapless_scores(*args)
-    assert ungapped_cuda.PLAIN_CALLS == {"gapless_pair": 1}
-    assert ungapped_cuda.LAUNCHES == {"gapless_pair": 0}
+    assert ungapped_cuda.PLAIN_CALLS == {"gapless_pair": 1,
+                                         "gapless_long": 0}
+    assert ungapped_cuda.LAUNCHES == {"gapless_pair": 0, "gapless_long": 0}
     pairs = torch.arange(16)
     assert torch.equal(got, ungapped_torch.gapless_gathered(*args, pairs,
                                                             pairs))
@@ -177,5 +237,28 @@ def test_kernel_matches_plain_on_card(cuda_device, B, Lq, Lt):
     ungapped_cuda.reset_counts()
     got = ungapped_cuda.gapless_scores(*args)
     torch.cuda.synchronize()
-    assert ungapped_cuda.LAUNCHES == {"gapless_pair": 1}
+    assert ungapped_cuda.LAUNCHES == {
+        k: int(k == ungapped_cuda.kernel_for(Lq)) for k in
+        ungapped_cuda.KERNELS}
     assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lq,Lt", [(8192, 64), (8192, 1100), (1024, 1100)])
+def test_long_kernel_matches_plain_on_card(cuda_device, Lq, Lt):
+    """gapless_long on the planted long-width pairs, then on their cross
+    product with indices out of range."""
+    args = [a.to(cuda_device) for a in _torch(*_long_pairs(Lq, Lt))]
+    B = args[0].shape[0]
+    rng = np.random.default_rng(Lt)
+    pairs = [torch.arange(B, device=cuda_device)] * 2
+    oor = [torch.from_numpy(rng.integers(-1, B + 1, 4 * B)).to(cuda_device)
+           for _ in range(2)]
+    for li, lj in (pairs, oor):
+        ref = ungapped_torch.gapless_gathered(*args, li, lj)
+        ungapped_cuda.reset_counts()
+        got = ungapped_cuda.gapless_scores_gathered(*args, li, lj)
+        torch.cuda.synchronize()
+        assert ungapped_cuda.LAUNCHES == {"gapless_pair": 0,
+                                          "gapless_long": 1}
+        assert torch.equal(got, ref)

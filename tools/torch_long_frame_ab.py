@@ -12,9 +12,10 @@ given (name a parent and a change as parent, change, change, parent), with
 its own package, generator and kernel sources; the kernels and the host
 library are built before the timed run. Prints the card's name and power
 limit, then one JSON line per run: wall, stage and align-phase seconds,
-launches and summed kernel milliseconds of each kernel, and the sha256 of
-the four outputs. Exits non-zero if a run fails or the outputs differ
-between runs.
+launches and summed kernel milliseconds of each kernel (the gapless
+kernels' also by staged query width, "gapless_long Lq 32768"), and the
+sha256 of the four outputs. Exits non-zero if a run fails or the outputs
+differ between runs.
 """
 
 import importlib.util
@@ -63,15 +64,15 @@ def one(checkout):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with smoke.launch_events(torch, sw_cuda) as sw_ev, \
-                smoke.launch_events(torch, ungapped_cuda) as gap_ev:
+                smoke.launch_events(torch, ungapped_cuda, by_lq=True) \
+                as gap_ev:
             ep = EasyPredict(Params(prefilter_mode="ungapped"),
                              device="cuda")
             ep.run(str(td / "l.fna"), str(td / "l.faa"), str(td / "out"),
                    tmp_dir=str(td / "tmp"))
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        kernels = {k: [len(evs), sum(a.elapsed_time(b) for a, b in evs)]
-                   for k, evs in sorted({**sw_ev, **gap_ev}.items())}
+        kernels = smoke.event_ms({**sw_ev, **gap_ev})
         return {"checkout": str(checkout), "wall_s": wall,
                 "stages": {**ep.predict_stage_seconds, **ep.stage_seconds},
                 "phases": dict(driver.PHASE_SECONDS),
