@@ -25,7 +25,11 @@ Phases, each fatal on failure:
      32,700, Lt across its column tiles of 512) on planted runs: the first
      and last diagonals' single cells, runs at its 256-diagonal chunk edge
      and across its tile edges, and runs over 128 that end at q_len - 1 or
-     t_len - 1 with padding that would extend them
+     t_len - 1 with padding that would extend them; gapless_rows through
+     the cross entry at the short-row buckets (Lq 32, 128, 512, 64), with
+     20 targets (under a block's 32 columns) and the shape's 100-3000, on
+     planted pairs: the first and last diagonals' single cells and runs
+     that end at q_len - 1 or t_len - 1 with padding that would extend them
   3b. the microbenchmark kernels against their plain versions, bit for bit
      (floats compared as their bits): every case of tools/kbench.py (T1-T3)
      at its TPU shape (256, 512) and REPS 512 on seeded non-zero inputs,
@@ -45,7 +49,8 @@ Phases, each fatal on failure:
      input (make_long_slice.GOLDEN_INPUT: fragments in the 16384 and 65536
      tiers): sha256 digests equal to tests/golden/long_slice.json (the JAX
      package's outputs), the row-tiled kernels launched, and gapless_long
-     in ungapped mode
+     in ungapped mode (gapless_rows takes the short rows of every ungapped
+     run)
   5. the k-mer main path at a real size: easy-predict on the 1.6 Mbp /
      3000-target synthetic metagenome of tests/golden/multichip_slice.json;
      the four sha256 digests equal the file's, the pair kernels launched and
@@ -55,7 +60,9 @@ Phases, each fatal on failure:
      --prefilter-mode ungapped on the 0.4 Mbp / 3000-target slice; the
      gapless and query-major kernels launched and no plain version called;
      the same candidate pairs aligned again through the driver with
-     METAEUK_QM=off (the pair kernels) give a hit array equal field by field
+     METAEUK_QM=off (the pair kernels) give a hit array equal field by
+     field; K7's launches, ms, cells, cells/s and bound at each staged query
+     width
   5c. the row-tiled path at full width: easy-predict --prefilter-mode
      ungapped on the 0.4 Mbp slice plus 48 contigs with frames of 4,200 to
      32,700 aa (make_long_slice.CHIP_SLICE); both gapless kernels, the
@@ -66,15 +73,18 @@ Phases, each fatal on failure:
      under METAEUK_QM=off, hits and outputs equal; wall, stage and
      align-phase seconds, cells and launches of each run, and each
      kernel's summed time in the first run, the gapless kernels' also by
-     staged query width (CUDA events around each launch, put there by a
-     hook of this script)
+     staged query width with their cells, cells/s and bound (CUDA events
+     around each launch, put there by a hook of this script)
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
      rate and its bytes over its memory rate); K5/K6 also against the Lt
      1024 tier (targets of 513-600 aa); gapless_long at one launch of the
      long-frame slice (2 query rows of Lq 32768 x 1,687 targets of Lt
-     512), with gapless_pair's time on the same launch
+     512), with gapless_pair's time on the same launch; gapless_rows,
+     gapless_pair and gapless_long on the same cross launches at Lq 128 x
+     Lt 512 and at Lq 32 x Lt 64 (the prefilter's launch of 349,525 rows x
+     12 targets)
   6b. the microbenchmark entry points (python -m metaeuk_tpu_torch.tools.
      kbench, .kernel_variants) over all their cases, the kernels launched
      and no plain version called; each new kernel's time beside its bound
@@ -111,13 +121,14 @@ KERNELS = {
     "sw_qm_rt_starts": ("sw_qm_rt.cu", "metaeuk_tpu/ops/sw_pallas.py:627"),
     "gapless_pair": ("gapless.cu", "metaeuk_tpu/ops/ungapped.py:44"),
     "gapless_long": ("gapless.cu", "metaeuk_tpu/ops/ungapped.py:44"),
+    "gapless_rows": ("gapless.cu", "metaeuk_tpu/ops/ungapped.py:44"),
     "kb_alu": ("kbench.cu", "tools/kbench.py:50"),
     "kb_shift": ("kbench.cu", "tools/kbench.py:79"),
     "kb_scan": ("kbench.cu", "tools/kbench.py:111"),
     "qm_variant_ends": ("qm_variants.cu", "tools/kernel_variants.py:48"),
 }
 PAIR_KERNELS = ("sw_pair_ends", "sw_pair_starts")
-UNGAPPED_KERNELS = ("gapless_pair", "sw_qm_ends", "sw_qm_starts")
+UNGAPPED_KERNELS = ("gapless_rows", "sw_qm_ends", "sw_qm_starts")
 RT_KERNELS = ("sw_qm_rt_ends", "sw_qm_rt_starts")
 # K5/K6's __global__ function in ptxas's report (the instance of its
 # template for the forward and the reverse pass)
@@ -170,6 +181,14 @@ QM_TIME_SHAPE = (128, 512, 512)
 QM_RT_TIME_SHAPE = (16384, 512, 64)
 QM_RT_WIDE_SHAPE = (16384, 1024, 64, 513, 600)
 GAPLESS_TIME_SHAPE = (128, 512, 1 << 18)
+# gapless_rows, gapless_pair and gapless_long on one cross launch each: the
+# query rows of GAPLESS_TIME_SHAPE against its 3,000 targets, then the
+# prefilter's launch at Lq 32 x Lt 64 (12 targets of 60-64 aa, as in the
+# slices' Lt 64 bucket, and as many query rows of 17-32 aa as its pair cap
+# of 2^22 allows): (Lq, Lt, query rows, query lengths, targets, target
+# lengths)
+GAPLESS_ROWS_TIME_SHAPES = ((128, 512, 88, (64, 128), 3000, (256, 512)),
+                            (32, 64, (1 << 22) // 12, (17, 32), 12, (60, 64)))
 # gapless_long at one launch of the long-frame slice's prefilter: (Lq, Lt,
 # query rows, query lengths, targets, target lengths)
 GAPLESS_LONG_TIME_SHAPE = (32768, 512, 2, (16400, 32700), 1687, (257, 512))
@@ -295,6 +314,20 @@ def event_ms(events):
             total[0] += out[k][0]
             total[1] += out[k][1]
     return dict(sorted(out.items()))
+
+
+def print_k7_by_lq(events, cells_by_lq):
+    """Each gapless kernel's launches, summed ms, cells, cells/s and bound
+    at each staged query width, from launch_events(by_lq=True)'s events and
+    the prefilter's CELLS_BY_LQ (a width takes one kernel)."""
+    for k, (n, ms) in event_ms(events).items():
+        if " Lq " not in k:
+            continue
+        cells = cells_by_lq.get(int(k.split(" Lq ")[1]), 0)
+        bound_ms = cells * GAPLESS_OPS / INT32_OPS_PER_S * 1e3
+        print(f"K7 {k}: {n} launches, {ms:.3f} ms, {cells} cells, "
+              f"{cells / ms * 1e3:.4e} cells/s, bound {bound_ms:.3f} ms "
+              f"(operations; {bound_ms / ms:.1%} of it)", flush=True)
 
 
 def ptxas_usage(text):
@@ -598,6 +631,107 @@ def long_gapless_pairs(np, rng, Lq, Lt, q_lo, q_hi):
     return q, qb, ql, t, tl
 
 
+def cross_gapless_rows(np, rng, Lq, Lt, nq, nt):
+    """Staged numpy matrices (q, qb, ql, t, tl) for a cross product of nq
+    query rows (at least 6) and nt targets (at least 9) at a short-row
+    width, and {(row, target): score} of its planted pairs. Random rows and
+    targets with ragged lengths, shared segments (real hits), row 1 and
+    target 2 of length 0 and targets that repeat target 0; then the last
+    four rows and targets on a quiet background (residues other than W and
+    C, bias -9: no cell scores above 0), each pair with one plant: the
+    single cell of the first diagonal (row q_len - 1, column 0) and of the
+    last (row 0, column t_len - 1), scoring W-W (11); a run that ends at row
+    q_len - 1 and one that ends at column t_len - 1, each with padding past
+    the length that would extend it, scoring its self-score."""
+    from metaeuk_tpu_torch.data.submat import BLOSUM62_SCORES, encode_aa
+    W, C = (int(encode_aa(r)[0]) for r in (b"W", b"C"))
+    quiet = np.array([a for a in range(20) if a not in (W, C)])
+    q = rng.integers(0, 20, (nq, Lq))
+    qb = rng.integers(-3, 4, (nq, Lq))
+    ql = rng.integers(1, Lq + 1, nq)
+    t = rng.integers(0, 20, (nt, Lt))
+    tl = rng.integers(1, Lt + 1, nt)
+    ql[1], tl[2] = 0, 0
+    for k in range(3, nt - 4, 4):
+        qi = k % (nq - 4)
+        n = int(min(ql[qi], tl[k] - 3, 60))
+        if n > 0:
+            t[k, 3:3 + n] = q[qi, :n]
+    t[4:nt - 4:5], tl[4:nt - 4:5] = t[0], tl[0]
+    L = max(2, min(150, Lq // 3, Lt // 3))   # a planted run
+    ext = max(1, min(50, L // 3))            # padding that would extend it
+    plants = {}
+    for k, plant in enumerate(("first", "last", "row_end", "col_end")):
+        r, c = nq - 4 + k, nt - 4 + k
+        q[r], qb[r], t[c] = rng.choice(quiet, Lq), -9, rng.choice(quiet, Lt)
+        ql[r] = rng.integers(max(1, Lq // 2), Lq + 1)
+        tl[c] = rng.integers(max(1, Lt // 2), Lt + 1)
+        if plant == "row_end":
+            ql[r] = Lq - ext
+        if plant == "col_end":
+            tl[c] = Lt - ext
+        m, n = int(ql[r]), int(tl[c])
+        seg = rng.integers(0, 20, L)
+
+        def put(i0, j0, s):
+            q[r, i0:i0 + len(s)], qb[r, i0:i0 + len(s)] = s, 0
+            t[c, j0:j0 + len(s)] = s
+        if plant in ("first", "last"):
+            put(m - 1 if plant == "first" else 0,
+                0 if plant == "first" else n - 1, [W])
+            plants[(r, c)] = int(BLOSUM62_SCORES[W, W])
+            continue
+        if plant == "row_end":
+            put(m - L, 0, seg)
+            put(m, L, rng.integers(0, 20, ext))
+        else:
+            put(0, n - L, seg)
+            put(L, n, rng.integers(0, 20, ext))
+        plants[(r, c)] = int(sum(BLOSUM62_SCORES[a, a] for a in seg))
+    return q, qb, ql, t, tl, plants
+
+
+def check_gapless_rows(torch, ungapped_cuda, ungapped_torch, errs):
+    """gapless_rows against the plain version at GAPLESS_SHAPES' short-row
+    buckets, through the cross entry, on the planted matrices of
+    cross_gapless_rows with a target block narrower than a block's 32
+    columns and one as wide as the shape's; the whole cross product, then
+    rows 1..nq - 1; each call must go to gapless_rows."""
+    import numpy as np
+    rng = np.random.default_rng(20260825)
+    mk = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(
+        device="cuda", dtype=dt)
+    for Lq, Lt, nq, nt in GAPLESS_SHAPES:
+        if ungapped_cuda.kernel_for(Lq, cross=True) != "gapless_rows":
+            continue
+        for n_t in (20, nt):
+            q, qb, ql, t, tl, plants = cross_gapless_rows(np, rng, Lq, Lt,
+                                                          nq, n_t)
+            args = (mk(q, torch.uint8), mk(qb, torch.int8),
+                    mk(ql, torch.int32), mk(t, torch.uint8),
+                    mk(tl, torch.int32))
+            for r0, r1 in ((0, nq), (1, nq - 1)):
+                before = ungapped_cuda.LAUNCHES["gapless_rows"]
+                got = ungapped_cuda.gapless_scores_cross(*args, r0, r1)
+                torch.cuda.synchronize()
+                if ungapped_cuda.LAUNCHES["gapless_rows"] != before + 1:
+                    raise AssertionError(f"Lq={Lq} did not go to "
+                                         "gapless_rows")
+                flat = torch.arange((r1 - r0) * n_t, device="cuda")
+                ref = ungapped_torch.gapless_gathered(
+                    *args, r0 + flat // n_t, flat % n_t).view(r1 - r0, n_t)
+                errs["gapless_rows"] = max(errs["gapless_rows"],
+                                           max_err(torch, (got,), (ref,)))
+                if r0 == 0:
+                    scores = {k: int(ref[k]) for k in plants}
+            if scores != plants:
+                raise AssertionError(f"planted scores {scores}, expected "
+                                     f"{plants}")
+            print(f"gapless_rows Lq={Lq} Lt={Lt} rows={nq} targets={n_t}: "
+                  f"equal (best {int(ref.max())}; planted {scores})",
+                  flush=True)
+
+
 def check_gapless_long(torch, ungapped_cuda, ungapped_torch, errs):
     """gapless_long against the plain version at the long-row buckets: the
     planted pairs of long_gapless_pairs, then a staged cross product with
@@ -679,6 +813,7 @@ def reset(torch, counters, driver, prefilter):
         driver.CELLS[k] = 0
     driver.PHASE_SECONDS.clear()
     prefilter.CELLS["gapless"] = 0
+    prefilter.CELLS_BY_LQ.clear()
     torch.cuda.synchronize()
 
 
@@ -833,6 +968,44 @@ def time_gapless_long(torch, np, ungapped_cuda, ungapped_torch, errs):
           f"gapless_pair {pair_ms:.4f} ms on the same launch; all three "
           "outputs equal", flush=True)
     return row
+
+
+def time_gapless_rows(torch, np, ungapped_cuda, ungapped_torch, errs):
+    """(ms, plain_ms, bound_ms, bound_by) of gapless_rows at the first of
+    GAPLESS_ROWS_TIME_SHAPES, through the cross entry on every query row and
+    target; at each shape prints the ms of the three gapless kernels on the
+    same launch beside its bound, every output equal to the plain
+    version's."""
+    out = None
+    for seed, (Lq, Lt, nq, (q_lo, q_hi), nt, (t_lo, t_hi)) in enumerate(
+            GAPLESS_ROWS_TIME_SHAPES, start=13):
+        rng = np.random.default_rng(seed)
+        q, qb, _, t, _ = staged_batch(torch, rng, Lq, Lt, nq, nt, "cuda")
+        ql = torch.from_numpy(rng.integers(q_lo, q_hi + 1, nq)).int().cuda()
+        tl = torch.from_numpy(rng.integers(t_lo, t_hi + 1, nt)).int().cuda()
+        args = (q, qb, ql, t, tl, 0, nq)
+        cells = int(ql.long().sum()) * int(tl.long().sum())
+        flat = torch.arange(nq * nt, device="cuda")
+        plain = lambda: ungapped_torch.gapless_gathered(
+            q, qb, ql, t, tl, flat // nt, flat % nt).view(nq, nt)
+        ref = plain()
+        ms = {}
+        for k in ("gapless_rows", "gapless_pair", "gapless_long"):
+            best = ungapped_cuda.launch_cross(k, *args)
+            errs[k] = max(errs[k], max_err(torch, (best,), (ref,)))
+            ms[k] = time_ms(torch, lambda k=k: ungapped_cuda.launch_cross(
+                k, *args), 10 if k == "gapless_rows" else 3)
+        bound_ms, by = bound(cells, GAPLESS_OPS, (q, qb, ql, t, tl, ref))
+        if out is None:
+            out = (ms["gapless_rows"], time_ms(torch, plain, 1), bound_ms,
+                   by)
+        print(f"gapless cross launch: {nq} query rows of {q_lo}-{q_hi} aa "
+              f"(Lq {Lq}) x {nt} targets of {t_lo}-{t_hi} aa (Lt {Lt}), "
+              f"{cells} cells, bound {bound_ms:.4f} ms ({by}): " + ", ".join(
+                  f"{k} {v:.4f} ms ({cells / v * 1e3:.4e} cells/s)"
+                  for k, v in ms.items()) + "; all outputs equal the plain "
+              "version's", flush=True)
+    return out
 
 
 def time_qm_rt(torch, np, sw_cuda, sw_torch, errs):
@@ -1229,6 +1402,7 @@ def main():
     check_qm_kernels(torch, sw_cuda, sw_torch, errs)
     check_qm_rt_kernels(torch, sw_cuda, sw_torch, errs)
     check_gapless_kernel(torch, ungapped_cuda, ungapped_torch, errs)
+    check_gapless_rows(torch, ungapped_cuda, ungapped_torch, errs)
     check_gapless_long(torch, ungapped_cuda, ungapped_torch, errs)
 
     phase("3b microbenchmark kernels against their plain versions")
@@ -1276,7 +1450,7 @@ def main():
         print(f"ungapped fixture launches {run_l}, plain {run_p}")
         if digests(out) != ungapped["fixture"]["sha256"]:
             raise AssertionError("ungapped fixture digests differ")
-        if run_l["gapless_pair"] == 0 or any(run_p.values()):
+        if run_l["gapless_rows"] == 0 or any(run_p.values()):
             raise AssertionError("ungapped fixture run did not go through "
                                  "the gapless kernel")
         meta = ungapped["metagenome"]
@@ -1381,12 +1555,14 @@ def main():
         p = Params(prefilter_mode="ungapped")
         reset(torch, counters, driver, prefilter)
         t0 = time.perf_counter()
-        ep = EasyPredict(p, device="cuda")
-        ep.run(str(td / "u.fna"), str(td / "u.faa"), str(out),
-               tmp_dir=str(tmp))
-        torch.cuda.synchronize()
+        with launch_events(torch, ungapped_cuda, by_lq=True) as gap_ev:
+            ep = EasyPredict(p, device="cuda")
+            ep.run(str(td / "u.fna"), str(td / "u.faa"), str(out),
+                   tmp_dir=str(tmp))
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         run_l, run_p = counts(counters)
+        print_k7_by_lq(gap_ev, prefilter.CELLS_BY_LQ)
         stages = {**ep.predict_stage_seconds, **ep.stage_seconds}
         gap_cells = prefilter.CELLS["gapless"]
         align_s = sum(driver.PHASE_SECONDS.values())
@@ -1408,7 +1584,7 @@ def main():
                 any(run_p.values()):
             raise AssertionError("ungapped path did not go through the "
                                  "gapless and query-major kernels")
-        for k in UNGAPPED_KERNELS:
+        for k in (*UNGAPPED_KERNELS, "gapless_pair"):
             launches[k] = run_l[k]
 
         # the same pairs through the pair kernels (K1/K2)
@@ -1461,6 +1637,7 @@ def main():
         for k, (n, ms) in event_ms({**sw_ev, **gap_ev}).items():
             print(f"{k}: {n} launches, {ms:.3f} ms of kernel time "
                   "(CUDA events around each launch)", flush=True)
+        print_k7_by_lq(gap_ev, prefilter.CELLS_BY_LQ)
         run_l, run_p = counts(counters)
         pairs = np.load(tmp / "pref_pairs.npy")
         hits_qm = np.load(tmp / "search_hits.npy")
@@ -1541,6 +1718,8 @@ def main():
     rt_times, _ = time_qm_rt(torch, np, sw_cuda, sw_torch, errs)
     times.update(rt_times)
     times["gapless_long"] = time_gapless_long(torch, np, ungapped_cuda,
+                                              ungapped_torch, errs)
+    times["gapless_rows"] = time_gapless_rows(torch, np, ungapped_cuda,
                                               ungapped_torch, errs)
     for k, (ms, plain_ms, bound_ms, by) in times.items():
         print(f"{k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "

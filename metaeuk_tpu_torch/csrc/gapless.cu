@@ -27,8 +27,8 @@
 // cell served from L1; device memory traffic is small (the staged matrices
 // are read from cache). The least is two instructions per cell: with the bias
 // folded into a query profile, run = __viaddmax_s32_relu(run, s, 0) and one
-// max. A later PR packs four target codes per load and holds the query
-// profile in shared memory.
+// max. gapless_rows (below) does that for the prefilter's cross products;
+// gapless_pair stays the kernel for pairs that are not one.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -258,5 +258,203 @@ extern "C" int gapless_long(const int32_t* submat, int alph,
                                        nq, Lq, t_mat, t_lens, nt, Lt, li, lj,
                                        chunks, stride, best);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gapless_rows computes gapless_pair's function on the ungapped prefilter's
+// launches, which are cross products: staged query rows r0 .. r0 + rows - 1
+// against every staged target of a bucket (12 to 1,687 targets on the
+// slices of PERF.md), for query widths below ops/ungapped_cuda.py LONG_ROWS
+// (fragments up to 512 aa). A thread per pair reads three bytes from
+// device memory a cell; a block per pair (gapless_long) restages a
+// 21-row query profile for pairs of only 32 x 64 cells.
+//
+// Design: a block per (group of R query rows, tile of T targets), a thread
+// per (row, target). The block stages each of its rows' profile once in
+// shared memory, prof[i][a] = submat[q_i][a] + bias_i in int16 (exact:
+// the wrapper checks |submat| < 32640), row-major with SA entries a row:
+// the lanes of a row stand at the same row i of different targets, so they
+// read one window of at most 64 bytes, which is conflict-free. T is a
+// multiple of 32 up to 128 or, for fewer than 32 targets, a power of two
+// from 8 (32 / T rows share a warp), and R fills the block, cut so that the
+// profiles stay near kRowsProfBytes and several blocks share an SM. Each
+// thread scores its own pair and writes its score: no atomics, no scratch.
+//
+// A thread walks its pair in bands of kBand = 4 consecutive diagonals d0 ..
+// d0 + 3 (d0 a multiple of 4), row by row: at row i the band's cells are
+// columns i + d0 .. i + d0 + 3, so four rows of a band take seven target
+// columns, one new 32-bit word of four codes, and the four runs are
+// independent chains. The target codes come packed four to a word,
+// transposed and sorted by length by the wrapper: word (c, s) holds columns
+// 4c - 8 .. 4c - 5 of the s-th longest target, so the lanes of a row (the
+// same i and d0, consecutive s) read one 128-byte line, and their loops end
+// at nearly the same row. Columns < 0 and >= t_len hold the code alph, whose
+// profile entry is 0, and so do the profile rows from q_len to q_len + 3,
+// so every band starts on a word and runs whole groups of four rows with
+// no bounds inside: a score of 0 (or less) is exact there, because such
+// cells lie before a diagonal's first cell, where the run is 0 and stays
+// 0, or after its last, where the run can only stay or fall and so never
+// passes the best it already counted; no run restarts after them. A group
+// of four rows is a word load, seven byte extracts and address adds, 16
+// shared loads, 16 __viaddmax_s32_relu and eight __vimax3_s32: under four
+// instructions a cell.
+//
+// What bounds it on an H100: the dispatch of those instructions, two to
+// three a cell on the int32 pipe; device memory traffic is a quarter byte
+// a cell, mostly from L1 and L2.
+
+namespace {
+
+constexpr int kRowsThreads = 128;          // threads a block at most
+constexpr int kRowsProfBytes = 32 * 1024;  // profile bytes a block aims at
+constexpr int kBand = 4;                   // diagonals a thread walks at once
+constexpr int kLeadCols = 8;               // sentinel columns before column 0
+constexpr int kPadRows = 4;                // zero profile rows past Lq
+
+template <int SA>
+__global__ void __launch_bounds__(kRowsThreads) gapless_rows_kernel(
+    const int32_t* __restrict__ submat, int alph,
+    const uint8_t* __restrict__ q_mat, const int8_t* __restrict__ qb_mat,
+    const int32_t* __restrict__ q_lens, int Lq,
+    const uint32_t* __restrict__ t_words, const int32_t* __restrict__ t_lens,
+    const int32_t* __restrict__ order, int nt, int Lt, int r0, int rows,
+    int T, int R, int tiles, int32_t* __restrict__ best_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int sub_s[kAlphPad * kAlphPad];
+  int16_t* prof = reinterpret_cast<int16_t*>(smem);  // [R][Lq + 4][SA]
+  const int PR = Lq + kPadRows;
+  const int group = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int t = threadIdx.x, nthr = blockDim.x;
+  for (int k = t; k < kAlphPad * kAlphPad; k += nthr) {
+    const int r = k / kAlphPad, c = k % kAlphPad;
+    sub_s[k] = (r < alph && c < alph) ? submat[r * alph + c] : 0;
+  }
+  __syncthreads();
+  for (int e = t; e < R * PR; e += nthr) {
+    const int rr = e / PR, i = e - rr * PR, row = group * R + rr;
+    if (row >= rows) continue;
+    int16_t* p = prof + static_cast<size_t>(e) * SA;
+    if (i < min(q_lens[r0 + row], Lq)) {
+      const size_t at = static_cast<size_t>(r0 + row) * Lq + i;
+      const int* s = sub_s + q_mat[at] * kAlphPad;
+      const int bias = qb_mat[at];
+      for (int a = 0; a < alph; ++a) p[a] = static_cast<int16_t>(s[a] + bias);
+      p[alph] = 0;
+    } else {
+      for (int a = 0; a <= alph; ++a) p[a] = 0;
+    }
+  }
+  __syncthreads();
+
+  const int rr = t / T, slot = tile * T + (t - rr * T);
+  const int row = group * R + rr;
+  if (row >= rows || slot >= nt) return;
+  const int tj = order[slot];
+  const int m = max(0, min(q_lens[r0 + row], Lq));
+  const int n = max(0, min(t_lens[tj], Lt));
+  const int16_t* P = prof + static_cast<size_t>(rr) * PR * SA;
+  const uint32_t* W = t_words + slot;
+  const size_t ws = static_cast<size_t>(nt);
+  int best = 0;
+  // bands of diagonals d = j - i from the bottom-left corner; d0 = 1 - m
+  // rounded down to a multiple of 4 (diagonals below 1 - m hold no cell)
+  for (int d0 = m > 0 ? (1 - m) & ~(kBand - 1) : n; d0 < n; d0 += kBand) {
+    // the first row whose word starts at column i + d0 (one row early when
+    // d0 < 0: its cells lie left of column 0), and the row past which
+    // every column of the band is >= n
+    int i = max(0, -(d0 + kBand));
+    const int i_end = min(m, n - d0);
+    const int16_t* p = P + i * SA;
+    const uint32_t* wp = W + ((i + d0 + kLeadCols) >> 2) * ws;
+    uint32_t A = __ldg(wp);
+    int x0 = 0, x1 = 0, x2 = 0, x3 = 0;
+    for (; i < i_end; i += 4, p += 4 * SA) {
+      wp += ws;
+      const uint32_t B = __ldg(wp);
+      // columns i + d0 + b, b = 0 .. 6, as profile rows of row i
+      const int16_t* c0 = p + (A & 0xffu);
+      const int16_t* c1 = p + ((A >> 8) & 0xffu);
+      const int16_t* c2 = p + ((A >> 16) & 0xffu);
+      const int16_t* c3 = p + (A >> 24);
+      const int16_t* c4 = p + (B & 0xffu);
+      const int16_t* c5 = p + ((B >> 8) & 0xffu);
+      const int16_t* c6 = p + ((B >> 16) & 0xffu);
+      // row i + r meets diagonal d0 + k at column b = r + k
+      x0 = __viaddmax_s32_relu(x0, c0[0], 0);
+      x1 = __viaddmax_s32_relu(x1, c1[0], 0);
+      x2 = __viaddmax_s32_relu(x2, c2[0], 0);
+      x3 = __viaddmax_s32_relu(x3, c3[0], 0);
+      best = __vimax3_s32(best, x0, x1);
+      best = __vimax3_s32(best, x2, x3);
+      x0 = __viaddmax_s32_relu(x0, c1[SA], 0);
+      x1 = __viaddmax_s32_relu(x1, c2[SA], 0);
+      x2 = __viaddmax_s32_relu(x2, c3[SA], 0);
+      x3 = __viaddmax_s32_relu(x3, c4[SA], 0);
+      best = __vimax3_s32(best, x0, x1);
+      best = __vimax3_s32(best, x2, x3);
+      x0 = __viaddmax_s32_relu(x0, c2[2 * SA], 0);
+      x1 = __viaddmax_s32_relu(x1, c3[2 * SA], 0);
+      x2 = __viaddmax_s32_relu(x2, c4[2 * SA], 0);
+      x3 = __viaddmax_s32_relu(x3, c5[2 * SA], 0);
+      best = __vimax3_s32(best, x0, x1);
+      best = __vimax3_s32(best, x2, x3);
+      x0 = __viaddmax_s32_relu(x0, c3[3 * SA], 0);
+      x1 = __viaddmax_s32_relu(x1, c4[3 * SA], 0);
+      x2 = __viaddmax_s32_relu(x2, c5[3 * SA], 0);
+      x3 = __viaddmax_s32_relu(x3, c6[3 * SA], 0);
+      best = __vimax3_s32(best, x0, x1);
+      best = __vimax3_s32(best, x2, x3);
+      A = B;
+    }
+  }
+  best_out[static_cast<size_t>(row) * nt + tj] = best;
+}
+
+}  // namespace
+
+// q_mat, qb_mat: (nq, Lq) staged query codes and biases, row-major;
+// t_words: (ceil(Lt / 4) + 4, nt) words, word (c, s) = the codes of columns 4c - 8 .. 4c - 5 of target order[s]
+// (little-endian), alph for a column < 0 or >= its length; t_lens: (nt,)
+// target lengths; order: (nt,) target indices, longest first. Writes best
+// (rows, nt), best[r][k] = the score of query row r0 + r against target k,
+// on `stream`; does not synchronise. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for rows outside [0, nq), more than 31 classes or a
+// grid past 2^31 - 1 blocks.
+extern "C" int gapless_rows(const int32_t* submat, int alph,
+                            const uint8_t* q_mat, const int8_t* qb_mat,
+                            const int32_t* q_lens, int nq, int Lq,
+                            const uint32_t* t_words, const int32_t* t_lens,
+                            int nt, int Lt, const int32_t* order, int r0,
+                            int rows, int32_t* best, void* stream) {
+  if (rows <= 0 || nt <= 0) return static_cast<int>(cudaGetLastError());
+  if (r0 < 0 || r0 + rows > nq || alph >= kAlphPad || Lq < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sa = alph < 22 ? 22 : kAlphPad;  // alph + 1 entries a row
+  const size_t row_bytes =
+      static_cast<size_t>(Lq + kPadRows) * sa * sizeof(int16_t);
+  // rows whose profiles fit the block's budget; T targets a row: a power
+  // of two from 8 below 32 targets (32 / T rows share a warp, if that many
+  // profiles fit), else a multiple of 32 up to kRowsThreads
+  const size_t fit_rows = kRowsProfBytes / row_bytes;
+  const int fit = fit_rows > 0 ? static_cast<int>(fit_rows) : 1;
+  int T = 8;
+  while (T < nt && T < 32) T *= 2;
+  while (T < 32 && 32 / T > fit) T *= 2;
+  if (T == 32) T = min(kRowsThreads, (nt + 31) / 32 * 32);
+  const int per_warp = max(1, 32 / T);
+  const int R = max(per_warp,
+                    min(kRowsThreads / T, fit) / per_warp * per_warp);
+  const int tiles = (nt + T - 1) / T;
+  const long long blocks = static_cast<long long>((rows + R - 1) / R) * tiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t shmem = R * row_bytes;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = sa == 22 ? gapless_rows_kernel<22>
+                         : gapless_rows_kernel<kAlphPad>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(shmem));
+  kernel<<<static_cast<unsigned int>(blocks), R * T, shmem, st>>>(
+      submat, alph, q_mat, qb_mat, q_lens, Lq, t_words, t_lens, order, nt,
+      Lt, r0, rows, T, R, tiles, best);
   return static_cast<int>(cudaGetLastError());
 }

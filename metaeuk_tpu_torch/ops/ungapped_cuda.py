@@ -3,9 +3,15 @@ csrc/gapless.cu, dispatched by the device of the tensors given.
 
 - A CPU tensor goes to the plain PyTorch version (ops/ungapped_torch.py).
 - A CUDA tensor launches a kernel, or raises. There is no fallback.
-- The staged query width Lq picks the kernel (kernel_for): gapless_pair, a
-  thread per pair, below LONG_ROWS; gapless_long, a block per (pair, chunk
-  of 256 diagonals), from LONG_ROWS up. Both compute the same function.
+- gapless_scores_cross scores staged query rows r0..r1 against every staged
+  target (the ungapped prefilter's launches); the staged query width Lq
+  picks the kernel (kernel_for(Lq, cross=True)): gapless_rows, a block per
+  (query rows, tile of targets) with the rows' profiles in shared memory,
+  below LONG_ROWS; gapless_long, a block per (pair, chunk of 256
+  diagonals), from LONG_ROWS up.
+- gapless_scores_gathered scores arbitrary pairs (li, lj): gapless_pair, a
+  thread per pair, below LONG_ROWS; gapless_long from LONG_ROWS up. All
+  three kernels compute the same function.
 
 Counterparts in the JAX package (metaeuk_tpu/ops/ungapped.py):
 gapless_scores_gathered is gapless_scores_gathered / gapless_gathered_jit
@@ -28,7 +34,7 @@ from . import _build, ungapped_torch
 from .sw_cuda import check_scores_fit
 from ..state import default_scoring
 
-KERNELS = ("gapless_pair", "gapless_long")
+KERNELS = ("gapless_pair", "gapless_long", "gapless_rows")
 # staged query widths from which a launch goes to gapless_long (fragments
 # over 512 aa): on the card it beats gapless_pair at every prefilter bucket
 # from 1024 up (tools/torch_gapless_rows.py, PERF.md)
@@ -42,6 +48,10 @@ _I = ctypes.c_int
 # stream (q, qb, t transposed for gapless_pair, row-major for gapless_long)
 _ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
              ctypes.c_longlong, _P, _P]
+# gapless_rows: submat, alph, q, qb, q_lens, nq, Lq, t_words, t_lens, nt,
+# Lt, order, r0, rows, out, stream
+_ROWS_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I,
+                  _P, _P]
 
 
 def reset_counts():
@@ -53,14 +63,122 @@ def reset_counts():
 @functools.lru_cache(maxsize=None)
 def _kernel(name):
     fn = getattr(_build.load("gapless"), name)
-    fn.argtypes = _ARGTYPES
+    fn.argtypes = _ROWS_ARGTYPES if name == "gapless_rows" else _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-def kernel_for(Lq):
-    """The kernel that scores a launch of staged query width Lq."""
-    return "gapless_long" if Lq >= LONG_ROWS else "gapless_pair"
+def kernel_for(Lq, cross=False):
+    """The kernel that scores a launch of staged query width Lq: of
+    arbitrary pairs, or with cross, of a cross product."""
+    if Lq >= LONG_ROWS:
+        return "gapless_long"
+    return "gapless_rows" if cross else "gapless_pair"
+
+
+def _cross_pairs(r0, r1, nt, device):
+    """(li, lj) of query rows r0..r1 against targets 0..nt, row-major."""
+    flat = torch.arange((r1 - r0) * nt, device=device)
+    return ((r0 + flat // nt).to(torch.int32),
+            (flat % nt).to(torch.int32))
+
+
+def gapless_scores_cross(q_mat, qb_mat, q_lens, t_mat, t_lens, r0, r1,
+                         scoring=None):
+    """(r1 - r0, nt) int32 best gapless diagonal scores of staged query rows
+    r0..r1 against every staged target. q_mat, qb_mat: (nq, Lq) codes and
+    biases; t_mat: (nt, Lt) codes."""
+    scoring = scoring or default_scoring(q_mat.device)
+    name = kernel_for(q_mat.shape[1], cross=True)
+    _check_rows(q_mat, r0, r1)
+    if q_mat.device.type == "cpu":
+        PLAIN_CALLS[name] += 1
+        li, lj = _cross_pairs(r0, r1, t_mat.shape[0], q_mat.device)
+        return ungapped_torch.gapless_gathered(
+            q_mat, qb_mat, q_lens, t_mat, t_lens, li, lj,
+            scoring=scoring).view(r1 - r0, t_mat.shape[0])
+    return launch_cross(name, q_mat, qb_mat, q_lens, t_mat, t_lens, r0, r1,
+                        scoring=scoring)
+
+
+def launch_cross(name, q_mat, qb_mat, q_lens, t_mat, t_lens, r0, r1,
+                 scoring=None):
+    """gapless_scores_cross on kernel `name` (one of KERNELS), whatever
+    kernel_for would pick: CUDA tensors only."""
+    nt = t_mat.shape[0]
+    _check_rows(q_mat, r0, r1)
+    if name != "gapless_rows":
+        li, lj = _cross_pairs(r0, r1, nt, q_mat.device)
+        return launch(name, q_mat, qb_mat, q_lens, t_mat, t_lens, li, lj,
+                      scoring=scoring).view(r1 - r0, nt)
+    scoring = scoring or default_scoring(q_mat.device)
+    sub, alph = _checked(name, q_mat, qb_mat, q_lens, t_mat, t_lens,
+                         scoring)
+    (nq, Lq), Lt = q_mat.shape, t_mat.shape[1]
+    best = torch.empty((r1 - r0, nt), dtype=torch.int32, device=q_mat.device)
+    if best.numel() == 0:
+        return best
+    tl = t_lens.to(torch.int32).contiguous()
+    words, order = target_words(t_mat, tl, alph)
+    q = q_mat.to(torch.uint8).contiguous()
+    qb = qb_mat.to(torch.int8).contiguous()
+    ql = q_lens.to(torch.int32).contiguous()
+    rc = _kernel(name)(sub.data_ptr(), alph, q.data_ptr(), qb.data_ptr(),
+                       ql.data_ptr(), nq, Lq, words.data_ptr(), tl.data_ptr(),
+                       nt, Lt, order.data_ptr(), r0, r1 - r0, best.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return best
+
+
+def target_words(t_mat, t_lens, alph):
+    """gapless_rows's targets: ((ceil(Lt / 4) + 4, nt) int32 words, (nt,)
+    int32 order), order the target indices longest first (ties by index),
+    word (c, s) the codes of columns 4c - 8 .. 4c - 5 of target order[s],
+    byte k column 4c - 8 + k, and the code alph (whose profile entry is 0)
+    for a column left of 0 or from the target's length on."""
+    nt, Lt = t_mat.shape
+    order = torch.argsort(t_lens, descending=True, stable=True)
+    t = torch.full((nt, 4 * ((Lt + 3) // 4 + 4)), alph, dtype=torch.uint8,
+                   device=t_mat.device)
+    cols = torch.arange(Lt, device=t_mat.device)
+    t[:, 8:8 + Lt] = torch.where(cols[None, :] < t_lens[order, None],
+                                 t_mat[order].to(torch.uint8), alph)
+    return t.view(torch.int32).t().contiguous(), order.to(torch.int32)
+
+
+def _check_rows(q_mat, r0, r1):
+    if not 0 <= r0 <= r1 <= q_mat.shape[0]:
+        raise ValueError(f"gapless kernel: query rows {r0}..{r1} outside "
+                         f"0..{q_mat.shape[0]}")
+
+
+def _checked(name, q_mat, qb_mat, q_lens, t_mat, t_lens, scoring, *idx):
+    """(int32 submat, alph) once the inputs of kernel `name` lie on one
+    CUDA device with matching shapes and the scores fit its profile."""
+    dev = q_mat.device
+    tensors = (q_mat, qb_mat, q_lens, t_mat, t_lens, *idx, scoring.submat)
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("gapless kernel takes tensors on one CUDA device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    (nq, Lq), nt = q_mat.shape, t_mat.shape[0]
+    if (qb_mat.shape != (nq, Lq) or q_lens.shape != (nq,)
+            or t_lens.shape != (nt,) or t_mat.dim() != 2
+            or any(i.shape != idx[0].shape or i.dim() != 1 for i in idx)):
+        raise ValueError("gapless kernel: shapes do not match staged "
+                         "(nq, Lq) x (nt, Lt) matrices and (B,) indices")
+    alph = scoring.submat.shape[0]
+    # gapless_rows keeps one more profile entry, the code of no column
+    most = 31 if name == "gapless_rows" else 32
+    if scoring.submat.shape != (alph, alph) or alph > most:
+        raise ValueError(f"{name} takes a square substitution matrix of at "
+                         f"most {most} classes")
+    if name != "gapless_pair":
+        # the query profile holds submat + bias (an int8) as int16
+        check_scores_fit(scoring.submat, -32640, 32639, name)
+    return scoring.submat.to(torch.int32).contiguous(), alph
 
 
 def gapless_scores_gathered(q_mat, qb_mat, q_lens, t_mat, t_lens, li, lj,
@@ -83,25 +201,13 @@ def launch(name, q_mat, qb_mat, q_lens, t_mat, t_lens, li, lj,
     """gapless_scores_gathered on kernel `name` (one of KERNELS), whatever
     kernel_for would pick: CUDA tensors only."""
     scoring = scoring or default_scoring(q_mat.device)
+    if name not in ("gapless_pair", "gapless_long"):
+        raise ValueError(f"{name} does not take gathered pairs")
+    sub, alph = _checked(name, q_mat, qb_mat, q_lens, t_mat, t_lens,
+                         scoring, li, lj)
     dev = q_mat.device
-    tensors = (q_mat, qb_mat, q_lens, t_mat, t_lens, li, lj, scoring.submat)
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("gapless kernel takes tensors on one CUDA device, "
-                         f"got {[str(t.device) for t in tensors]}")
     (nq, Lq), (nt, Lt), B = q_mat.shape, t_mat.shape, li.shape[0]
-    if (qb_mat.shape != (nq, Lq) or q_lens.shape != (nq,)
-            or t_lens.shape != (nt,) or li.shape != (B,)
-            or lj.shape != (B,)):
-        raise ValueError("gapless kernel: shapes do not match staged "
-                         "(nq, Lq) x (nt, Lt) matrices and (B,) indices")
-    alph = scoring.submat.shape[0]
-    if scoring.submat.shape != (alph, alph) or alph > 32:
-        raise ValueError("gapless kernel takes a square substitution matrix "
-                         "of at most 32 classes")
-    sub = scoring.submat.to(torch.int32).contiguous()
     if name == "gapless_long":
-        # the query profile holds submat + bias (an int8) as int16
-        check_scores_fit(scoring.submat, -32640, 32639, "gapless_long")
         q = q_mat.to(torch.uint8).contiguous()
         qb = qb_mat.to(torch.int8).contiguous()
         t = t_mat.to(torch.uint8).contiguous()

@@ -10,12 +10,13 @@ the gapless kernel (ops/ungapped_cuda.py) over the cross product of every
 fragment length bucket with every target length bucket; the pair array is
 the JAX package's, element for element.
 
-Launches carry whole query rows of a bucket's cross product, up to a cell
-budget per device type: one thread scores one pair and keeps no scratch, so
-a CUDA launch carries millions of pairs (the JAX package's VMEM-sized blocks
-of 1<<27 cells stay for the plain CPU version). The scores stay on the
-device in one (fragments, targets) int32 matrix, and the per-fragment
-selection is one top-k per block of rows on a (score, reversed target) key.
+Launches carry whole query rows of a bucket's cross product
+(ungapped_cuda.gapless_scores_cross), up to a cell budget per device type:
+the kernels keep no scratch, so a CUDA launch carries millions of pairs (the
+JAX package's VMEM-sized blocks of 1<<27 cells stay for the plain CPU
+version). The scores stay on the device in one (fragments, targets) int32
+matrix, and the per-fragment selection is one top-k per block of rows on a
+(score, reversed target) key.
 """
 
 import numpy as np
@@ -34,6 +35,9 @@ SELECT_ROWS = 4096
 # gapless cells scored (q_len * t_len summed over every pair), summed over
 # candidate_pairs calls; set to 0 to start a count
 CELLS = {"gapless": 0}
+# the same cells by staged query width Lq (the kernel's bucket); clear() to
+# start a count
+CELLS_BY_LQ = {}
 
 
 def _bucket(n, lo=32):
@@ -42,6 +46,17 @@ def _bucket(n, lo=32):
     while b < n:
         b *= 2
     return b
+
+
+def cells_by_lq(orf_lens, target_lens):
+    """{staged query width Lq: gapless cells} of fragments of orf_lens
+    against targets of target_lens, every pair scored once."""
+    t_sum = int(np.sum(target_lens, dtype=np.int64))
+    out = {}
+    for n, count in zip(*np.unique(orf_lens, return_counts=True)):
+        Lq = _bucket(max(int(n), 1))
+        out[Lq] = out.get(Lq, 0) + int(n) * int(count) * t_sum
+    return dict(sorted(out.items()))
 
 
 class UngappedPrefilter:
@@ -79,6 +94,8 @@ class UngappedPrefilter:
             return np.zeros((0, 2), dtype=np.int64)
         orf_lens = np.array([len(e) for e in orfs_enc], np.int64)
         CELLS["gapless"] += int(orf_lens.sum()) * int(self.target_lens.sum())
+        for Lq, n in cells_by_lq(orf_lens, self.target_lens).items():
+            CELLS_BY_LQ[Lq] = CELLS_BY_LQ.get(Lq, 0) + n
 
         # group by padded length buckets; stage each bucket's matrices once
         # and launch whole query rows of the cross product
@@ -110,14 +127,10 @@ class UngappedPrefilter:
                 rows = max(1, max_pairs // n_t)
                 for r0 in range(0, len(qi_all), rows):
                     r1 = min(r0 + rows, len(qi_all))
-                    flat = torch.arange((r1 - r0) * n_t, device=dev)
-                    li = (r0 + flat // n_t).to(torch.int32)
-                    lj = (flat % n_t).to(torch.int32)
-                    out = ungapped_cuda.gapless_scores_gathered(
-                        q_mat, qb_mat, q_lens, t_mat, t_lens, li, lj,
-                        scoring=self.scoring)
                     scores[qi_dev[r0:r1, None], ti_dev[None, :]] = \
-                        out.view(r1 - r0, n_t)
+                        ungapped_cuda.gapless_scores_cross(
+                            q_mat, qb_mat, q_lens, t_mat, t_lens, r0, r1,
+                            scoring=self.scoring)
 
         # per fragment: score > min_diag_score, (score desc, target asc),
         # truncated to max-seqs; the key orders targets of equal score by

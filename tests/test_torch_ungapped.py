@@ -4,8 +4,10 @@ the JAX package.
 The plain gapless version (what the wrapper runs on a CPU tensor) is held to
 metaeuk_tpu/ops/ungapped.py's XLA scan and to its Pallas kernel in
 interpret mode, also at the widths of gapless_long (staged Lq >= LONG_ROWS)
-on chip_smoke.py's planted runs; the port's UngappedPrefilter to the JAX
-package's, pair array for pair array. Every output is an integer: the
+on chip_smoke.py's planted runs, and through the cross entry (the
+prefilter's launches, gapless_rows below LONG_ROWS) on chip_smoke.py's
+planted cross products; the port's UngappedPrefilter to the JAX package's,
+pair array for pair array. Every output is an integer: the
 tolerance is exact equality. The CUDA kernels are held to the plain version
 on the card (marker gpu).
 """
@@ -89,7 +91,8 @@ def test_plain_gapless_matches_xla_at_long_widths(Lq, Lt):
     ungapped_cuda.reset_counts()
     got = ungapped_cuda.gapless_scores(*_torch(q, qb, ql, t, tl)).numpy()
     assert ungapped_cuda.PLAIN_CALLS == {"gapless_pair": 0,
-                                         "gapless_long": 1}
+                                         "gapless_long": 1,
+                                         "gapless_rows": 0}
     np.testing.assert_array_equal(ref, got)
     # the single cells of the first and last diagonals score W-W (11), and
     # the runs cut at q_len - 1 and t_len - 1 pass 128 but stop there
@@ -112,8 +115,9 @@ def test_long_rows_route_to_gapless_long():
         args = _torch(*_pairs(Lq, 8, Lq, 32))
         ungapped_cuda.gapless_scores(*args)
     assert ungapped_cuda.PLAIN_CALLS == {"gapless_pair": 1,
-                                         "gapless_long": 2}
-    assert ungapped_cuda.LAUNCHES == {"gapless_pair": 0, "gapless_long": 0}
+                                         "gapless_long": 2,
+                                         "gapless_rows": 0}
+    assert ungapped_cuda.LAUNCHES == dict.fromkeys(ungapped_cuda.KERNELS, 0)
 
 
 def test_long_kernel_takes_scores_that_fit_its_int16_profile():
@@ -151,8 +155,9 @@ def test_cpu_tensors_take_the_plain_version():
     ungapped_cuda.reset_counts()
     got = ungapped_cuda.gapless_scores(*args)
     assert ungapped_cuda.PLAIN_CALLS == {"gapless_pair": 1,
-                                         "gapless_long": 0}
-    assert ungapped_cuda.LAUNCHES == {"gapless_pair": 0, "gapless_long": 0}
+                                         "gapless_long": 0,
+                                         "gapless_rows": 0}
+    assert ungapped_cuda.LAUNCHES == dict.fromkeys(ungapped_cuda.KERNELS, 0)
     pairs = torch.arange(16)
     assert torch.equal(got, ungapped_torch.gapless_gathered(*args, pairs,
                                                             pairs))
@@ -163,6 +168,111 @@ def test_other_devices_raise():
     pairs = torch.arange(8, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ungapped_cuda.gapless_scores_gathered(*args, pairs, pairs)
+
+
+def _cross(Lq, Lt, nq, nt):
+    """chip_smoke.cross_gapless_rows: staged matrices of a cross product
+    with planted runs, and {(row, target): score} of the plants."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    return chip_smoke.cross_gapless_rows(np, np.random.default_rng(nt), Lq,
+                                         Lt, nq, nt)
+
+
+def _xla_cross(q, qb, ql, t, tl, r0, r1):
+    li = np.repeat(np.arange(r0, r1), len(t))
+    lj = np.tile(np.arange(len(t)), r1 - r0)
+    return np.asarray(gapless_scores_xla(
+        q[li], qb[li], ql[li], t[lj], q.shape[1], t.shape[1],
+        t_len=tl[lj])).reshape(r1 - r0, len(t))
+
+
+@pytest.mark.parametrize("Lq,Lt,nq,nt", [(32, 48, 9, 20), (32, 48, 6, 150),
+                                         (512, 96, 6, 20), (512, 96, 6, 140)])
+def test_plain_cross_matches_xla(Lq, Lt, nq, nt):
+    """The cross entry on the CPU (the prefilter's launch, gapless_rows's
+    plain version) with target blocks narrower and wider than a block's
+    32-128 targets: the first and last diagonals' single cells, runs cut at
+    q_len - 1 and t_len - 1 with padding that would extend them, rows and
+    targets of length 0, repeated targets."""
+    q, qb, ql, t, tl, plants = _cross(Lq, Lt, nq, nt)
+    assert ql[1] == 0 and tl[2] == 0 and np.array_equal(t[4], t[0])
+    ungapped_cuda.reset_counts()
+    got = ungapped_cuda.gapless_scores_cross(*_torch(q, qb, ql, t, tl), 0,
+                                             nq).numpy()
+    assert ungapped_cuda.PLAIN_CALLS == {"gapless_pair": 0,
+                                         "gapless_long": 0,
+                                         "gapless_rows": 1}
+    assert got.shape == (nq, nt) and got.dtype == np.int32
+    np.testing.assert_array_equal(_xla_cross(q, qb, ql, t, tl, 0, nq), got)
+    assert {k: int(got[k]) for k in plants} == plants
+    assert min(plants.values()) == 11 and max(plants.values()) > 40
+    assert not got[1].any() and not got[:, 2].any()
+    np.testing.assert_array_equal(got[:, 4], got[:, 0])
+
+
+def test_plain_cross_matches_pallas_interpret():
+    nq, Lq, nt, Lt = 6, 32, 40, 40
+    q, qb, ql, t, tl, plants = _cross(Lq, Lt, nq, nt)
+    li = np.repeat(np.arange(1, nq), nt)
+    lj = np.tile(np.arange(nt), nq - 1)
+    ref = gapless_scores(q[li], qb[li], ql[li], t[lj], tl[lj],
+                         interpret=True).reshape(nq - 1, nt)
+    got = ungapped_cuda.gapless_scores_cross(*_torch(q, qb, ql, t, tl), 1,
+                                             nq).numpy()
+    np.testing.assert_array_equal(ref, got)
+    assert {k: int(got[k[0] - 1, k[1]]) for k in plants} == plants
+
+
+def test_cross_entry_routes_and_counts():
+    """Cross products go to gapless_rows below LONG_ROWS and gapless_long
+    from it; on the CPU each call counts one plain call under that kernel
+    and launches nothing. The output equals the gathered form on the same
+    pairs; rows out of range raise."""
+    for n, name in ((20, "gapless_rows"), (512, "gapless_rows"),
+                    (513, "gapless_long"), (32734, "gapless_long")):
+        assert ungapped_cuda.kernel_for(prefilter._bucket(n),
+                                        cross=True) == name
+    ungapped_cuda.reset_counts()
+    for Lq in (32, 512, 1024):
+        q, qb, ql, t, tl = _torch(*_pairs(Lq, 7, Lq, 40))
+        got = ungapped_cuda.gapless_scores_cross(q, qb, ql, t, tl, 2, 6)
+        li = torch.arange(2, 6).repeat_interleave(7)
+        lj = torch.arange(7).repeat(4)
+        assert torch.equal(got, ungapped_torch.gapless_gathered(
+            q, qb, ql, t, tl, li, lj).view(4, 7))
+    assert ungapped_cuda.gapless_scores_cross(q, qb, ql, t, tl, 3,
+                                              3).shape == (0, 7)
+    assert ungapped_cuda.PLAIN_CALLS == {"gapless_pair": 0,
+                                         "gapless_long": 2,
+                                         "gapless_rows": 2}
+    assert ungapped_cuda.LAUNCHES == dict.fromkeys(ungapped_cuda.KERNELS, 0)
+    with pytest.raises(ValueError, match="query rows"):
+        ungapped_cuda.gapless_scores_cross(q, qb, ql, t, tl, 5, 8)
+
+
+def test_rows_kernel_target_words_layout():
+    """gapless_rows reads its targets as words of four codes, longest
+    target first, column 4c - 8 + k in byte k of word c, and the code alph
+    (a profile entry of 0) left of column 0 and from each length on."""
+    _, _, _, t, tl = _pairs(9, 6, 8, 13)
+    tl[2] = 20   # a length past the staged width
+    words, order = ungapped_cuda.target_words(*_torch(t, tl), 21)
+    assert words.shape == (8, 6) and words.dtype == torch.int32
+    assert order.tolist() == sorted(range(6), key=lambda k: (-tl[k], k))
+    codes = words.numpy().view(np.uint8).reshape(8, 6, 4)
+    for s, k in enumerate(order.tolist()):
+        col = codes[:, s].reshape(-1)   # byte 4c + b is column 4c + b - 8
+        n = min(int(tl[k]), 13)
+        np.testing.assert_array_equal(col[8:8 + n], t[k, :n])
+        assert (col[:8] == 21).all() and (col[8 + n:] == 21).all()
+
+
+def test_prefilter_counts_cells_by_query_width():
+    lens = np.array([20, 32, 33, 600, 1, 4097])
+    cells = prefilter.cells_by_lq(lens, np.array([10, 90]))
+    assert cells == {32: 5300, 64: 3300, 1024: 60000, 8192: 409700}
+    assert sum(cells.values()) == int(lens.sum()) * 100
 
 
 def _fragments(contigs_path):
@@ -178,12 +288,18 @@ def _fragments(contigs_path):
 def _assert_same_pairs(frags, targets, p):
     ref = JaxPrefilter(p, targets, p.min_diag_score).candidate_pairs(frags)
     prefilter.CELLS["gapless"] = 0
+    prefilter.CELLS_BY_LQ.clear()
+    ungapped_cuda.reset_counts()
     got = prefilter.UngappedPrefilter(p, targets, p.min_diag_score,
                                       device="cpu").candidate_pairs(frags)
     assert got.dtype == np.int64 and got.shape == ref.shape
     np.testing.assert_array_equal(ref, got)
     lens = sum(len(f) for f in frags) * targets.total_residues()
     assert prefilter.CELLS["gapless"] == lens
+    assert sum(prefilter.CELLS_BY_LQ.values()) == lens
+    # every launch is a cross product on gapless_rows's plain version
+    assert ungapped_cuda.PLAIN_CALLS["gapless_rows"] > 0
+    assert ungapped_cuda.PLAIN_CALLS["gapless_pair"] == 0
     return got
 
 
@@ -260,5 +376,30 @@ def test_long_kernel_matches_plain_on_card(cuda_device, Lq, Lt):
         got = ungapped_cuda.gapless_scores_gathered(*args, li, lj)
         torch.cuda.synchronize()
         assert ungapped_cuda.LAUNCHES == {"gapless_pair": 0,
-                                          "gapless_long": 1}
+                                          "gapless_long": 1,
+                                          "gapless_rows": 0}
         assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lq,Lt,nq,nt", [(32, 64, 64, 20), (32, 64, 300, 300),
+                                         (512, 1024, 16, 20),
+                                         (512, 1024, 16, 100)])
+def test_rows_kernel_matches_plain_on_card(cuda_device, Lq, Lt, nq, nt):
+    """gapless_rows through the cross entry on the planted cross products,
+    all rows and then rows 1..nq - 1."""
+    q, qb, ql, t, tl, plants = _cross(Lq, Lt, nq, nt)
+    args = [a.to(cuda_device) for a in _torch(q, qb, ql, t, tl)]
+    for r0, r1 in ((0, nq), (1, nq - 1)):
+        flat = torch.arange((r1 - r0) * nt, device=cuda_device)
+        ref = ungapped_torch.gapless_gathered(
+            *args, r0 + flat // nt, flat % nt).view(r1 - r0, nt)
+        ungapped_cuda.reset_counts()
+        got = ungapped_cuda.gapless_scores_cross(*args, r0, r1)
+        torch.cuda.synchronize()
+        assert ungapped_cuda.LAUNCHES == {"gapless_pair": 0,
+                                          "gapless_long": 0,
+                                          "gapless_rows": 1}
+        assert torch.equal(got, ref)
+        if r0 == 0:
+            assert {k: int(got[k]) for k in plants} == plants

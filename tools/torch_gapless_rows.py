@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""gapless_pair against gapless_long on the same launches, at each of the
-ungapped prefilter's query buckets: the measurement that places
-metaeuk_tpu_torch/ops/ungapped_cuda.py LONG_ROWS.
+"""The gapless kernels against each other on the same launches, at each of
+the ungapped prefilter's query buckets: the measurement that places
+metaeuk_tpu_torch/ops/ungapped_cuda.py LONG_ROWS and the short rows'
+kernel.
 
     python3 tools/torch_gapless_rows.py [Lq ...]      (needs one CUDA device)
 
-For each Lq (default 1024 2048 4096 8192 16384 32768), query rows of
+For each Lq (default 32 64 128 256 512 1024), query rows of
 Lq / 2 + 1 to Lq aa (seeded random codes and biases) go against the 3,000
 targets of the ungapped slice (tools/make_metagenome.py, seed 20260820: the
 same target pool at any size), staged per target bucket as
 search/prefilter.py stages them, with as many query rows as the
 prefilter's cell budget puts in one launch at (Lq, Lt) (at least one). Each
-launch runs on both kernels, whose outputs must be equal, and is timed with
-CUDA events. Prints the card's name and power limit, one JSON line per
-(Lq, Lt) launch, then per Lq the summed ms of each kernel over the target
-buckets and the faster kernel.
+launch is a cross product and runs through ungapped_cuda.launch_cross on
+gapless_pair, gapless_long and, up to Lq ROWS_MAX (its profiles sit in
+shared memory), gapless_rows; their outputs must be equal, and each is
+timed with CUDA events. Prints the card's name and power limit, one JSON
+line per (Lq, Lt) launch, then per Lq the summed ms of each kernel over the
+target buckets and the fastest kernel.
 """
 
 import json
@@ -23,7 +26,8 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-BUCKETS = (1024, 2048, 4096, 8192, 16384, 32768)
+BUCKETS = (32, 64, 128, 256, 512, 1024)
+ROWS_MAX = 4096
 
 
 def main(argv=None):
@@ -60,7 +64,9 @@ def main(argv=None):
     rng = np.random.default_rng(7)
     sums = {}
     for Lq in [int(a) for a in argv] or BUCKETS:
-        total = {k: 0.0 for k in ungapped_cuda.KERNELS}
+        kernels = [k for k in ungapped_cuda.KERNELS
+                   if k != "gapless_rows" or Lq <= ROWS_MAX]
+        total = dict.fromkeys(kernels, 0.0)
         for Lt, (t_mat, tl) in staged.items():
             nt = len(tl)
             rows = max(1, min(cap, max(8, budget // (Lq * Lt))) // nt)
@@ -70,14 +76,12 @@ def main(argv=None):
                 "cuda", torch.int8)
             ql = torch.from_numpy(rng.integers(Lq // 2 + 1, Lq + 1, rows)).to(
                 "cuda", torch.int32)
-            flat = torch.arange(rows * nt, device="cuda")
-            args = (q, qb, ql, t_mat, tl, (flat // nt).int(),
-                    (flat % nt).int())
-            outs = [ungapped_cuda.launch(k, *args)
-                    for k in ungapped_cuda.KERNELS]
-            smoke.max_err(torch, outs[:1], outs[1:])
-            ms = {k: smoke.time_ms(torch, lambda k=k: ungapped_cuda.launch(
-                k, *args), 3) for k in ungapped_cuda.KERNELS}
+            args = (q, qb, ql, t_mat, tl, 0, rows)
+            outs = [ungapped_cuda.launch_cross(k, *args) for k in kernels]
+            smoke.max_err(torch, outs[1:], outs[:1] * (len(outs) - 1))
+            ms = {k: smoke.time_ms(torch, lambda k=k: ungapped_cuda.
+                                   launch_cross(k, *args), 3)
+                  for k in kernels}
             cells = int((ql.long()[:, None] * tl.long()[None, :]).sum())
             for k in ms:
                 total[k] += ms[k]
@@ -89,7 +93,7 @@ def main(argv=None):
         fast = min(total, key=total.get)
         print(f"Lq {Lq}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in
                                         total.items())
-              + f" over the target buckets; faster: {fast}", flush=True)
+              + f" over the target buckets; fastest: {fast}", flush=True)
     return 0
 
 
