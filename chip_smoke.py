@@ -7,11 +7,17 @@ Phases, each fatal on failure:
   1. require a CUDA device; print the card's name and power limit
   2. build the CUDA kernels from metaeuk_tpu_torch/csrc with nvcc (one
      process per source, all started together) and the host library from
-     native/ with g++; ptxas's registers and spill bytes of K5/K6
+     native/ with g++; ptxas's registers and spill bytes of K5/K6 and of
+     each length class of K1/K2
   3. each kernel against its plain PyTorch version on the card, compared
      with torch.equal (all outputs are integers: the tolerance is zero): the
      pair kernels on seeded ragged batches at the driver's bucket shapes (Lq
-     up to 4608), the query-major kernels on seeded tiles at Lq 64..4096
+     up to 4608) and on planted ties (pair_edge_batch, Lq and Lt 1152: on
+     either side of their lane, group and 511/512 row-stripe edges, at the
+     first and last columns and one row or column past the true lengths,
+     and runs ending at q_len - 1 or t_len - 1; the reverse pass from the
+     forward ends, over the whole matrix and from random ends), the
+     query-major kernels on seeded tiles at Lq 64..4096
      with Lt across 512, the long-query kernels K5/K6 on Lq 256..1024 and
      on the 16384 and 65536 tiers (true lengths up to 32,734, Lt up to 4096;
      the plain versions at a row tile of 64, then at the real one), with
@@ -55,14 +61,15 @@ Phases, each fatal on failure:
      3000-target synthetic metagenome of tests/golden/multichip_slice.json;
      the four sha256 digests equal the file's, the pair kernels launched and
      no plain version called in that run; wall, stage and align-phase
-     seconds, cells and aligned cells/s
+     seconds, cells and aligned cells/s, K1/K2's launches and summed ms
+     (CUDA events around each launch, as in 5b and 5c)
   5b. the ungapped path at a size its users meet: easy-predict
      --prefilter-mode ungapped on the 0.4 Mbp / 3000-target slice; the
      gapless and query-major kernels launched and no plain version called;
      the same candidate pairs aligned again through the driver with
      METAEUK_QM=off (the pair kernels) give a hit array equal field by
-     field; K7's launches, ms, cells, cells/s and bound at each staged query
-     width
+     field; the SW kernels' launches and summed ms in both runs; K7's
+     launches, ms, cells, cells/s and bound at each staged query width
   5c. the row-tiled path at full width: easy-predict --prefilter-mode
      ungapped on the 0.4 Mbp slice plus 48 contigs with frames of 4,200 to
      32,700 aa (make_long_slice.CHIP_SLICE); both gapless kernels, the
@@ -72,13 +79,16 @@ Phases, each fatal on failure:
      long-frame contigs alone in k-mer mode under the default routing and
      under METAEUK_QM=off, hits and outputs equal; wall, stage and
      align-phase seconds, cells and launches of each run, and each
-     kernel's summed time in the first run, the gapless kernels' also by
-     staged query width with their cells, cells/s and bound (CUDA events
-     around each launch, put there by a hook of this script)
+     kernel's summed time in the first run (the SW kernels' in every run),
+     the gapless kernels' also by staged query width with their cells,
+     cells/s and bound (CUDA events around each launch, put there by a hook
+     of this script)
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
-     rate and its bytes over its memory rate); K5/K6 also against the Lt
+     rate and its bytes over its memory rate); K1/K2 also at the k-mer
+     slice's largest bucket (16,384 pairs, Lq 256 x Lt 1024, lengths drawn
+     from its percentiles); K5/K6 also against the Lt
      1024 tier (targets of 513-600 aa); gapless_long at one launch of the
      long-frame slice (2 query rows of Lq 32768 x 1,687 targets of Lt
      512), with gapless_pair's time on the same launch; gapless_rows,
@@ -134,6 +144,9 @@ RT_KERNELS = ("sw_qm_rt_ends", "sw_qm_rt_starts")
 # template for the forward and the reverse pass)
 RT_KERNEL_SYMBOLS = {"sw_qm_rt_ends": "sw_qm_rt_kernelILb0E",
                      "sw_qm_rt_starts": "sw_qm_rt_kernelILb1E"}
+# K1/K2's __global__ template in ptxas's report, one instance per length
+# class (G, R) and pass
+PAIR_KERNEL_SYMBOL = "sw_pair_kernel"
 # (Lq, Lt, pairs): the driver's length tiers, plus one tier above the TPU
 # kernels' 4096-row bound
 CHECK_SHAPES = ((64, 64, 1024), (128, 256, 1024), (256, 512, 2048),
@@ -174,6 +187,14 @@ OFF_CELL_BUDGET = 1 << 39
 # timing shapes: pair kernels (Lq, Lt, pairs); query-major (Lq, Lt, tiles),
 # timed with the pair kernels on the same pairs; gapless (Lq, Lt, pairs)
 TIME_SHAPE = (256, 512, 4096)
+# the pair kernels' second timing shape: the k-mer slice's largest bucket
+# at the driver's pair cap there (2^32 / (256 * 1024)), with fragment and
+# target lengths drawn from the bucket's percentiles (tools/
+# torch_pair_shapes.py: the 19,823 pairs of Lq 256 x Lt 1024)
+KMER_PAIR_SHAPE = (256, 1024, 16384)
+KMER_PAIR_LENGTHS = ((0, 10, 25, 50, 75, 90, 100),
+                     (15, 24, 37, 66, 122, 180, 256),
+                     (257, 298, 344, 412, 477, 535, 599))
 QM_TIME_SHAPE = (128, 512, 512)
 # K5/K6 (Lq tier, Lt, tiles), query lengths 8192..16384, timed with the
 # pair kernels on the same pairs (targets of 256-512 aa); then the Lt 1024
@@ -201,10 +222,21 @@ BYTES_PER_S = 3.35e12
 # per-query profile and each of sm_90's DPX functions (__viaddmax_s32,
 # __viaddmax_s32_relu) counted as one instruction at the int32 rate.
 # Smith-Waterman: G = max(Hdiag + s, E, 0) 1, H = min(max(G, F), cap) 2,
-# E' = max(E - ge, H - go) 2, F' = max(G - go, F - ge) 2, best = max 1; the
+# E' = max(E - ge, H - go) 2, F' = max(G - go, F - ge) 1 (F carried as
+# F + go: F' + go = max(F + go - ge, G), one add-max), best = max 1; the
 # end positions' bookkeeping is not counted. Gapless: run = max(run + s, 0)
 # 1, best = max 1.
-SW_OPS, GAPLESS_OPS = 8, 2
+SW_OPS, GAPLESS_OPS = 7, 2
+# K1/K2's planted ties (pair_edge_batch): {fragment rows n: rows e whose
+# pair e - 1 / e gets equal scores}: a lane's edge (R - 1 / R) and a
+# group's last rows at the largest n of each length class of
+# ops/sw_cuda.py PAIR_CLASSES; past 512 rows the 511/512 row-stripe edge,
+# then the last stripe's lane edge and last rows (R 8 at n 700, R 4 at n
+# 1100)
+PAIR_EDGES = {32: (8, 16, 24, 31), 64: (8, 32, 56, 63),
+              128: (8, 64, 120, 127), 256: (16, 128, 240, 255),
+              512: (16, 256, 496, 511), 700: (512, 520, 699),
+              1100: (512, 1024, 1028, 1099)}
 
 
 def phase(name):
@@ -259,9 +291,10 @@ def staged_batch(torch, rng, Lq, Lt, nq, nt, device, lo=1):
 
 @contextlib.contextmanager
 def pair_kernels_only(driver):
-    """METAEUK_QM=off, with pair launches of up to OFF_CELL_BUDGET cells: one
-    thread aligns one pair, so a launch takes as long as its longest pair,
-    and the default budget cuts the 65536 tier into launches of 64 pairs."""
+    """METAEUK_QM=off, with pair launches of up to OFF_CELL_BUDGET cells: a
+    launch takes at least as long as its longest pair (a warp per pair
+    there, row stripe by row stripe), and the default budget cuts the 65536
+    tier into launches of 64 pairs."""
     budget = driver.CELL_BUDGET["cuda"]
     os.environ["METAEUK_QM"] = "off"
     driver.CELL_BUDGET["cuda"] = OFF_CELL_BUDGET
@@ -328,6 +361,14 @@ def print_k7_by_lq(events, cells_by_lq):
         print(f"K7 {k}: {n} launches, {ms:.3f} ms, {cells} cells, "
               f"{cells / ms * 1e3:.4e} cells/s, bound {bound_ms:.3f} ms "
               f"(operations; {bound_ms / ms:.1%} of it)", flush=True)
+
+
+def print_sw_ms(events, what):
+    """Each SW kernel's launches and summed ms in one run, from
+    launch_events' events."""
+    for k, (n, ms) in event_ms(events).items():
+        print(f"{what}: {k} {n} launches, {ms:.3f} ms of kernel time (CUDA "
+              "events around each launch)", flush=True)
 
 
 def ptxas_usage(text):
@@ -481,6 +522,101 @@ def plant_column_ties(q, qb, ql, t, tl, rng):
         t[k, w], t[k, c] = W, C
         expect[k] = ((last, c), (0, w)) if c < w else ((0, w), (last, c))
     return expect
+
+
+def pair_edge_batch(np, rng, Lq, Lt):
+    """A (Lq, Lt) batch of K1/K2's planted edges, for every n of PAIR_EDGES
+    below Lq. Each tie pair holds two cells of score 9 (a W or C row of bias
+    -2 or 0 against its own residue) and nothing else that reaches 9 (every
+    other cell scores at most -1): in rows e - 1 and e of each edge e, in
+    one column, in two columns (the later row first), and in the first and
+    last columns; then with one of the two cells one row past q_len or one
+    column past t_len. Then runs that end at q_len - 1 or t_len - 1 with
+    padding that would extend them: the fragment equals the target over
+    the whole width, bias 0. Returns (q, qb, ql, t, tl) numpy arrays and,
+    per pair, the expected forward end and reverse start over the whole
+    matrix as (score, row, column), or None for a run."""
+    from metaeuk_tpu_torch.data.submat import encode_aa
+    W, C, Y, A = (int(encode_aa(r)[0]) for r in (b"W", b"C", b"Y", b"A"))
+    other = [a for a in range(20) if a not in (W, C, Y, A)]
+    ties = []
+    for k, (n, edges) in enumerate(PAIR_EDGES.items()):
+        if n >= Lq:
+            continue
+        m = min(Lt - 1, 40 + 7 * k)
+        c = m // 2
+        for e in edges:
+            ties += [(n, m, (e - 1, c), (e, c)),
+                     (n, m, (e - 1, c + 3), (e, c)),
+                     (n, m, (e - 1, 0), (e, m - 1)),
+                     (n, m, (e, 0), (e - 1, m - 1))]
+        ties += [(n, m, (n - 1, c + 2), (n, c)),
+                 (n, m, (edges[0], m - 1), (edges[0] - 1, m))]
+    runs = [(n, n + d) for n in PAIR_EDGES for d in (-1, 0, 1)
+            if n + 1 < Lq and n + d + 1 < Lt]
+    B = len(ties) + len(runs)
+    q = rng.choice(other, (B, Lq))
+    qb = np.full((B, Lq), -9)
+    t = rng.choice(other, (B, Lt))
+    ql, tl = np.zeros(B, np.int64), np.zeros(B, np.int64)
+    expect = []
+    for b, (n, m, x, y) in enumerate(ties):
+        ql[b], tl[b] = n, m
+        ry = W if x[1] == y[1] else C   # one column: two W rows
+        q[b, x[0]], qb[b, x[0]], t[b, x[1]] = W, -2, W
+        q[b, y[0]], qb[b, y[0]], t[b, y[1]] = ry, -2 if ry == W else 0, ry
+        real = [(r, col) for r, col in (x, y) if r < n and col < m]
+        fwd = min(real, key=lambda rc: (rc[1], rc[0]))
+        rev = max(real, key=lambda rc: (rc[1], rc[0]))
+        expect.append(((9, *fwd), (9, *rev)))
+    w = min(Lq, Lt)
+    for b, (n, m) in enumerate(runs, len(ties)):
+        ql[b], tl[b] = n, m
+        q[b, :w] = t[b, :w] = rng.integers(0, 20, w)
+        qb[b] = 0
+        expect.append(None)
+    return (q, qb, ql, t, tl), expect
+
+
+def check_pair_edges(torch, sw_cuda, sw_torch, errs):
+    """K1/K2 on pair_edge_batch at Lq 1152 x Lt 1152, against the plain
+    versions and against the planted cells; K2 from the forward ends, over
+    the whole matrix, and from random ends (-1 and past the lengths)."""
+    import numpy as np
+    rng = np.random.default_rng(20260825)
+    Lq = Lt = 1152
+    arrays, expect = pair_edge_batch(np, rng, Lq, Lt)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+        device="cuda", dtype=dt) for a, dt in zip(arrays, (
+            torch.uint8, torch.int8, torch.int32, torch.uint8, torch.int32)))
+    B = args[0].shape[0]
+    got = sw_cuda.sw_ends(*args)
+    torch.cuda.synchronize()
+    ref = sw_torch.sw_ends(*args)
+    errs["sw_pair_ends"] = max(errs["sw_pair_ends"], max_err(torch, got, ref))
+    whole = tuple((a - 1).int() for a in (args[2], args[4]))
+    ends = [(torch.clamp_min(ref[1], 0), torch.clamp_min(ref[2], 0)), whole,
+            tuple(torch.from_numpy(rng.integers(-1, n + 2, B)).int().cuda()
+                  for n in (Lq, Lt))]
+    starts = []
+    for k, (qe, te) in enumerate(ends):
+        got = sw_cuda.sw_starts(*args, qe, te)
+        torch.cuda.synchronize()
+        starts.append(sw_torch.sw_starts(*args, qe, te))
+        errs["sw_pair_starts"] = max(errs["sw_pair_starts"],
+                                     max_err(torch, got, starts[-1]))
+    if not torch.equal(ref[0], starts[0][0]):
+        raise AssertionError("reverse score differs from forward best")
+    for b, ex in enumerate(expect):
+        have = (tuple(int(ref[k][b]) for k in range(3)),
+                tuple(int(starts[1][k][b]) for k in range(3)))
+        if ex is not None and have != ex:
+            raise AssertionError(f"planted pair {b}: {have}, expected {ex}")
+    n_ties = sum(e is not None for e in expect)
+    print(f"pair edges Lq={Lq} Lt={Lt}: ends and starts equal on {n_ties} "
+          f"planted ties (as expected) and {B - n_ties} runs ending at "
+          f"q_len - 1 or t_len - 1 (scores up to {int(ref[0].max())})",
+          flush=True)
 
 
 def check_qm_rt_kernels(torch, sw_cuda, sw_torch, errs):
@@ -848,27 +984,15 @@ def time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
     args = (*args[:2], torch.from_numpy(rng.integers(
         Lq // 2, Lq + 1, B)).int().cuda(), args[3], torch.from_numpy(
         rng.integers(Lt // 2, Lt + 1, B)).int().cuda())
-    _, qe, te = sw_torch.sw_ends(*args)
-    qe, te = torch.clamp_min(qe, 0), torch.clamp_min(te, 0)
-    fwd = int((args[2].long() * args[4].long()).sum())
-    rev = int(((torch.minimum(qe, args[2] - 1).long() + 1)
-               * (torch.minimum(te, args[4] - 1).long() + 1)).sum())
-    ends = sw_cuda.sw_ends(*args)
-    errs["sw_pair_ends"] = max(errs["sw_pair_ends"], max_err(
-        torch, ends, sw_torch.sw_ends(*args)))
-    errs["sw_pair_starts"] = max(errs["sw_pair_starts"], max_err(
-        torch, sw_cuda.sw_starts(*args, qe, te),
-        sw_torch.sw_starts(*args, qe, te)))
-    out["sw_pair_ends"] = (
-        time_ms(torch, lambda: sw_cuda.sw_ends(*args), 10),
-        time_ms(torch, lambda: sw_torch.sw_ends(*args), 2),
-        *bound(fwd, SW_OPS, (*args, *ends)))
-    out["sw_pair_starts"] = (
-        time_ms(torch, lambda: sw_cuda.sw_starts(*args, qe, te), 10),
-        time_ms(torch, lambda: sw_torch.sw_starts(*args, qe, te), 2),
-        *bound(rev, SW_OPS, (*args, qe, te, *ends)))
-    print(f"pair B={B} Lq={Lq} Lt={Lt}: {fwd} forward cells, {rev} "
-          "reverse cells", flush=True)
+    out.update(time_pair_kernels(torch, sw_cuda, sw_torch, args, errs))
+    # the k-mer slice's largest bucket: lengths drawn from its percentiles
+    Lq, Lt, B = KMER_PAIR_SHAPE
+    pct, q_at, t_at = KMER_PAIR_LENGTHS
+    draw = lambda at: torch.from_numpy(np.rint(np.interp(
+        rng.uniform(0, 100, B), pct, at))).int().cuda()
+    args = ragged_batch(torch, rng, Lq, Lt, B, dev)
+    args = (*args[:2], draw(q_at), args[3], draw(t_at))
+    time_pair_kernels(torch, sw_cuda, sw_torch, args, errs)
 
     # query-major kernels: one query per tile, 128 distinct targets per
     # tile, lengths between half and all of the tier width; then the pair
@@ -934,6 +1058,37 @@ def time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
         *bound(cells, GAPLESS_OPS, (*staged, li, lj, best)))
     print(f"gapless pairs={B} Lq={Lq} Lt={Lt}: {cells} cells", flush=True)
     return out, same
+
+
+def time_pair_kernels(torch, sw_cuda, sw_torch, args, errs):
+    """{K1, K2: (ms, plain_ms, bound_ms, bound_by)} on one pair batch, K2
+    from the forward ends; each output equal to its plain version's."""
+    _, qe, te = sw_torch.sw_ends(*args)
+    qe, te = torch.clamp_min(qe, 0), torch.clamp_min(te, 0)
+    fwd = int((args[2].long() * args[4].long()).sum())
+    rev = int(((torch.minimum(qe, args[2] - 1).long() + 1)
+               * (torch.minimum(te, args[4] - 1).long() + 1)).sum())
+    ends = sw_cuda.sw_ends(*args)
+    errs["sw_pair_ends"] = max(errs["sw_pair_ends"], max_err(
+        torch, ends, sw_torch.sw_ends(*args)))
+    errs["sw_pair_starts"] = max(errs["sw_pair_starts"], max_err(
+        torch, sw_cuda.sw_starts(*args, qe, te),
+        sw_torch.sw_starts(*args, qe, te)))
+    out = {"sw_pair_ends": (
+        time_ms(torch, lambda: sw_cuda.sw_ends(*args), 10),
+        time_ms(torch, lambda: sw_torch.sw_ends(*args), 2),
+        *bound(fwd, SW_OPS, (*args, *ends))), "sw_pair_starts": (
+        time_ms(torch, lambda: sw_cuda.sw_starts(*args, qe, te), 10),
+        time_ms(torch, lambda: sw_torch.sw_starts(*args, qe, te), 2),
+        *bound(rev, SW_OPS, (*args, qe, te, *ends)))}
+    (B, Lq), Lt = args[0].shape, args[3].shape[1]
+    print(f"pair B={B} Lq={Lq} Lt={Lt}: {fwd} forward cells, {rev} "
+          "reverse cells", flush=True)
+    for k, (ms, plain_ms, bound_ms, by) in out.items():
+        print(f"{k} at B={B} Lq={Lq} Lt={Lt}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; "
+              f"{bound_ms / ms:.1%} of it)", flush=True)
+    return out
 
 
 def time_gapless_long(torch, np, ungapped_cuda, ungapped_torch, errs):
@@ -1395,10 +1550,20 @@ def main():
                           f"spill stores, {found[0][2]} bytes spill loads"
                           if found else "no ptxas report (a cached build)"),
               flush=True)
+    usage = ptxas_usage(_build.BUILT.get("sw_pair", {}).get("ptxas", ""))
+    for (g, r), rev in [(c, rev) for rev in (0, 1)
+                        for c in sw_cuda.PAIR_CLASSES]:
+        tag = f"{PAIR_KERNEL_SYMBOL}ILi{g}ELi{r}ELb{rev}E"
+        found = [v for n, v in usage.items() if tag in n]
+        print(f"{PAIR_KERNELS[rev]} (G {g}, R {r}): " + (
+            f"{found[0][0]} registers, {found[0][1]} bytes spill stores, "
+            f"{found[0][2]} bytes spill loads" if found
+            else "no ptxas report (a cached build)"), flush=True)
 
     phase("3 kernels against their plain versions")
     errs = dict.fromkeys(KERNELS, 0)
     check_pair_kernels(torch, sw_cuda, sw_torch, errs)
+    check_pair_edges(torch, sw_cuda, sw_torch, errs)
     check_qm_kernels(torch, sw_cuda, sw_torch, errs)
     check_qm_rt_kernels(torch, sw_cuda, sw_torch, errs)
     check_gapless_kernel(torch, ungapped_cuda, ungapped_torch, errs)
@@ -1517,10 +1682,12 @@ def main():
         out = td / "slice"
         reset(torch, counters, driver, prefilter)
         t0 = time.perf_counter()
-        ep = EasyPredict(device="cuda")
-        ep.run(str(td / "c.fna"), str(td / "p.faa"), str(out))
-        torch.cuda.synchronize()
+        with launch_events(torch, sw_cuda) as sw_ev:
+            ep = EasyPredict(device="cuda")
+            ep.run(str(td / "c.fna"), str(td / "p.faa"), str(out))
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        print_sw_ms(sw_ev, "k-mer slice")
         run_l, run_p = counts(counters)
         align_s = sum(driver.PHASE_SECONDS.values())
         cells = driver.CELLS["fwd"] + driver.CELLS["rev"]
@@ -1555,12 +1722,14 @@ def main():
         p = Params(prefilter_mode="ungapped")
         reset(torch, counters, driver, prefilter)
         t0 = time.perf_counter()
-        with launch_events(torch, ungapped_cuda, by_lq=True) as gap_ev:
+        with launch_events(torch, sw_cuda) as sw_ev, \
+                launch_events(torch, ungapped_cuda, by_lq=True) as gap_ev:
             ep = EasyPredict(p, device="cuda")
             ep.run(str(td / "u.fna"), str(td / "u.faa"), str(out),
                    tmp_dir=str(tmp))
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        print_sw_ms(sw_ev, "ungapped slice (default routing)")
         run_l, run_p = counts(counters)
         print_k7_by_lq(gap_ev, prefilter.CELLS_BY_LQ)
         stages = {**ep.predict_stage_seconds, **ep.stage_seconds}
@@ -1595,12 +1764,14 @@ def main():
         os.environ["METAEUK_QM"] = "off"
         try:
             t0 = time.perf_counter()
-            hits_pair = driver.SearchDriver(p, targets, "cuda").search(
-                orf_aa, pair_generator=pairs)
-            torch.cuda.synchronize()
+            with launch_events(torch, sw_cuda) as sw_ev:
+                hits_pair = driver.SearchDriver(p, targets, "cuda").search(
+                    orf_aa, pair_generator=pairs)
+                torch.cuda.synchronize()
             pair_wall = time.perf_counter() - t0
         finally:
             del os.environ["METAEUK_QM"]
+        print_sw_ms(sw_ev, "ungapped slice (METAEUK_QM=off)")
         run_l, _ = counts(counters)
         print(f"pair-kernel alignment of the same pairs {pair_wall:.3f} s; "
               "align phase seconds (METAEUK_QM=off) "
@@ -1669,12 +1840,13 @@ def main():
         # the same pairs through the pair kernels (K1/K2)
         targets = SeqDB.from_fasta(str(td / "l.faa"), DBTYPE_AA)
         reset(torch, counters, driver, prefilter)
-        with pair_kernels_only(driver):
+        with pair_kernels_only(driver), launch_events(torch, sw_cuda) as ev:
             t0 = time.perf_counter()
             hits_pair = driver.SearchDriver(p, targets, "cuda").search(
                 orf_aa, pair_generator=pairs)
             torch.cuda.synchronize()
             pair_wall = time.perf_counter() - t0
+        print_sw_ms(ev, "long-frame slice (METAEUK_QM=off)")
         run_l, _ = counts(counters)
         print(f"pair-kernel alignment of the same pairs {pair_wall:.3f} s; "
               "align phase seconds (METAEUK_QM=off, pair launches up to "
@@ -1688,13 +1860,15 @@ def main():
             reset(torch, counters, driver, prefilter)
             ctx = pair_kernels_only(driver) if mode == "off" else \
                 contextlib.nullcontext()
-            with ctx:
+            with ctx, launch_events(torch, sw_cuda) as ev:
                 t0 = time.perf_counter()
                 EasyPredict(device="cuda").run(
                     str(td / "lo.fna"), str(td / "l.faa"),
                     str(td / f"lk_{mode}"), tmp_dir=str(td / f"lk_{mode}_tmp"))
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+            print_sw_ms(ev, f"long-frame contigs, k-mer mode, "
+                            f"METAEUK_QM={mode}")
             run_l, run_p = counts(counters)
             hits_k[mode] = np.load(td / f"lk_{mode}_tmp" / "search_hits.npy")
             align_s[mode] = sum(driver.PHASE_SECONDS.values())

@@ -9,10 +9,13 @@ dispatched by the device of the tensors given.
 Counterparts in the JAX package (metaeuk_tpu/ops/sw_pallas.py): sw_ends is
 sw_pallas_ends / _sw_pallas_ends_from_S over _build_S_gapped (K1), sw_starts
 is _sw_pallas_starts_from_S (K2), align_full is _align_full /
-_align_from_S. Batches need no padding to a tile multiple: the kernels run
-one thread per pair. qm_ends and qm_starts are _align_ends_qm and
-_align_starts_qm over build_prof_tiles / build_tcodes_T (K3, K4): one query
-row per tile of TB = 128 target lanes, read from the staged matrices.
+_align_from_S. Batches need no padding to a tile multiple: a group of G
+lanes aligns one pair, with the fragment's rows in registers
+(csrc/sw_pair.cu; pair_classes bins a launch's pairs by fragment length,
+one G a class, and the kernels write each output at its pair's place).
+qm_ends and qm_starts are _align_ends_qm and _align_starts_qm over
+build_prof_tiles / build_tcodes_T (K3, K4): one query row per tile of TB =
+128 target lanes, read from the staged matrices.
 qm_ends_rt and qm_starts_rt are the same calls for Lq > 4096, which the JAX
 package runs on the row-tiled _qm_call_rt (K5, K6). Their CUDA kernels
 (csrc/sw_qm_rt.cu) take no row tile: a warp aligns one lane's pair with the
@@ -36,6 +39,13 @@ KERNELS = ("sw_pair_ends", "sw_pair_starts", "sw_qm_ends", "sw_qm_starts",
 SOURCES = {"sw_pair_ends": "sw_pair", "sw_pair_starts": "sw_pair",
            "sw_qm_ends": "sw_qm", "sw_qm_starts": "sw_qm",
            "sw_qm_rt_ends": "sw_qm_rt", "sw_qm_rt_starts": "sw_qm_rt"}
+# K1/K2's length classes, by the rows a pair sweeps (the fragment, or the
+# rows up to the end cell in the reverse pass): (G lanes a pair, R rows a
+# lane); class c takes rows up to G * R of its entry and above the previous
+# entry's, the last class every longer pair, a warp per pair in row
+# stripes of PAIR_STRIPE
+PAIR_CLASSES = ((4, 8), (8, 8), (16, 8), (16, 16), (32, 16))
+PAIR_STRIPE = 32 * 16
 # dynamic shared memory a block may hold on an H100 (K3/K4's query profile)
 MAX_SMEM = 232448
 # target columns the long-query kernels (K5/K6) sweep at once: a staged
@@ -48,13 +58,13 @@ PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    # submat, alph, qT, qbT, q_len, tT, t_len, B, Lq, Lt, go, ge, scratch,
-    # out x3, stream
+    # submat, alph, q, qb, q_len, t, t_len, B, Lq, Lt, go, ge, order,
+    # bounds, carry, out x3, stream
     "sw_pair_ends": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                     _P, _P, _P, _P],
+                     _P, _P, _P, _P, _P, _P],
     # as above with q_end, t_end after t_len
     "sw_pair_starts": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _I, _P, _P, _P, _P, _P],
+                       _I, _P, _P, _P, _P, _P, _P, _P],
     # submat, alph, q_mat, qb_mat, q_lens, nq, Lq, t_mat, t_lens, nt, Lt,
     # qidx, lj, n_tiles, go, ge, scratch, out x3, stream
     "sw_qm_ends": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I,
@@ -84,8 +94,9 @@ def _kernel(name):
 
 
 def _cuda_inputs(scoring, q_enc, q_bias, q_len, t_enc, t_len, *extra):
-    """Checks one CUDA device and the shapes; returns the kernel's layouts:
-    (Lq, B) codes and biases, (Lt, B) target codes, int32 vectors."""
+    """Checks one CUDA device and the shapes; returns the kernel's operands:
+    row-major (B, Lq) codes and biases, (B, Lt) target codes, int32
+    vectors."""
     dev = q_enc.device
     tensors = (q_enc, q_bias, q_len, t_enc, t_len, *extra, scoring.submat)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -100,13 +111,50 @@ def _cuda_inputs(scoring, q_enc, q_bias, q_len, t_enc, t_len, *extra):
     if scoring.submat.shape != (alph, alph) or alph > 32:
         raise ValueError("sw kernels take a square substitution matrix of "
                          "at most 32 classes")
-    return (q_enc.to(torch.uint8).t().contiguous(),
-            q_bias.to(torch.int8).t().contiguous(),
+    return (q_enc.to(torch.uint8).contiguous(),
+            q_bias.to(torch.int8).contiguous(),
             q_len.to(torch.int32).contiguous(),
-            t_enc.to(torch.uint8).t().contiguous(),
+            t_enc.to(torch.uint8).contiguous(),
             t_len.to(torch.int32).contiguous(),
             *(v.to(torch.int32).contiguous() for v in extra),
             scoring.submat.to(torch.int32).contiguous())
+
+
+def pair_classes(q_len, t_len, Lq, Lt, q_end=None, t_end=None):
+    """K1/K2's work list: (order, bounds), int32 on the tensors' device.
+    A pair sweeps rows 0..n-1 and columns 0..m-1: its true lengths cut to
+    (Lq, Lt), or, for the reverse pass (q_end, t_end given), the rows and
+    columns up to its end cell. Its class is the first of PAIR_CLASSES
+    whose G * R rows cover n (the last for longer pairs); order lists the
+    pairs by class, then by m, so that the pairs of a warp end together;
+    bounds[c] is the end of class c in order. No host synchronisation."""
+    n = q_len.to(torch.int32).clamp(0, Lq)
+    m = t_len.to(torch.int32).clamp(0, Lt)
+    if q_end is not None:
+        n = (torch.minimum(q_end.to(torch.int32), n - 1) + 1).clamp_min(0)
+        m = (torch.minimum(t_end.to(torch.int32), m - 1) + 1).clamp_min(0)
+    caps, edges = _class_edges(n.device, Lt)
+    cls = torch.bucketize(n, caps, out_int32=True)
+    keys, order = torch.sort(torch.add(m, cls, alpha=Lt + 1), stable=True)
+    return (order.to(torch.int32),
+            torch.searchsorted(keys, edges, out_int32=True))
+
+
+# (device, Lt) -> pair_classes' class caps (G * R rows) and the first key
+# of each class after the first, on the device
+_CLASS_EDGES = {}
+
+
+def _class_edges(device, Lt):
+    key = (device, Lt)
+    if key not in _CLASS_EDGES:
+        _CLASS_EDGES[key] = (
+            torch.tensor([g * r for g, r in PAIR_CLASSES[:-1]],
+                         dtype=torch.int32, device=device),
+            torch.tensor([(c + 1) * (Lt + 1)
+                          for c in range(len(PAIR_CLASSES))],
+                         dtype=torch.int32, device=device))
+    return _CLASS_EDGES[key]
 
 
 def _launch(name, args):
@@ -116,6 +164,30 @@ def _launch(name, args):
     LAUNCHES[name] += 1
 
 
+def _pair_launch(name, scoring, q_enc, q_bias, q_len, t_enc, t_len, *ends):
+    """Launches K1 (no ends) or K2 (ends = q_end, t_end) on its work list,
+    with the row-stripe hand-off of (B, Lt) words only when the batch is
+    wider than PAIR_STRIPE rows."""
+    q, qb, ql, t, tl, *ends, sub = _cuda_inputs(
+        scoring, q_enc, q_bias, q_len, t_enc, t_len, *ends)
+    # the kernels keep the query profile as int8 and add the bias after
+    check_scores_fit(scoring.submat, -128, 127, "sw_pair kernels")
+    (B, Lq), Lt = q.shape, t.shape[1]
+    order, bounds = pair_classes(ql, tl, Lq, Lt, *ends)
+    dev = q_enc.device
+    carry = torch.empty((B, Lt), dtype=torch.int32, device=dev) \
+        if Lq > PAIR_STRIPE else None
+    outs = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
+    _launch(name, [
+        sub.data_ptr(), sub.shape[0], q.data_ptr(), qb.data_ptr(),
+        ql.data_ptr(), t.data_ptr(), tl.data_ptr(),
+        *(e.data_ptr() for e in ends), B, Lq, Lt, scoring.go, scoring.ge,
+        order.data_ptr(), bounds.data_ptr(),
+        None if carry is None else carry.data_ptr(),
+        *(o.data_ptr() for o in outs)])
+    return tuple(outs)
+
+
 def sw_ends(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
     """Forward SW ends (K1): (score, q_end, t_end), each (B,) int32."""
     scoring = scoring or default_scoring(q_enc.device)
@@ -123,18 +195,8 @@ def sw_ends(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
         PLAIN_CALLS["sw_pair_ends"] += 1
         return sw_torch.sw_ends(q_enc, q_bias, q_len, t_enc, t_len,
                                 scoring=scoring)
-    qT, qbT, ql, tT, tl, sub = _cuda_inputs(scoring, q_enc, q_bias, q_len,
-                                            t_enc, t_len)
-    (Lq, B), Lt = qT.shape, tT.shape[0]
-    dev = q_enc.device
-    scratch = torch.empty((Lq, B), dtype=torch.int32, device=dev)
-    outs = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
-    _launch("sw_pair_ends", [
-        sub.data_ptr(), sub.shape[0], qT.data_ptr(), qbT.data_ptr(),
-        ql.data_ptr(), tT.data_ptr(), tl.data_ptr(), B, Lq, Lt,
-        scoring.go, scoring.ge, scratch.data_ptr(),
-        *(o.data_ptr() for o in outs)])
-    return tuple(outs)
+    return _pair_launch("sw_pair_ends", scoring, q_enc, q_bias, q_len,
+                        t_enc, t_len)
 
 
 def sw_starts(q_enc, q_bias, q_len, t_enc, t_len, q_end, t_end,
@@ -146,18 +208,8 @@ def sw_starts(q_enc, q_bias, q_len, t_enc, t_len, q_end, t_end,
         PLAIN_CALLS["sw_pair_starts"] += 1
         return sw_torch.sw_starts(q_enc, q_bias, q_len, t_enc, t_len,
                                   q_end, t_end, scoring=scoring)
-    qT, qbT, ql, tT, tl, qe, te, sub = _cuda_inputs(
-        scoring, q_enc, q_bias, q_len, t_enc, t_len, q_end, t_end)
-    (Lq, B), Lt = qT.shape, tT.shape[0]
-    dev = q_enc.device
-    scratch = torch.empty((Lq, B), dtype=torch.int32, device=dev)
-    outs = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
-    _launch("sw_pair_starts", [
-        sub.data_ptr(), sub.shape[0], qT.data_ptr(), qbT.data_ptr(),
-        ql.data_ptr(), tT.data_ptr(), tl.data_ptr(), qe.data_ptr(),
-        te.data_ptr(), B, Lq, Lt, scoring.go, scoring.ge,
-        scratch.data_ptr(), *(o.data_ptr() for o in outs)])
-    return tuple(outs)
+    return _pair_launch("sw_pair_starts", scoring, q_enc, q_bias, q_len,
+                        t_enc, t_len, q_end, t_end)
 
 
 def align_full(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):

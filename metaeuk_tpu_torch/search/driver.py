@@ -63,10 +63,13 @@ CELLS = {"fwd": 0, "rev": 0}
 # wall seconds per search() phase, summed over calls; reset like CELLS
 PHASE_SECONDS = {}
 
-# DP cells per launch, by device type. One CUDA thread aligns one pair, so
-# a launch needs tens of thousands of pairs to fill an H100; its H/E scratch
-# is 4 B per (row, pair). The plain CPU version holds a (B, Lq, 22) int32
-# profile, so its launches stay small.
+# DP cells per launch, by device type. A group of 4 to 32 lanes aligns one
+# pair (a warp per pair above 256 fragment rows; csrc/sw_pair.cu), so a
+# launch of a few thousand short pairs fills an H100; it holds no H/E
+# scratch, only a stripe hand-off of 4 B per (pair, column) when the
+# fragment tier is wider than 512. The budget dates from a thread per pair
+# and stays until a measurement moves it. The plain CPU version holds a
+# (B, Lq, 22) int32 profile, so its launches stay small.
 CELL_BUDGET = {"cuda": 1 << 32, "cpu": 1 << 27}
 MAX_PAIRS_PER_LAUNCH = 1 << 16
 

@@ -90,11 +90,21 @@ def test_driver_hits_match_jax_on_fixture(fixture_inputs, pairs):
     _assert_same_hits(ref, got)
 
 
-def test_driver_hits_match_jax_across_tiers():
+@pytest.fixture(scope="module")
+def synthetic_ref():
+    """_synthetic()'s fragments and targets, and the JAX driver's hits on
+    every pair (E-value threshold 1e5)."""
     orfs, targets = _synthetic()
     p = Params()
     p.search_evalue_thr = 1e5
-    ref = jax_driver.SearchDriver(p, _TargetDB(targets)).search(orfs)
+    return orfs, targets, jax_driver.SearchDriver(
+        p, _TargetDB(targets)).search(orfs)
+
+
+def test_driver_hits_match_jax_across_tiers(synthetic_ref):
+    orfs, targets, ref = synthetic_ref
+    p = Params()
+    p.search_evalue_thr = 1e5
     drv = torch_driver.SearchDriver(p, _TargetDB(targets), "cpu")
     got = drv.search(orfs)
     _assert_same_hits(ref, got)
@@ -168,3 +178,26 @@ def test_cells_count_true_lengths(fixture_inputs):
     assert torch_driver.CELLS["fwd"] - before["fwd"] == int(
         (q[:, None] * t[None, :]).sum())
     assert torch_driver.CELLS["rev"] > before["rev"]
+
+
+def test_driver_hits_do_not_depend_on_launch_size(synthetic_ref,
+                                                  monkeypatch):
+    """Pair launches cut to 8-16 pairs (CELL_BUDGET and MAX_PAIRS_PER_LAUNCH
+    monkeypatched: 16 on the short tiers, the driver's floor of 8 from Lq
+    256 x Lt 1024), so every bucket of more than 16 pairs takes several
+    launches of each pair kernel: the hits equal the JAX driver's."""
+    from metaeuk_tpu_torch.ops import sw_cuda
+    orfs, targets, ref = synthetic_ref
+    p = Params()
+    p.search_evalue_thr = 1e5
+    monkeypatch.setitem(torch_driver.CELL_BUDGET, "cpu", 1 << 20)
+    monkeypatch.setattr(torch_driver, "MAX_PAIRS_PER_LAUNCH", 16)
+    drv = torch_driver.SearchDriver(p, _TargetDB(targets), "cpu")
+    assert drv._pairs_per_launch(64, 256) == 16
+    assert drv._pairs_per_launch(256, 1024) == 8
+    sw_cuda.reset_counts()
+    got = drv.search(orfs)
+    n_pairs = sum(len(o) > 0 for o in orfs) * len(targets)
+    assert sw_cuda.PLAIN_CALLS["sw_pair_ends"] >= n_pairs // 16
+    assert sw_cuda.PLAIN_CALLS["sw_pair_starts"] > 1
+    _assert_same_hits(ref, got)

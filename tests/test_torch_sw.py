@@ -8,6 +8,7 @@ kernels are held to the plain versions on the card (marker gpu).
 """
 
 import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from metaeuk_tpu_torch.ops import sw_cuda, sw_torch
 
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA = pathlib.Path(__file__).parent / "data"
 # (B, Lq, Lt): a short tier, and Lq = 1024 where the Pallas column chunk is
 # TJ = 32, so Lt = 100 runs several chunks and Lq > 2 * TJ
@@ -131,6 +133,110 @@ def test_no_hit_values_follow_the_pallas_contract():
         and (t_start == -1).all()
 
 
+def _edge_batch(Lq, Lt, B=None):
+    """chip_smoke.pair_edge_batch at (Lq, Lt): ties planted on either side
+    of the CUDA kernels' lane, group and row-stripe edges, at the first and
+    last columns and one row or column past the true lengths, then runs
+    ending at q_len - 1 or t_len - 1; padded to B pairs with zero-length
+    pairs (no-hit values, expectation None)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    arrays, expect = chip_smoke.pair_edge_batch(
+        np, np.random.default_rng(Lq), Lq, Lt)
+    pad = (B or len(expect)) - len(expect)
+    arrays = [np.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1)).astype(
+        np.int32) for a in arrays]
+    return arrays, expect + [None] * pad
+
+
+def _check_planted(expect, fwd, rev):
+    for b, ex in enumerate(expect):
+        if ex is not None:
+            got = (tuple(int(a[b]) for a in fwd),
+                   tuple(int(a[b]) for a in rev))
+            assert got == ex, (b, got, ex)
+
+
+def test_planted_edges_match_pallas_interpret():
+    """Forward ends, and starts over each pair's whole matrix, at the edges
+    of the length classes up to 64 rows (lanes of 8 rows, groups of 4 and
+    8 lanes)."""
+    B, Lq, Lt = 128, 72, 80
+    (q, qb, ql, t, tl), expect = _edge_batch(Lq, Lt, B)
+    assert sum(e is not None for e in expect) == 2 * 18
+    ref = sw_pallas_ends(q, qb, ql, t, Lq, Lt, True, t_len=tl)
+    got = _np(sw_cuda.sw_ends(*_torch(q, qb, ql, t, tl)))
+    for name, a, b in zip(("score", "q_end", "t_end"), ref, got):
+        np.testing.assert_array_equal(np.asarray(a), b, name)
+    qe, te = ql - 1, tl - 1
+    TJ = _tj_for(Lq)
+    Lt_pad = (Lt + TJ - 1) // TJ * TJ
+    S = _build_S_gapped(q, qb, t, Lq, Lt, Lt_pad, q_len=ql, t_len=tl)
+    ref_rev = _sw_pallas_starts_from_S(S, qe, te, Lq, Lt_pad, B, True)
+    got_rev = _np(sw_cuda.sw_starts(*_torch(q, qb, ql, t, tl, qe, te)))
+    for name, a, b in zip(("score", "q_start", "t_start"), ref_rev,
+                          got_rev):
+        np.testing.assert_array_equal(np.asarray(a), b, name)
+    _check_planted(expect, got, got_rev)
+
+
+def test_planted_edges_over_512_rows_match_numpy_oracle():
+    """The ties and runs of fragments over 512 rows (the row-stripe edge
+    511/512 and the last stripe's edges) against ops/sw.py."""
+    (q, qb, ql, t, tl), expect = _edge_batch(1152, 1152)
+    keep = np.flatnonzero(ql > 512)
+    q, qb, ql, t, tl = (a[keep] for a in (q, qb, ql, t, tl))
+    expect = [expect[b] for b in keep]
+    assert sum(e is not None for e in expect) == 14 + 18
+    args = _torch(q, qb, ql, t, tl)
+    fwd = _np(sw_cuda.sw_ends(*args))
+    rev = _np(sw_cuda.sw_starts(*args, *_torch(ql - 1, tl - 1)))
+    _check_planted(expect, fwd, rev)
+    for b in range(len(keep)):
+        ref = sw_align(q[b, :ql[b]], t[b, :tl[b]], qb[b, :ql[b]])
+        assert (fwd[0][b], fwd[1][b], fwd[2][b]) == (
+            ref["score"], ref["q_end"], ref["t_end"]), b
+        if expect[b] is None:   # a run: its start is (0, 0)
+            assert ref["q_start"] == ref["t_start"] == 0, b
+
+
+def test_pair_classes_round_trip():
+    """sw_cuda.pair_classes: a permutation of the batch, sorted by length
+    class (every pair within its class's G * R rows, forward and reverse)
+    and then by columns; bounds close each class."""
+    rng = np.random.default_rng(9)
+    B, Lq, Lt = 500, 1100, 300
+    ql = torch.from_numpy(rng.integers(-2, Lq + 40, B)).int()
+    tl = torch.from_numpy(rng.integers(-2, Lt + 40, B)).int()
+    ends = [(None, None), tuple(torch.from_numpy(rng.integers(-1, n + 2, B))
+                                .int() for n in (Lq, Lt))]
+    caps = [g * r for g, r in sw_cuda.PAIR_CLASSES[:-1]] + [Lq]
+    for qe, te in ends:
+        order, bounds = sw_cuda.pair_classes(ql, tl, Lq, Lt, qe, te)
+        assert order.dtype == bounds.dtype == torch.int32
+        o = order.long()
+        assert torch.equal(torch.sort(o).values, torch.arange(B))
+        n = ql.clamp(0, Lq).long()
+        m = tl.clamp(0, Lt).long()
+        if qe is not None:
+            n = (torch.minimum(qe.long(), n - 1) + 1).clamp_min(0)
+            m = (torch.minimum(te.long(), m - 1) + 1).clamp_min(0)
+        assert int(bounds[-1]) == B
+        lo = 0
+        for c, hi in enumerate(bounds.tolist()):
+            part = o[lo:hi]
+            assert (n[part] <= caps[c]).all()
+            if c:
+                assert (n[part] > caps[c - 1]).all()
+            assert (torch.diff(m[part]) >= 0).all()
+            lo = hi
+        # outputs written at each pair's place come back in the caller's
+        # order
+        out = torch.empty(B, dtype=torch.int64)
+        out[o] = n[o] * 1000 + m[o]
+        assert torch.equal(out, n * 1000 + m)
+
+
 def test_fixture_scores_fit_int8():
     """blosum + bias over every fixture fragment and every residue class
     lies in [-128, 127], so the Pallas path's int8 S loses nothing against
@@ -181,6 +287,20 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_on_planted_edges_on_card(cuda_device):
+    (q, qb, ql, t, tl), expect = _edge_batch(1152, 1152)
+    args = [a.to(cuda_device) for a in _torch(q, qb, ql, t, tl)]
+    whole = [a.to(cuda_device) for a in _torch(ql - 1, tl - 1)]
+    fwd, rev = sw_cuda.sw_ends(*args), sw_cuda.sw_starts(*args, *whole)
+    torch.cuda.synchronize()
+    for a, b in zip(fwd, sw_torch.sw_ends(*args)):
+        assert torch.equal(a, b)
+    for a, b in zip(rev, sw_torch.sw_starts(*args, *whole)):
+        assert torch.equal(a, b)
+    _check_planted(expect, [a.cpu() for a in fwd], [a.cpu() for a in rev])
 
 
 @pytest.mark.gpu

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where the long-frame slice's time goes, for one or more checkouts of the
-repository on one CUDA device: chip_smoke.py phase 5c's first run
+"""Where a slice's time goes, for one or more checkouts of the repository
+on one CUDA device, with CUDA events around every kernel launch: by
+default the long-frame slice of chip_smoke.py phase 5c's first run
 (metaeuk_tpu_torch easy-predict --prefilter-mode ungapped on
-tests/golden/make_long_slice.py CHIP_SLICE), with CUDA events around every
-kernel launch.
+tests/golden/make_long_slice.py CHIP_SLICE); with --slice kmer the k-mer
+slice of phase 5 (easy-predict on the 1.6 Mbp / 3000-target metagenome of
+tests/golden/multichip_slice.json, the pipelined path).
 
-    python3 tools/torch_long_frame_ab.py [CHECKOUT ...]
+    python3 tools/torch_long_frame_ab.py [--slice long|kmer] [CHECKOUT ...]
 
 Each CHECKOUT (default: this one) runs in a process of its own, in the order
 given (name a parent and a change as parent, change, change, parent), with
@@ -31,8 +33,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = ("sw_pair", "sw_qm", "sw_qm_rt", "gapless")
 
 
-def one(checkout):
-    """The timed run of one checkout: its JSON line."""
+def one(checkout, which):
+    """The timed run of one checkout on slice `which`: its JSON line."""
     checkout = pathlib.Path(checkout).resolve()
     sys.path.insert(0, str(checkout))
     sys.path.insert(1, str(checkout / "tests" / "golden"))
@@ -47,7 +49,7 @@ def one(checkout):
     from metaeuk_tpu_torch.params import Params
     from metaeuk_tpu_torch.pipeline.predict import EasyPredict
     from metaeuk_tpu_torch.search import driver
-    from tools.make_metagenome import write_fasta
+    from tools.make_metagenome import make_metagenome, write_fasta
 
     with ThreadPoolExecutor(len(SOURCES) + 1) as ex:
         host = ex.submit(native.get_lib)
@@ -57,7 +59,15 @@ def one(checkout):
             raise RuntimeError("the native host library did not build")
     with tempfile.TemporaryDirectory(prefix="meuk_ab") as td:
         td = pathlib.Path(td)
-        contigs, proteins = mls.long_slice(mls.CHIP_SLICE)
+        if which == "kmer":
+            golden = json.loads((checkout / "tests" / "golden" /
+                                 "multichip_slice.json").read_text())
+            contigs, proteins = make_metagenome(golden["mbp"],
+                                                golden["targets"])
+            params, tmp = Params(), None
+        else:
+            contigs, proteins = mls.long_slice(mls.CHIP_SLICE)
+            params, tmp = Params(prefilter_mode="ungapped"), str(td / "tmp")
         write_fasta(td / "l.fna", contigs)
         write_fasta(td / "l.faa", proteins)
         driver.PHASE_SECONDS.clear()
@@ -66,14 +76,13 @@ def one(checkout):
         with smoke.launch_events(torch, sw_cuda) as sw_ev, \
                 smoke.launch_events(torch, ungapped_cuda, by_lq=True) \
                 as gap_ev:
-            ep = EasyPredict(Params(prefilter_mode="ungapped"),
-                             device="cuda")
+            ep = EasyPredict(params, device="cuda")
             ep.run(str(td / "l.fna"), str(td / "l.faa"), str(td / "out"),
-                   tmp_dir=str(td / "tmp"))
+                   tmp_dir=tmp)
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         kernels = smoke.event_ms({**sw_ev, **gap_ev})
-        return {"checkout": str(checkout), "wall_s": wall,
+        return {"checkout": str(checkout), "slice": which, "wall_s": wall,
                 "stages": {**ep.predict_stage_seconds, **ep.stage_seconds},
                 "phases": dict(driver.PHASE_SECONDS),
                 "kernels_launches_ms": kernels,
@@ -83,8 +92,14 @@ def one(checkout):
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--one"]:
-        print(json.dumps(one(argv[1])), flush=True)
+        print(json.dumps(one(argv[1], argv[2])), flush=True)
         return 0
+    which = "long"
+    if argv[:1] == ["--slice"]:
+        which, argv = argv[1], argv[2:]
+        if which not in ("long", "kmer"):
+            print("--slice takes long or kmer", file=sys.stderr)
+            return 2
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device: the run needs one GPU", file=sys.stderr)
@@ -94,8 +109,8 @@ def main(argv=None):
                          text=True, check=True).stdout.strip(), flush=True)
     digests = set()
     for checkout in argv or [str(ROOT)]:
-        res = subprocess.run([sys.executable, __file__, "--one", checkout],
-                             capture_output=True, text=True)
+        res = subprocess.run([sys.executable, __file__, "--one", checkout,
+                              which], capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stderr[-4000:], file=sys.stderr)
             return res.returncode
