@@ -8,7 +8,7 @@ Phases, each fatal on failure:
   2. build the CUDA kernels from metaeuk_tpu_torch/csrc with nvcc (one
      process per source, all started together) and the host library from
      native/ with g++; ptxas's registers and spill bytes of K5/K6 and of
-     each length class of K1/K2
+     each length class of K1/K2 and of K3/K4
   3. each kernel against its plain PyTorch version on the card, compared
      with torch.equal (all outputs are integers: the tolerance is zero): the
      pair kernels on seeded ragged batches at the driver's bucket shapes (Lq
@@ -18,7 +18,11 @@ Phases, each fatal on failure:
      and runs ending at q_len - 1 or t_len - 1; the reverse pass from the
      forward ends, over the whole matrix and from random ends), the
      query-major kernels on seeded tiles at Lq 64..4096
-     with Lt across 512, the long-query kernels K5/K6 on Lq 256..1024 and
+     with Lt across 512, on the same planted ties as tiles (qm_edge_tiles,
+     each pair's own target in a varying lane of its query's tile among
+     other targets and padding lanes, a tile of padding lanes only and a
+     padding tile; K4 as K2) and on a 3,500-aa self-match at Lq 4096 whose
+     H passes the cap 32767, the long-query kernels K5/K6 on Lq 256..1024 and
      on the 16384 and 65536 tiers (true lengths up to 32,734, Lt up to 4096;
      the plain versions at a row tile of 64, then at the real one), with
      equal scores planted in different row tiles at different columns and
@@ -88,7 +92,10 @@ Phases, each fatal on failure:
      kernel's bound (the larger of its operations over the card's int32
      rate and its bytes over its memory rate); K1/K2 also at the k-mer
      slice's largest bucket (16,384 pairs, Lq 256 x Lt 1024, lengths drawn
-     from its percentiles); K5/K6 also against the Lt
+     from its percentiles); K3/K4 (with K1/K2 on the same pairs) also at
+     one launch of the ungapped slices' largest query-major bucket (1,008
+     tiles, Lq 256 x Lt 1024, live lanes and lengths drawn from its
+     percentiles); K5/K6 also against the Lt
      1024 tier (targets of 513-600 aa); gapless_long at one launch of the
      long-frame slice (2 query rows of Lq 32768 x 1,687 targets of Lt
      512), with gapless_pair's time on the same launch; gapless_rows,
@@ -145,8 +152,10 @@ RT_KERNELS = ("sw_qm_rt_ends", "sw_qm_rt_starts")
 RT_KERNEL_SYMBOLS = {"sw_qm_rt_ends": "sw_qm_rt_kernelILb0E",
                      "sw_qm_rt_starts": "sw_qm_rt_kernelILb1E"}
 # K1/K2's __global__ template in ptxas's report, one instance per length
-# class (G, R) and pass
+# class (G, R) and pass; K3's and K4's, one instance per class
 PAIR_KERNEL_SYMBOL = "sw_pair_kernel"
+QM_KERNEL_SYMBOLS = {"sw_qm_ends": "sw_qm_ends_kernel",
+                     "sw_qm_starts": "sw_qm_starts_kernel"}
 # (Lq, Lt, pairs): the driver's length tiers, plus one tier above the TPU
 # kernels' 4096-row bound
 CHECK_SHAPES = ((64, 64, 1024), (128, 256, 1024), (256, 512, 2048),
@@ -196,6 +205,20 @@ KMER_PAIR_LENGTHS = ((0, 10, 25, 50, 75, 90, 100),
                      (15, 24, 37, 66, 122, 180, 256),
                      (257, 298, 344, 412, 477, 535, 599))
 QM_TIME_SHAPE = (128, 512, 512)
+# K3/K4's second timing shape: one launch of the ungapped slices' largest
+# query-major bucket (Lq 256 x Lt 1024: 31,234 tiles in 31 launches on the
+# 0.4 Mbp slice), with live lanes a tile, query and target lengths drawn
+# from its percentiles (tools/torch_long_frame_ab.py --qm-shapes):
+# (Lq, Lt, tiles), then (percentiles, live lanes, query lengths, target
+# lengths)
+QM_BUCKET_SHAPE = (256, 1024, 1008)
+QM_BUCKET_LENGTHS = ((0, 10, 50, 90, 100), (48, 108, 128, 128, 128),
+                     (15, 16, 28, 73, 256), (257, 299, 424, 544, 600))
+# K3/K4's planted edges: pair_edge_batch's pairs as tiles at this width
+# (qm_edge_tiles); then a cap run at (Lq, Lt, run length): a self-match of
+# W and C (11 and 9 a cell) whose H passes 32767
+QM_EDGE_WIDTH = 1152
+QM_CAP_SHAPE = (4096, 4096, 3500)
 # K5/K6 (Lq tier, Lt, tiles), query lengths 8192..16384, timed with the
 # pair kernels on the same pairs (targets of 256-512 aa); then the Lt 1024
 # tier, targets of 513-600 aa (two stripes)
@@ -619,6 +642,123 @@ def check_pair_edges(torch, sw_cuda, sw_torch, errs):
           flush=True)
 
 
+def qm_edge_tiles(np, rng, Lq, Lt):
+    """pair_edge_batch's pairs as query-major tiles: the pairs' queries and
+    targets are the staged rows, and tile k aligns query k against its own
+    target k in lane 37 k % 128 and against other targets of the batch in
+    lanes up to a random count (the rest padding lanes, some between live
+    ones); then a tile of padding lanes only and a padding tile (qidx -1)
+    with live lanes. Returns the numpy arrays (q, qb, ql, t, tl, qidx, lj)
+    and, per lane, pair_edge_batch's expectation (None for other lanes)."""
+    (q, qb, ql, t, tl), expect = pair_edge_batch(np, rng, Lq, Lt)
+    B, TB = len(expect), 128
+    qidx = np.arange(B + 2, dtype=np.int32) % B
+    qidx[-1] = -1
+    lj = np.full((B + 2, TB), -1, np.int32)
+    lane_expect = [None] * ((B + 2) * TB)
+    for k in range(B):
+        live = int(rng.integers(1, TB + 1))
+        lj[k, :live] = rng.integers(0, B, live)
+        at = 37 * k % TB
+        lj[k, at] = k
+        lane_expect[k * TB + at] = expect[k]
+    lj[-1, :64] = rng.integers(0, B, 64)
+    return (q, qb, ql, t, tl, qidx, lj.reshape(-1)), lane_expect
+
+
+def qm_cap_tiles(np, rng, Lq, Lt, n):
+    """Two query-major tiles at (Lq, Lt) in which H passes 32767: query 0
+    holds a run of n residues of W and C (bias 0) from row 100, target 0 the
+    same run from column 50, target 1 the run's first half; query 1 and the
+    other targets are random. Returns the numpy arrays (q, qb, ql, t, tl,
+    qidx, lj)."""
+    from metaeuk_tpu_torch.data.submat import encode_aa
+    W, C = (int(encode_aa(r)[0]) for r in (b"W", b"C"))
+    q = rng.integers(0, 20, (2, Lq))
+    qb = rng.integers(-3, 4, (2, Lq))
+    t = rng.integers(0, 20, (8, Lt))
+    run = rng.choice([W, C], n)
+    q[0, 100:100 + n], qb[0, 100:100 + n] = run, 0
+    t[0, 50:50 + n] = run
+    t[1, 7:7 + n // 2] = run[:n // 2]
+    ql = np.array([n + 200, Lq // 8])
+    tl = np.array([n + 150, n // 2 + 20, *rng.integers(1, Lt + 1, 6)])
+    lj = np.full((2, 128), -1, np.int32)
+    lj[0, :8] = np.arange(8)
+    lj[1, 3:40] = rng.integers(0, 8, 37)
+    return (q, qb, ql, t, tl, np.arange(2, dtype=np.int32), lj.reshape(-1))
+
+
+def lane_lengths(torch, q_lens, t_lens, qidx, lj, Lq, Lt):
+    """Each query-major lane's (query length, target length), (n_tiles *
+    128,) int32 each, cut to (Lq, Lt); (0, 0) on a padding lane (lj < 0) or
+    tile (qidx < 0), as the K3/K4 kernels read them."""
+    qi, tj = qidx.long().repeat_interleave(128), lj.long()
+    ok = ((qi >= 0) & (qi < len(q_lens)) & (tj >= 0) & (tj < len(t_lens)))
+    n = torch.where(ok, q_lens[qi.clamp(0, max(len(q_lens) - 1, 0))], 0)
+    m = torch.where(ok, t_lens[tj.clamp(0, max(len(t_lens) - 1, 0))], 0)
+    return n.clamp(0, Lq).int(), m.clamp(0, Lt).int()
+
+
+def check_qm_edges(torch, sw_cuda, sw_torch, errs):
+    """K3/K4 on qm_edge_tiles at QM_EDGE_WIDTH, against the plain versions
+    and the planted cells, K4 from the forward ends, over each lane's whole
+    matrix and from random ends (-1 and past the lengths); then on
+    qm_cap_tiles at QM_CAP_SHAPE, where the cap binds."""
+    import numpy as np
+    rng = np.random.default_rng(20260826)
+    Lq = Lt = QM_EDGE_WIDTH
+    arrays, expect = qm_edge_tiles(np, rng, Lq, Lt)
+    cap_Lq, cap_Lt, cap_n = QM_CAP_SHAPE
+    cases = [(arrays, expect, Lq, Lt),
+             (qm_cap_tiles(np, rng, cap_Lq, cap_Lt, cap_n), None, cap_Lq,
+              cap_Lt)]
+    for arrays, expect, Lq, Lt in cases:
+        args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+            device="cuda", dtype=dt) for a, dt in zip(arrays, (
+                torch.uint8, torch.int8, torch.int32, torch.uint8,
+                torch.int32, torch.int32, torch.int32)))
+        B = args[6].shape[0]
+        got = sw_cuda.qm_ends(*args)
+        torch.cuda.synchronize()
+        ref = sw_torch.qm_ends(*args)
+        errs["sw_qm_ends"] = max(errs["sw_qm_ends"], max_err(torch, got, ref))
+        whole = tuple(w - 1 for w in lane_lengths(
+            torch, args[2], args[4], args[5], args[6], Lq, Lt))
+        ends = [(torch.clamp_min(ref[1], 0), torch.clamp_min(ref[2], 0)),
+                whole,
+                tuple(torch.from_numpy(rng.integers(-1, w + 2, B)).int()
+                      .cuda() for w in (Lq, Lt))]
+        starts = []
+        for qe, te in ends:
+            got = sw_cuda.qm_starts(*args, qe, te)
+            torch.cuda.synchronize()
+            starts.append(sw_torch.qm_starts(*args, qe, te))
+            errs["sw_qm_starts"] = max(errs["sw_qm_starts"],
+                                       max_err(torch, got, starts[-1]))
+        if not torch.equal(ref[0], starts[0][0]):
+            raise AssertionError("reverse score differs from forward best")
+        if expect is None:
+            if int(ref[0][0]) != 32767:
+                raise AssertionError(f"cap run scored {int(ref[0][0])}, "
+                                     "not the cap 32767")
+            print(f"query-major cap run Lq={Lq} Lt={Lt}: a {cap_n}-aa "
+                  "self-match scores 32767, ends at row "
+                  f"{int(ref[1][0])}, column {int(ref[2][0])}; ends and "
+                  "starts equal", flush=True)
+            continue
+        for b, ex in enumerate(expect):
+            have = (tuple(int(ref[k][b]) for k in range(3)),
+                    tuple(int(starts[1][k][b]) for k in range(3)))
+            if ex is not None and have != ex:
+                raise AssertionError(f"planted lane {b}: {have}, expected "
+                                     f"{ex}")
+        n_ties = sum(e is not None for e in expect)
+        print(f"query-major edges Lq={Lq} Lt={Lt}: {B // 128} tiles, ends "
+              f"and starts equal; {n_ties} planted lanes as expected "
+              f"(scores up to {int(ref[0].max())})", flush=True)
+
+
 def check_qm_rt_kernels(torch, sw_cuda, sw_torch, errs):
     import numpy as np
     rng = np.random.default_rng(20260823)
@@ -994,50 +1134,16 @@ def time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
     args = (*args[:2], draw(q_at), args[3], draw(t_at))
     time_pair_kernels(torch, sw_cuda, sw_torch, args, errs)
 
-    # query-major kernels: one query per tile, 128 distinct targets per
-    # tile, lengths between half and all of the tier width; then the pair
-    # kernels on the same pairs
-    Lq, Lt, nT = QM_TIME_SHAPE
+    # query-major kernels at both shapes, then the pair kernels on the same
+    # pairs
     rng = np.random.default_rng(8)
-    TB = sw_torch.TB
     nt = 3000
-    staged = staged_batch(torch, rng, Lq, Lt, nT, nt, dev, lo=1)
-    q, qb, ql, t, tl = staged
-    ql = torch.from_numpy(rng.integers(Lq // 2, Lq + 1, nT)).int().cuda()
-    tl = torch.from_numpy(rng.integers(Lt // 2, Lt + 1, nt)).int().cuda()
-    staged = (q, qb, ql, t, tl)
-    qidx = torch.arange(nT, device=dev, dtype=torch.int32)
-    lj = torch.from_numpy(np.stack([rng.choice(nt, TB, replace=False)
-                                    for _ in range(nT)]).reshape(-1)).int()
-    lj = lj.cuda()
-    ends = sw_cuda.qm_ends(*staged, qidx, lj)
-    qe, te = torch.clamp_min(ends[1], 0), torch.clamp_min(ends[2], 0)
-    lane_q = qidx.long().repeat_interleave(TB)
-    q_len, t_len = ql[lane_q], tl[lj.long()]
-    fwd = int((q_len.long() * t_len.long()).sum())
-    rev = int(((torch.minimum(qe, q_len - 1).long() + 1)
-               * (torch.minimum(te, t_len - 1).long() + 1)).sum())
-    qm_args = (*staged, qidx, lj)
-    errs["sw_qm_ends"] = max(errs["sw_qm_ends"], max_err(
-        torch, ends, sw_torch.qm_ends(*qm_args)))
-    errs["sw_qm_starts"] = max(errs["sw_qm_starts"], max_err(
-        torch, sw_cuda.qm_starts(*qm_args, qe, te),
-        sw_torch.qm_starts(*qm_args, qe, te)))
-    out["sw_qm_ends"] = (
-        time_ms(torch, lambda: sw_cuda.qm_ends(*qm_args), 10),
-        time_ms(torch, lambda: sw_torch.qm_ends(*qm_args), 2),
-        *bound(fwd, SW_OPS, (*qm_args, *ends)))
-    out["sw_qm_starts"] = (
-        time_ms(torch, lambda: sw_cuda.qm_starts(*qm_args, qe, te), 10),
-        time_ms(torch, lambda: sw_torch.qm_starts(*qm_args, qe, te), 2),
-        *bound(rev, SW_OPS, (*qm_args, qe, te, *ends)))
-    pair_args = (q[lane_q], qb[lane_q], q_len, t[lj.long()], t_len)
-    same = (time_ms(torch, lambda: sw_cuda.sw_ends(*pair_args), 10),
-            time_ms(torch, lambda: sw_cuda.sw_starts(*pair_args, qe, te), 10))
-    print(f"query-major tiles={nT} (pairs {nT * TB}) Lq={Lq} Lt={Lt}: {fwd} "
-          f"forward cells, {rev} reverse cells; pair kernels on the same "
-          f"pairs: ends {same[0]:.4f} ms, starts {same[1]:.4f} ms",
-          flush=True)
+    for k, (_, *case) in enumerate(qm_time_cases(torch, np, rng, nt)):
+        rows, pair_ms = time_qm_kernels(torch, sw_cuda, sw_torch, *case,
+                                        errs, plain=k == 0)
+        if k == 0:
+            out.update(rows)
+            same = pair_ms
 
     # gapless kernel: the prefilter's cross product of one bucket pair
     Lq, Lt, B = GAPLESS_TIME_SHAPE
@@ -1058,6 +1164,93 @@ def time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
         *bound(cells, GAPLESS_OPS, (*staged, li, lj, best)))
     print(f"gapless pairs={B} Lq={Lq} Lt={Lt}: {cells} cells", flush=True)
     return out, same
+
+
+def qm_time_cases(torch, np, rng, nt):
+    """[(name, staged matrices, qidx, lj)] of phase 6's query-major shapes
+    on the card: QM_TIME_SHAPE (one query per tile, 128 distinct targets
+    per tile, lengths between half and all of the tier widths), then
+    QM_BUCKET_SHAPE (live lanes, query and target lengths drawn from
+    QM_BUCKET_LENGTHS' percentiles); nt staged targets each."""
+    TB, dev, out = 128, "cuda", []
+    Lq, Lt, nT = QM_TIME_SHAPE
+    q, qb, _, t, _ = staged_batch(torch, rng, Lq, Lt, nT, nt, dev, lo=1)
+    ql = torch.from_numpy(rng.integers(Lq // 2, Lq + 1, nT)).int().cuda()
+    tl = torch.from_numpy(rng.integers(Lt // 2, Lt + 1, nt)).int().cuda()
+    lj = np.stack([rng.choice(nt, TB, replace=False) for _ in range(nT)])
+    out.append(("QM_TIME_SHAPE", (q, qb, ql, t, tl)))
+    lanes = [lj]
+    Lq, Lt, nT = QM_BUCKET_SHAPE
+    pct, live_at, q_at, t_at = QM_BUCKET_LENGTHS
+    draw = lambda at, n: np.rint(np.interp(rng.uniform(0, 100, n), pct,
+                                           at)).astype(np.int64)
+    q, qb, _, t, _ = staged_batch(torch, rng, Lq, Lt, nT, nt, dev, lo=1)
+    lj = np.full((nT, TB), -1)
+    for k, live in enumerate(draw(live_at, nT)):
+        lj[k, :live] = rng.choice(nt, live, replace=False)
+    out.append(("QM_BUCKET_SHAPE", (
+        q, qb, torch.from_numpy(draw(q_at, nT)).int().cuda(), t,
+        torch.from_numpy(draw(t_at, nt)).int().cuda())))
+    lanes.append(lj)
+    return [(name, staged, torch.arange(len(lj), device=dev,
+                                        dtype=torch.int32),
+             torch.from_numpy(lj.reshape(-1)).int().cuda())
+            for (name, staged), lj in zip(out, lanes)]
+
+
+def time_qm_kernels(torch, sw_cuda, sw_torch, staged, qidx, lj, errs,
+                    plain):
+    """({K3, K4: (ms, plain_ms, bound_ms, bound_by)}, (K1 ms, K2 ms)) on one
+    query-major launch (K4 from K3's ends), each output equal to its plain
+    version's, then the pair kernels on the same pairs (padding lanes
+    dropped); plain_ms is None unless plain."""
+    TB = sw_torch.TB
+    Lq, Lt, nT = staged[0].shape[1], staged[3].shape[1], qidx.shape[0]
+    args = (*staged, qidx, lj)
+    ends = sw_cuda.qm_ends(*args)
+    qe, te = torch.clamp_min(ends[1], 0), torch.clamp_min(ends[2], 0)
+    live = lj >= 0
+    lane_q = qidx.long().repeat_interleave(TB)
+    q_len = torch.where(live, staged[2][lane_q], 0)
+    t_len = torch.where(live, staged[4][lj.long().clamp_min(0)], 0)
+    fwd = int((q_len.long() * t_len.long()).sum())
+    rev = int(((torch.minimum(qe, q_len - 1).long() + 1).clamp_min(0)
+               * (torch.minimum(te, t_len - 1).long() + 1).clamp_min(0))
+              .sum())
+    errs["sw_qm_ends"] = max(errs["sw_qm_ends"], max_err(
+        torch, ends, sw_torch.qm_ends(*args)))
+    starts = sw_cuda.qm_starts(*args, qe, te)
+    errs["sw_qm_starts"] = max(errs["sw_qm_starts"], max_err(
+        torch, starts, sw_torch.qm_starts(*args, qe, te)))
+    plain_ms = (lambda fn: time_ms(torch, fn, 2)) if plain else \
+        (lambda fn: None)
+    rows = {
+        "sw_qm_ends": (
+            time_ms(torch, lambda: sw_cuda.qm_ends(*args), 10),
+            plain_ms(lambda: sw_torch.qm_ends(*args)),
+            *bound(fwd, SW_OPS, (*args, *ends))),
+        "sw_qm_starts": (
+            time_ms(torch, lambda: sw_cuda.qm_starts(*args, qe, te), 10),
+            plain_ms(lambda: sw_torch.qm_starts(*args, qe, te)),
+            *bound(rev, SW_OPS, (*args, qe, te, *starts)))}
+    keep = live.nonzero().squeeze(1)
+    lq, lt = lane_q[keep], lj.long()[keep]
+    pair_args = (staged[0][lq], staged[1][lq], q_len[keep], staged[3][lt],
+                 t_len[keep])
+    pe, ps = qe[keep], te[keep]
+    same = (time_ms(torch, lambda: sw_cuda.sw_ends(*pair_args), 10),
+            time_ms(torch, lambda: sw_cuda.sw_starts(*pair_args, pe, ps),
+                    10))
+    print(f"query-major tiles={nT} ({len(keep)} live lanes of {nT * TB}) "
+          f"Lq={Lq} Lt={Lt}: {fwd} forward cells, {rev} reverse cells; "
+          f"pair kernels on the same pairs: ends {same[0]:.4f} ms, starts "
+          f"{same[1]:.4f} ms", flush=True)
+    for k, (ms, p_ms, bound_ms, by) in rows.items():
+        print(f"  {k}: kernel {ms:.4f} ms, plain "
+              f"{'not timed' if p_ms is None else f'{p_ms:.4f} ms'}, bound "
+              f"{bound_ms:.4f} ms ({by}; {bound_ms / ms:.1%} of it)",
+              flush=True)
+    return rows, same
 
 
 def time_pair_kernels(torch, sw_cuda, sw_torch, args, errs):
@@ -1550,21 +1743,30 @@ def main():
                           f"spill stores, {found[0][2]} bytes spill loads"
                           if found else "no ptxas report (a cached build)"),
               flush=True)
-    usage = ptxas_usage(_build.BUILT.get("sw_pair", {}).get("ptxas", ""))
-    for (g, r), rev in [(c, rev) for rev in (0, 1)
-                        for c in sw_cuda.PAIR_CLASSES]:
-        tag = f"{PAIR_KERNEL_SYMBOL}ILi{g}ELi{r}ELb{rev}E"
-        found = [v for n, v in usage.items() if tag in n]
-        print(f"{PAIR_KERNELS[rev]} (G {g}, R {r}): " + (
-            f"{found[0][0]} registers, {found[0][1]} bytes spill stores, "
-            f"{found[0][2]} bytes spill loads" if found
-            else "no ptxas report (a cached build)"), flush=True)
+    pair_usage = ptxas_usage(_build.BUILT.get("sw_pair", {}).get("ptxas",
+                                                                  ""))
+    qm_usage = ptxas_usage(_build.BUILT.get("sw_qm", {}).get("ptxas", ""))
+    for name, usage, symbol, rev in (
+            ("sw_pair_ends", pair_usage, PAIR_KERNEL_SYMBOL, 0),
+            ("sw_pair_starts", pair_usage, PAIR_KERNEL_SYMBOL, 1),
+            ("sw_qm_ends", qm_usage, QM_KERNEL_SYMBOLS["sw_qm_ends"], None),
+            ("sw_qm_starts", qm_usage, QM_KERNEL_SYMBOLS["sw_qm_starts"],
+             None)):
+        for g, r in sw_cuda.PAIR_CLASSES:
+            tag = f"{symbol}ILi{g}ELi{r}E" + (
+                "" if rev is None else f"Lb{rev}E")
+            found = [v for n, v in usage.items() if tag in n]
+            print(f"{name} (G {g}, R {r}): " + (
+                f"{found[0][0]} registers, {found[0][1]} bytes spill "
+                f"stores, {found[0][2]} bytes spill loads" if found
+                else "no ptxas report (a cached build)"), flush=True)
 
     phase("3 kernels against their plain versions")
     errs = dict.fromkeys(KERNELS, 0)
     check_pair_kernels(torch, sw_cuda, sw_torch, errs)
     check_pair_edges(torch, sw_cuda, sw_torch, errs)
     check_qm_kernels(torch, sw_cuda, sw_torch, errs)
+    check_qm_edges(torch, sw_cuda, sw_torch, errs)
     check_qm_rt_kernels(torch, sw_cuda, sw_torch, errs)
     check_gapless_kernel(torch, ungapped_cuda, ungapped_torch, errs)
     check_gapless_rows(torch, ungapped_cuda, ungapped_torch, errs)

@@ -39,9 +39,12 @@ def _nvcc():
 
 
 def build(name):
-    """Path of lib<name>-<digest>.so, compiling csrc/<name>.cu if needed."""
+    """Path of lib<name>-<digest>.so, compiling csrc/<name>.cu if needed.
+    The digest covers the source, every header of csrc/ and the flags."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     so = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
     if so.exists():

@@ -15,7 +15,13 @@ lanes aligns one pair, with the fragment's rows in registers
 one G a class, and the kernels write each output at its pair's place).
 qm_ends and qm_starts are _align_ends_qm and _align_starts_qm over
 build_prof_tiles / build_tcodes_T (K3, K4): one query row per tile of TB =
-128 target lanes, read from the staged matrices.
+128 target lanes, read from the staged matrices. Their CUDA kernels
+(csrc/sw_qm.cu) are K1/K2's lane groups (csrc/sw_group.cuh) on the tiles'
+lanes, each lane in the length class of the rows it sweeps and each block
+ranking its tile's lanes by the columns they sweep: K3 stages each tile's
+query profile once for all its groups; K4, whose lanes end at cells of
+their own, stages one a group as K2 does. Neither takes a work list from
+the host or holds an H/E scratch.
 qm_ends_rt and qm_starts_rt are the same calls for Lq > 4096, which the JAX
 package runs on the row-tiled _qm_call_rt (K5, K6). Their CUDA kernels
 (csrc/sw_qm_rt.cu) take no row tile: a warp aligns one lane's pair with the
@@ -39,15 +45,14 @@ KERNELS = ("sw_pair_ends", "sw_pair_starts", "sw_qm_ends", "sw_qm_starts",
 SOURCES = {"sw_pair_ends": "sw_pair", "sw_pair_starts": "sw_pair",
            "sw_qm_ends": "sw_qm", "sw_qm_starts": "sw_qm",
            "sw_qm_rt_ends": "sw_qm_rt", "sw_qm_rt_starts": "sw_qm_rt"}
-# K1/K2's length classes, by the rows a pair sweeps (the fragment, or the
+# K1-K4's length classes, by the rows a pair sweeps (the fragment, or the
 # rows up to the end cell in the reverse pass): (G lanes a pair, R rows a
 # lane); class c takes rows up to G * R of its entry and above the previous
 # entry's, the last class every longer pair, a warp per pair in row
-# stripes of PAIR_STRIPE
+# stripes of PAIR_STRIPE (csrc/sw_pair.cu and csrc/sw_qm.cu instantiate
+# the same table)
 PAIR_CLASSES = ((4, 8), (8, 8), (16, 8), (16, 16), (32, 16))
 PAIR_STRIPE = 32 * 16
-# dynamic shared memory a block may hold on an H100 (K3/K4's query profile)
-MAX_SMEM = 232448
 # target columns the long-query kernels (K5/K6) sweep at once: a staged
 # target tier wider than this needs their stripe hand-off, one word per
 # (lane, query row)
@@ -66,15 +71,13 @@ _ARGTYPES = {
     "sw_pair_starts": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _P, _P, _P, _P, _P, _P, _P],
     # submat, alph, q_mat, qb_mat, q_lens, nq, Lq, t_mat, t_lens, nt, Lt,
-    # qidx, lj, n_tiles, go, ge, scratch, out x3, stream
+    # qidx, lj, n_tiles, go, ge, stripe hand-off (or NULL), out x3, stream
     "sw_qm_ends": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I,
                    _I, _I, _P, _P, _P, _P, _P],
     # as above with q_end, t_end after lj
     "sw_qm_starts": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
                      _P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
-# as sw_qm_ends / sw_qm_starts, with the stripe hand-off (or NULL) in place
-# of the H/E scratch
 _ARGTYPES["sw_qm_rt_ends"] = _ARGTYPES["sw_qm_ends"]
 _ARGTYPES["sw_qm_rt_starts"] = _ARGTYPES["sw_qm_starts"]
 
@@ -221,10 +224,9 @@ def align_full(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
 
 
 def _qm_inputs(scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,
-               *extra, profile_rows=None):
-    """Checks one CUDA device, the shapes and the shared-memory size of the
-    profile_rows query rows that a block stages (K3/K4; None for K5/K6);
-    returns the kernel's contiguous operands."""
+               *extra):
+    """Checks one CUDA device and the shapes; returns the kernel's
+    contiguous operands."""
     dev = q_mat.device
     tensors = (q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, *extra,
                scoring.submat)
@@ -241,9 +243,6 @@ def _qm_inputs(scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,
     if scoring.submat.shape != (alph, alph) or alph > 32:
         raise ValueError("sw kernels take a square substitution matrix of "
                          "at most 32 classes")
-    if profile_rows is not None and profile_rows * alph * 2 > MAX_SMEM:
-        raise ValueError(f"sw_qm kernels: a {profile_rows}-row query profile "
-                         "exceeds the shared memory of a block")
     return (scoring.submat.to(torch.int32).contiguous(),
             q_mat.to(torch.uint8).contiguous(),
             qb_mat.to(torch.int8).contiguous(),
@@ -275,32 +274,30 @@ def check_scores_fit(submat, lo, hi, kernels):
 
 def _qm_launch(name, scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,
                *extra):
-    """Launches a query-major kernel: K3/K4 with an H/E scratch of (tiles,
-    Lq, 128) words, or K5/K6 (sw_qm_rt_*) with none, and with the stripe
-    hand-off of (tiles * 128, Lq) words only when the target tier is wider
-    than RT_STRIPE."""
-    long_query = name.startswith("sw_qm_rt")
+    """Launches a query-major kernel: K3/K4, with the row-stripe hand-off of
+    (tiles * 128, Lt) words only when the query tier is wider than
+    PAIR_STRIPE, or K5/K6 (sw_qm_rt_*), with the stripe hand-off of (tiles *
+    128, Lq) words only when the target tier is wider than RT_STRIPE."""
     Lq, Lt = q_mat.shape[1], t_mat.shape[1]
     sub, q, qb, ql, t, tl, qi, *lanes = _qm_inputs(
-        scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, *extra,
-        profile_rows=None if long_query else Lq)
+        scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, *extra)
+    # K3-K6 keep their profiles as int8 and add the bias after
+    check_scores_fit(scoring.submat, -128, 127, "sw_qm kernels")
     nq, nt, nT = q.shape[0], t.shape[0], qi.shape[0]
     dev = q_mat.device
-    if not long_query:
-        scratch = torch.empty((nT, Lq, sw_torch.TB), dtype=torch.int32,
-                              device=dev)
-    else:
-        # K5/K6 keep the target profile as int8
-        check_scores_fit(scoring.submat, -128, 127, "sw_qm_rt kernels")
-        scratch = torch.empty((nT * sw_torch.TB, Lq), dtype=torch.int32,
-                              device=dev) if Lt > RT_STRIPE else None
+    if name.startswith("sw_qm_rt"):   # a word per (lane, query row)
+        shape, wide = (nT * sw_torch.TB, Lq), Lt > RT_STRIPE
+    else:                             # a word per (lane, target column)
+        shape, wide = (nT * sw_torch.TB, Lt), Lq > PAIR_STRIPE
+    carry = torch.empty(shape, dtype=torch.int32, device=dev) if wide \
+        else None
     outs = [torch.empty(nT * sw_torch.TB, dtype=torch.int32, device=dev)
             for _ in range(3)]
     _launch(name, [
         sub.data_ptr(), sub.shape[0], q.data_ptr(), qb.data_ptr(),
         ql.data_ptr(), nq, Lq, t.data_ptr(), tl.data_ptr(), nt, Lt,
         qi.data_ptr(), *(v.data_ptr() for v in lanes), nT, scoring.go,
-        scoring.ge, None if scratch is None else scratch.data_ptr(),
+        scoring.ge, None if carry is None else carry.data_ptr(),
         *(o.data_ptr() for o in outs)])
     return tuple(outs)
 

@@ -78,9 +78,12 @@ MAX_PAIRS_PER_LAUNCH = 1 << 16
 # TB = 128 lanes wastes more than the pair kernels cost
 QM_MIN_CANDS = int(os.environ.get("METAEUK_QM_MIN", "48"))
 # query-major DP cells per launch (tiles * TB * Lq * Lt_pad), by device
-# type. A K3/K4 launch runs one block of 128 threads per tile and holds 4 B
-# of scratch per (tile, row, lane), so it needs a thousand tiles or more to
-# fill an H100; the plain CPU version keeps the pair launches' budget.
+# type. A K3/K4 launch runs a group of 4 to 32 lanes per live lane of its
+# tiles (csrc/sw_qm.cu), with no H/E scratch, only a stripe hand-off of 4 B
+# per (lane, column) when the query tier is wider than 512. The budget
+# dates from the scratch of a thread per lane and stays until a
+# measurement moves it; the plain CPU version keeps the pair launches'
+# budget.
 QM_CELL_BUDGET = {"cuda": 1 << 35, "cpu": 1 << 27}
 # device memory a K5/K6 launch may hold for its stripe hand-off: 4 B per
 # (lane, query row) of a tile, only when the target tier is wider than
@@ -233,9 +236,11 @@ def target_tier_np(targets_enc, target_lens, Lt, fine):
 def qm_tiles_per_launch(device_type, Lq, Lt, Lt_pad, n_tiles):
     """Tiles per query-major launch of a (Lq, Lt) bucket of n_tiles tiles.
     K3/K4 and every plain version: QM_CELL_BUDGET cells of tiles * TB * Lq
-    * Lt_pad. K5/K6 on the card (Lq > QM_MAX_LQ): every tile, unless the
-    target tier is wider than one stripe; then RT_STRIPE_BYTES of stripe
-    hand-off, TB * Lq words a tile."""
+    * Lt_pad (on the card K3/K4 hold TB * Lt words a tile of stripe
+    hand-off when Lq > 512, 2^37 / Lq bytes at the budget). K5/K6 on the
+    card (Lq > QM_MAX_LQ): every tile, unless the target tier is wider
+    than one stripe; then RT_STRIPE_BYTES of stripe hand-off, TB * Lq
+    words a tile."""
     if device_type == "cuda" and Lq > QM_MAX_LQ:
         if Lt <= sw_cuda.RT_STRIPE:
             return max(1, n_tiles)
