@@ -39,7 +39,12 @@ Phases, each fatal on failure:
      the cross entry at the short-row buckets (Lq 32, 128, 512, 64), with
      20 targets (under a block's 32 columns) and the shape's 100-3000, on
      planted pairs: the first and last diagonals' single cells and runs
-     that end at q_len - 1 or t_len - 1 with padding that would extend them
+     that end at q_len - 1 or t_len - 1 with padding that would extend them;
+     K1/K2's PSSM entries (sw_pair_ends_prof, sw_pair_starts_prof) on
+     seeded staged PSSMs in [-32, 31] at the pair kernels' shapes (profiles
+     up to 4,608 rows, one over 4096) read in a shuffled order, and on
+     pair_edge_batch's planted ties with the PSSM built as submat[q] + bias,
+     where they also equal sw_pair_ends / sw_pair_starts bit for bit
   3b. the microbenchmark kernels against their plain versions, bit for bit
      (floats compared as their bits): every case of tools/kbench.py (T1-T3)
      at its TPU shape (256, 512) and REPS 512 on seeded non-zero inputs,
@@ -61,6 +66,14 @@ Phases, each fatal on failure:
      package's outputs), the row-tiled kernels launched, and gapless_long
      in ungapped mode (gapless_rows takes the short rows of every ungapped
      run)
+  4d. easy-predict against tests/golden/profile/profileDB through the CLI:
+     the four outputs byte-identical to tests/golden/profile/pp.*; and
+     slice_search_db with backtraces on the enrich fixture: the result DB's
+     sha256 digests equal tests/golden/profile_slice.json's (the JAX
+     package's, equal to tests/golden/enrich/search_slice); the PSSM entries
+     launched and no plain version called in either; ProfileQueryAligner
+     on the enrich profiles against the fixture proteins, hits and
+     backtraces equal to its plain run
   5. the k-mer main path at a real size: easy-predict on the 1.6 Mbp /
      3000-target synthetic metagenome of tests/golden/multichip_slice.json;
      the four sha256 digests equal the file's, the pair kernels launched and
@@ -87,10 +100,19 @@ Phases, each fatal on failure:
      the gapless kernels' also by staged query width with their cells,
      cells/s and bound (CUDA events around each launch, put there by a hook
      of this script)
+  5d. the profile path at full width: the k-mer slice's contigs against
+     3,000 HMM profiles of its targets (make_profile_slice.PROFILE_SLICE);
+     the four sha256 digests equal tests/golden/profile_slice.json's (the
+     JAX package's outputs), the PSSM entries launched and no plain version
+     called; wall, stage and profile-search phase seconds (the profile
+     prefilter, the alignment, the filter and swap), pairs, cells and each
+     PSSM entry's launches and summed ms (CUDA events) beside its bound
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
-     rate and its bytes over its memory rate); K1/K2 also at the k-mer
+     rate and its bytes over its memory rate); K1/K2's PSSM entries at
+     TIME_SHAPE on the same pairs as K1/K2 (rows submat[q] + bias), their
+     outputs equal to K1/K2's; K1/K2 also at the k-mer
      slice's largest bucket (16,384 pairs, Lq 256 x Lt 1024, lengths drawn
      from its percentiles); K3/K4 (with K1/K2 on the same pairs) also at
      one launch of the ungapped slices' largest query-major bucket (1,008
@@ -132,6 +154,9 @@ KERNELS = {
     # name: (source, TPU kernel it replaces)
     "sw_pair_ends": ("sw_pair.cu", "metaeuk_tpu/ops/sw_pallas.py:86"),
     "sw_pair_starts": ("sw_pair.cu", "metaeuk_tpu/ops/sw_pallas.py:220"),
+    "sw_pair_ends_prof": ("sw_pair.cu", "metaeuk_tpu/ops/sw_pallas.py:86"),
+    "sw_pair_starts_prof": ("sw_pair.cu",
+                            "metaeuk_tpu/ops/sw_pallas.py:220"),
     "sw_qm_ends": ("sw_qm.cu", "metaeuk_tpu/ops/sw_pallas.py:405"),
     "sw_qm_starts": ("sw_qm.cu", "metaeuk_tpu/ops/sw_pallas.py:462"),
     "sw_qm_rt_ends": ("sw_qm_rt.cu", "metaeuk_tpu/ops/sw_pallas.py:539"),
@@ -145,6 +170,9 @@ KERNELS = {
     "qm_variant_ends": ("qm_variants.cu", "tools/kernel_variants.py:48"),
 }
 PAIR_KERNELS = ("sw_pair_ends", "sw_pair_starts")
+# the PSSM entries of K1/K2 (the profile path: sw_pallas.py
+# _align_full_prof :369 over _build_S_prof :346)
+PROF_KERNELS = ("sw_pair_ends_prof", "sw_pair_starts_prof")
 UNGAPPED_KERNELS = ("gapless_rows", "sw_qm_ends", "sw_qm_starts")
 RT_KERNELS = ("sw_qm_rt_ends", "sw_qm_rt_starts")
 # K5/K6's __global__ function in ptxas's report (the instance of its
@@ -152,7 +180,8 @@ RT_KERNELS = ("sw_qm_rt_ends", "sw_qm_rt_starts")
 RT_KERNEL_SYMBOLS = {"sw_qm_rt_ends": "sw_qm_rt_kernelILb0E",
                      "sw_qm_rt_starts": "sw_qm_rt_kernelILb1E"}
 # K1/K2's __global__ template in ptxas's report, one instance per length
-# class (G, R) and pass; K3's and K4's, one instance per class
+# class (G, R), pass and row source (PairRows: sequence queries, ProfRows:
+# the PSSM entries); K3's and K4's, one instance per class
 PAIR_KERNEL_SYMBOL = "sw_pair_kernel"
 QM_KERNEL_SYMBOLS = {"sw_qm_ends": "sw_qm_ends_kernel",
                      "sw_qm_starts": "sw_qm_starts_kernel"}
@@ -642,6 +671,159 @@ def check_pair_edges(torch, sw_cuda, sw_torch, errs):
           flush=True)
 
 
+def prof_batch(torch, rng, Lq, Lt, B, device):
+    """Seeded staged PSSM matrices as the profile search holds them: (B, Lq,
+    21) int32 PSSM rows in [-32, 31] (X column 0) of lengths 1..Lq (one of
+    Lq), (B, Lt)
+    fragment codes of lengths 1..Lt, zero-length rows, fragments that share
+    a stretch of a profile's best residues (real hits); pairs (li, lj) in a
+    shuffled order, with repeated pairs (ties)."""
+    import numpy as np
+    prof = rng.integers(-32, 32, (B, Lq, 21))
+    prof[:, :, 20] = 0
+    pl = rng.integers(1, Lq + 1, B)
+    t = rng.integers(0, 21, (B, Lt))
+    tl = rng.integers(1, Lt + 1, B)
+    pl[::17] = 0
+    pl[2] = Lq      # a profile of the tier's full width
+    tl[5::19] = 0
+    for b in range(3, B, 7):
+        n = int(min(pl[b], tl[b], 60))
+        t[b, :n] = prof[b, :n, :20].argmax(1)
+    li = rng.permutation(B)
+    lj = rng.permutation(B)
+    li[1::11], lj[1::11] = li[0], lj[0]
+    mk = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(
+        device=device, dtype=dt)
+    return (mk(prof, torch.int32), mk(pl, torch.int32), mk(t, torch.uint8),
+            mk(tl, torch.int32), mk(li, torch.int32), mk(lj, torch.int32))
+
+
+def check_prof_ends_starts(torch, sw_cuda, sw_torch, args, ends, errs):
+    """The PSSM entries on staged args against their plain versions: K1's
+    ends, then K2's starts from the forward ends and from each pair of
+    `ends`; returns (K1's outputs, [K2's outputs from the forward ends,
+    then from each of `ends`])."""
+    got = sw_cuda.sw_ends_prof(*args)
+    torch.cuda.synchronize()
+    ref = sw_torch.sw_ends_prof(*sw_cuda._gathered(*args))
+    errs["sw_pair_ends_prof"] = max(errs["sw_pair_ends_prof"],
+                                    max_err(torch, got, ref))
+    starts = []
+    for qe, te in [(torch.clamp_min(ref[1], 0), torch.clamp_min(ref[2], 0)),
+                   *ends]:
+        got = sw_cuda.sw_starts_prof(*args, qe, te)
+        torch.cuda.synchronize()
+        starts.append(sw_torch.sw_starts_prof(*sw_cuda._gathered(*args),
+                                              qe, te))
+        errs["sw_pair_starts_prof"] = max(errs["sw_pair_starts_prof"],
+                                          max_err(torch, got, starts[-1]))
+    if not torch.equal(ref[0], starts[0][0]):
+        raise AssertionError("PSSM reverse score differs from forward best")
+    return ref, starts
+
+
+def check_prof_kernels(torch, sw_cuda, sw_torch, errs):
+    """K1/K2's PSSM entries on prof_batch at CHECK_SHAPES (Lq up to 4608,
+    profiles over 4096 rows): ends, starts from the forward ends and from
+    random ends (-1, past the lengths), and align_full_prof."""
+    import numpy as np
+    rng = np.random.default_rng(20260826)
+    for Lq, Lt, B in CHECK_SHAPES:
+        args = prof_batch(torch, rng, Lq, Lt, B, "cuda")
+        rand = tuple(torch.from_numpy(rng.integers(-1, n + 2, B)).int()
+                     .cuda() for n in (Lq, Lt))
+        ref, _ = check_prof_ends_starts(torch, sw_cuda, sw_torch, args,
+                                        [rand], errs)
+        got = sw_cuda.align_full_prof(*args)
+        torch.cuda.synchronize()
+        max_err(torch, got,
+                sw_torch.align_full_prof(*sw_cuda._gathered(*args)))
+        print(f"PSSM pairs Lq={Lq} Lt={Lt} B={B}: ends and starts equal "
+              f"({int((ref[0] > 0).sum())} pairs with a hit, longest "
+              f"profile {int(args[1].max())} rows)", flush=True)
+
+
+def check_prof_edges(torch, sw_cuda, sw_torch, errs):
+    """K1/K2's PSSM entries on pair_edge_batch at Lq 1152 x Lt 1152, the
+    PSSM built as submat[q] + bias, staged and read in a shuffled order:
+    equal to their plain versions and, bit for bit, to sw_pair_ends /
+    sw_pair_starts on the same pairs (from the forward ends, over the whole
+    matrix and from random ends)."""
+    import numpy as np
+    from metaeuk_tpu_torch import state
+    rng = np.random.default_rng(20260827)
+    Lq = Lt = 1152
+    arrays, _ = pair_edge_batch(np, rng, Lq, Lt)
+    seq = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+        device="cuda", dtype=dt) for a, dt in zip(arrays, (
+            torch.uint8, torch.int8, torch.int32, torch.uint8, torch.int32)))
+    q, qb, ql, t, tl = seq
+    B = q.shape[0]
+    perm = torch.from_numpy(rng.permutation(B)).cuda()
+    inv = torch.argsort(perm)
+    sub = state.default_scoring(q.device).submat
+    prof = sub[q.long()] + qb.int()[:, :, None]
+    # staged in the order perm, read back by li = lj = inv
+    staged = (prof[perm], ql[perm], t[perm], tl[perm], inv.int(), inv.int())
+    whole = tuple((a - 1).int() for a in (ql, tl))
+    rand = tuple(torch.from_numpy(rng.integers(-1, n + 2, B)).int().cuda()
+                 for n in (Lq, Lt))
+    ref, starts = check_prof_ends_starts(torch, sw_cuda, sw_torch, staged,
+                                         [whole, rand], errs)
+    seq_ends = sw_cuda.sw_ends(*seq)
+    max_err(torch, sw_cuda.sw_ends_prof(*staged), seq_ends)
+    for (qe, te), want in zip(
+            [(torch.clamp_min(ref[1], 0), torch.clamp_min(ref[2], 0)),
+             whole, rand], starts):
+        max_err(torch, sw_cuda.sw_starts(*seq, qe, te), want)
+        max_err(torch, sw_cuda.sw_starts_prof(*staged, qe, te), want)
+    torch.cuda.synchronize()
+    print(f"PSSM pair edges Lq={Lq} Lt={Lt}: {B} pairs equal to the plain "
+          "versions and bit-equal to sw_pair_ends / sw_pair_starts",
+          flush=True)
+
+
+def check_profile_aligner(np, torch, counters, driver, prefilter):
+    """ProfileQueryAligner (no entry point of the port drives it yet) on the
+    enrich fixture's 24 profiles against the 6 fixture proteins, every pair,
+    E-value 100: on the card through the PSSM entries, equal field by field
+    and in backtraces and sequence identities to the plain versions' run
+    (tests/test_torch_profile.py holds that run to the JAX package's)."""
+    import make_profile_slice as mps
+    from metaeuk_tpu_torch.io.profiledb import ProfileDB
+    from metaeuk_tpu_torch.io.seqdb import DBTYPE_AA, SeqDB
+    from metaeuk_tpu_torch.ops import sw_cuda
+    from metaeuk_tpu_torch.params import Params
+    from metaeuk_tpu_torch.search.profile_align import ProfileQueryAligner
+    profs = ProfileDB.from_db(str(mps.SEARCH_PROFILES))
+    prots = SeqDB.from_fasta(str(ROOT / "tests" / "data" / "proteins.faa"),
+                             DBTYPE_AA)
+    pairs = [(a, b) for a in range(len(profs)) for b in range(len(prots))]
+    p = Params(search_evalue_thr=100.0)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        reset(torch, counters, driver, prefilter)
+        al = ProfileQueryAligner(p, profs, prots, dev)
+        hits = al.search(pairs)
+        res[dev] = (hits, *al.backtraces(hits))
+        if dev == "cuda":
+            run_l, run_p = counts(counters)
+            if min(run_l[k] for k in PROF_KERNELS) == 0 or \
+                    any(run_p.values()):
+                raise AssertionError("ProfileQueryAligner did not go "
+                                     "through the PSSM kernels")
+    (ref, ref_bt, ref_id), (got, got_bt, got_id) = res["cpu"], res["cuda"]
+    if len(ref) == 0 or len(ref) != len(got) or any(
+            not np.array_equal(ref[f], got[f]) for f in ref.dtype.names) \
+            or ref_bt != got_bt or not np.array_equal(ref_id, got_id):
+        raise AssertionError("ProfileQueryAligner on the card differs from "
+                             "its plain run")
+    sw_cuda.reset_counts()
+    print(f"ProfileQueryAligner: {len(got)} hits and their backtraces equal "
+          "to the plain versions' run", flush=True)
+
+
 def qm_edge_tiles(np, rng, Lq, Lt):
     """pair_edge_batch's pairs as query-major tiles: the pairs' queries and
     targets are the staged rows, and tile k aligns query k against its own
@@ -1125,6 +1307,7 @@ def time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
         Lq // 2, Lq + 1, B)).int().cuda(), args[3], torch.from_numpy(
         rng.integers(Lt // 2, Lt + 1, B)).int().cuda())
     out.update(time_pair_kernels(torch, sw_cuda, sw_torch, args, errs))
+    out.update(time_prof_kernels(torch, sw_cuda, sw_torch, args, errs))
     # the k-mer slice's largest bucket: lengths drawn from its percentiles
     Lq, Lt, B = KMER_PAIR_SHAPE
     pct, q_at, t_at = KMER_PAIR_LENGTHS
@@ -1281,6 +1464,52 @@ def time_pair_kernels(torch, sw_cuda, sw_torch, args, errs):
         print(f"{k} at B={B} Lq={Lq} Lt={Lt}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; "
               f"{bound_ms / ms:.1%} of it)", flush=True)
+    return out
+
+
+def time_prof_kernels(torch, sw_cuda, sw_torch, args, errs):
+    """{K1's, K2's PSSM entry: (ms, plain_ms, bound_ms, bound_by)} on
+    time_pair_kernels' batch `args` as PSSM pairs: rows submat[q] + bias
+    staged (int32, as the profile search stages them) in a shuffled order,
+    K2 from the forward ends; outputs equal to the plain versions' and to
+    sw_pair_ends' / sw_pair_starts' on the same pairs."""
+    from metaeuk_tpu_torch import state
+    q, qb, ql, t, tl = args
+    B = q.shape[0]
+    perm = torch.randperm(B, generator=torch.Generator().manual_seed(5)) \
+        .cuda()
+    inv = torch.argsort(perm).int()
+    sub = state.default_scoring(q.device).submat
+    prof = (sub[q.long()] + qb.int()[:, :, None])[perm]
+    staged = (prof, ql[perm], t[perm], tl[perm], inv, inv)
+    plain = sw_cuda._gathered(*staged)
+    ends = sw_cuda.sw_ends_prof(*staged)
+    max_err(torch, ends, sw_cuda.sw_ends(*args))
+    errs["sw_pair_ends_prof"] = max(errs["sw_pair_ends_prof"], max_err(
+        torch, ends, sw_torch.sw_ends_prof(*plain)))
+    qe, te = torch.clamp_min(ends[1], 0), torch.clamp_min(ends[2], 0)
+    starts = sw_cuda.sw_starts_prof(*staged, qe, te)
+    max_err(torch, starts, sw_cuda.sw_starts(*args, qe, te))
+    errs["sw_pair_starts_prof"] = max(errs["sw_pair_starts_prof"], max_err(
+        torch, starts, sw_torch.sw_starts_prof(*plain, qe, te)))
+    fwd = int((ql.long() * tl.long()).sum())
+    rev = int(((torch.minimum(qe, ql - 1).long() + 1)
+               * (torch.minimum(te, tl - 1).long() + 1)).sum())
+    # the kernels read the staged rows as int8
+    inputs = (prof.to(torch.int8), *staged[1:])
+    out = {"sw_pair_ends_prof": (
+        time_ms(torch, lambda: sw_cuda.sw_ends_prof(*staged), 10),
+        time_ms(torch, lambda: sw_torch.sw_ends_prof(*plain), 2),
+        *bound(fwd, SW_OPS, (*inputs, *ends))), "sw_pair_starts_prof": (
+        time_ms(torch, lambda: sw_cuda.sw_starts_prof(*staged, qe, te), 10),
+        time_ms(torch, lambda: sw_torch.sw_starts_prof(*plain, qe, te), 2),
+        *bound(rev, SW_OPS, (*inputs, qe, te, *starts)))}
+    (_, Lq, _), Lt = prof.shape, t.shape[1]
+    for k, (ms, plain_ms, bound_ms, by) in out.items():
+        print(f"{k} at B={B} Lq={Lq} Lt={Lt}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; "
+              f"{bound_ms / ms:.1%} of it); outputs equal to the sequence "
+              "entry's", flush=True)
     return out
 
 
@@ -1716,7 +1945,7 @@ def main():
     from metaeuk_tpu_torch.pipeline.predict import EasyPredict
     from metaeuk_tpu_torch.ops import (kbench_cuda, kbench_torch,
                                        qm_variants_cuda, qm_variants_torch)
-    from metaeuk_tpu_torch.search import driver, prefilter
+    from metaeuk_tpu_torch.search import driver, prefilter, profile_search
     from metaeuk_tpu_torch.tools import kbench as kb
     from metaeuk_tpu_torch.tools import kernel_variants as kvar
     counters = (sw_cuda, ungapped_cuda)
@@ -1746,16 +1975,22 @@ def main():
     pair_usage = ptxas_usage(_build.BUILT.get("sw_pair", {}).get("ptxas",
                                                                   ""))
     qm_usage = ptxas_usage(_build.BUILT.get("sw_qm", {}).get("ptxas", ""))
-    for name, usage, symbol, rev in (
-            ("sw_pair_ends", pair_usage, PAIR_KERNEL_SYMBOL, 0),
-            ("sw_pair_starts", pair_usage, PAIR_KERNEL_SYMBOL, 1),
-            ("sw_qm_ends", qm_usage, QM_KERNEL_SYMBOLS["sw_qm_ends"], None),
+    for name, usage, symbol, rev, rows in (
+            ("sw_pair_ends", pair_usage, PAIR_KERNEL_SYMBOL, 0, "PairRows"),
+            ("sw_pair_starts", pair_usage, PAIR_KERNEL_SYMBOL, 1,
+             "PairRows"),
+            ("sw_pair_ends_prof", pair_usage, PAIR_KERNEL_SYMBOL, 0,
+             "ProfRows"),
+            ("sw_pair_starts_prof", pair_usage, PAIR_KERNEL_SYMBOL, 1,
+             "ProfRows"),
+            ("sw_qm_ends", qm_usage, QM_KERNEL_SYMBOLS["sw_qm_ends"], None,
+             ""),
             ("sw_qm_starts", qm_usage, QM_KERNEL_SYMBOLS["sw_qm_starts"],
-             None)):
+             None, "")):
         for g, r in sw_cuda.PAIR_CLASSES:
             tag = f"{symbol}ILi{g}ELi{r}E" + (
                 "" if rev is None else f"Lb{rev}E")
-            found = [v for n, v in usage.items() if tag in n]
+            found = [v for n, v in usage.items() if tag in n and rows in n]
             print(f"{name} (G {g}, R {r}): " + (
                 f"{found[0][0]} registers, {found[0][1]} bytes spill "
                 f"stores, {found[0][2]} bytes spill loads" if found
@@ -1765,6 +2000,8 @@ def main():
     errs = dict.fromkeys(KERNELS, 0)
     check_pair_kernels(torch, sw_cuda, sw_torch, errs)
     check_pair_edges(torch, sw_cuda, sw_torch, errs)
+    check_prof_kernels(torch, sw_cuda, sw_torch, errs)
+    check_prof_edges(torch, sw_cuda, sw_torch, errs)
     check_qm_kernels(torch, sw_cuda, sw_torch, errs)
     check_qm_edges(torch, sw_cuda, sw_torch, errs)
     check_qm_rt_kernels(torch, sw_cuda, sw_torch, errs)
@@ -1782,6 +2019,7 @@ def main():
     from tools.make_metagenome import make_metagenome, write_fasta
     sys.path.insert(0, str(GOLDEN))
     import make_long_slice as mls
+    import make_profile_slice as mps
     ungapped = json.loads((GOLDEN / "ungapped_slice.json").read_text())
     launches = {}
     with tempfile.TemporaryDirectory(prefix="meuk_smoke") as td:
@@ -1872,6 +2110,39 @@ def main():
                                      f"through {need}")
         print("long frames: k-mer and ungapped digests equal long_slice.json",
               flush=True)
+
+        phase("4d easy-predict against an HMM-profile DB, and slice_search_db")
+        prof_golden = json.loads((GOLDEN / "profile_slice.json").read_text())
+        reset(torch, counters, driver, prefilter)
+        out = td / "profile_fixture"
+        cli.main(["easy-predict", str(ROOT / "tests" / "data" /
+                                      "contigs.fna"),
+                  str(GOLDEN / "profile" / "profileDB"), str(out),
+                  "--device", "cuda"])
+        run_l, run_p = counts(counters)
+        print(f"profile fixture launches {run_l}, plain {run_p}")
+        for s in SUFFIXES:
+            if pathlib.Path(f"{out}.{s}").read_bytes() != \
+                    (GOLDEN / "profile" / f"pp.{s}").read_bytes():
+                raise AssertionError(f"pp.{s} differs from golden")
+        if min(run_l[k] for k in PROF_KERNELS) == 0 or any(run_p.values()):
+            raise AssertionError("profile fixture run did not go through the "
+                                 "PSSM kernels")
+        reset(torch, counters, driver, prefilter)
+        mps.write_query_db(mps.SEARCH_QUERIES, td / "qdb")
+        profile_search.slice_search_db(
+            str(td / "qdb"), str(mps.SEARCH_PROFILES), str(td / "slice_db"),
+            device="cuda")
+        run_l, run_p = counts(counters)
+        got = {s: sha256(f"{td / 'slice_db'}{s}") for s in mps.DB_SUFFIXES}
+        if got != prof_golden["slice_search"]["sha256"]:
+            raise AssertionError("slice_search_db digests differ")
+        if min(run_l[k] for k in PROF_KERNELS) == 0 or any(run_p.values()):
+            raise AssertionError("slice_search_db did not go through the "
+                                 "PSSM kernels")
+        print("profile: fixture outputs byte-identical to pp.*, "
+              "slice_search_db digests equal profile_slice.json", flush=True)
+        check_profile_aligner(np, torch, counters, driver, prefilter)
 
         phase("5 k-mer main path: 1.6 Mbp / 3000-target slice")
         golden = json.loads((GOLDEN / "multichip_slice.json").read_text())
@@ -2087,6 +2358,55 @@ def main():
         if digests(td / "lk_auto") != digests(td / "lk_off"):
             raise AssertionError("k-mer long-frame outputs differ between "
                                  "the routings")
+
+        phase("5d profile search at full width: the k-mer slice's contigs "
+              "against 3000 HMM profiles")
+        cfg = prof_golden["input"]
+        t0 = time.perf_counter()
+        (td / "ps").mkdir()
+        contigs_p, profdb = mps.profile_slice(cfg, td / "ps")
+        print(f"generated the profile slice {cfg} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        reset(torch, counters, driver, prefilter)
+        profile_search.PHASE_SECONDS.clear()
+        for k in profile_search.COUNTS:
+            profile_search.COUNTS[k] = 0
+        out = td / "ps" / "pp"
+        t0 = time.perf_counter()
+        with launch_events(torch, sw_cuda) as sw_ev:
+            ep = EasyPredict(device="cuda")
+            ep.run(str(contigs_p), str(profdb), str(out))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_l, run_p = counts(counters)
+        pc = profile_search.COUNTS
+        print(f"profile slice wall {wall:.3f} s")
+        print("stage seconds " + json.dumps(
+            {**ep.predict_stage_seconds, **ep.stage_seconds}))
+        print("profile search phase seconds "
+              + json.dumps(profile_search.PHASE_SECONDS))
+        print(f"pairs {pc['pairs']}, forward cells {pc['fwd_cells']}, "
+              f"reverse cells {pc['rev_cells']}")
+        for k, (n, ms) in event_ms(sw_ev).items():
+            cells = pc["fwd_cells"] if "ends" in k else pc["rev_cells"]
+            bound_ms = cells * SW_OPS / INT32_OPS_PER_S * 1e3
+            print(f"profile slice: {k} {n} launches, {ms:.3f} ms of kernel "
+                  f"time (CUDA events around each launch), bound "
+                  f"{bound_ms:.3f} ms (operations, {cells} cells; "
+                  f"{bound_ms / ms:.1%} of it)", flush=True)
+        print(f"launches {run_l} plain {run_p}", flush=True)
+        if min(run_l[k] for k in PROF_KERNELS) == 0 or any(run_p.values()):
+            raise AssertionError("profile slice did not go through the PSSM "
+                                 "kernels")
+        for k in PROF_KERNELS:
+            launches[k] = run_l[k]
+        if cfg != mps.PROFILE_SLICE:
+            raise AssertionError("profile_slice.json was made from another "
+                                 "input than make_profile_slice.PROFILE_SLICE")
+        if digests(out) != prof_golden["sha256"]:
+            raise AssertionError("profile slice digests differ")
+        print("profile slice: 4 sha256 digests equal profile_slice.json",
+              flush=True)
 
     phase("6 kernel and plain-version times")
     times, same = time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,

@@ -50,7 +50,9 @@
 // real cell of the same or an earlier column; they lie below every real
 // row and feed nothing real, and never win the group's reduction.
 // Substitution scores must fit int8 (the wrappers check), and codes must
-// lie below alph.
+// lie below alph. The PSSM entries of K1/K2 (ProfRows) read each lane's
+// int8 scores straight from the query profile's rows, with a bias of 0
+// (the PROFILE_SEQ path has no composition bias); the rest is the same.
 //
 // What bounds it on an H100: the integer instructions of a cell, 7 at the
 // least (chip_smoke.py SW_OPS, a DPX add-max counted as one) and about 7
@@ -109,9 +111,9 @@ __device__ __forceinline__ int sbyte(uint32_t w, int b) {
   return r;
 }
 
-// One alignment in sweep coordinates: sweep row r is query row q[qs * r],
-// sweep column c is target column t[ts * c]; rows and cols 0 for a group
-// with no work.
+// One alignment in sweep coordinates: sweep row r is query row q[qs * r]
+// (for a PSSM query, the alph scores at pm + qs * r * alph), sweep column c
+// is target column t[ts * c]; rows and cols 0 for a group with no work.
 struct Sweep {
   const uint8_t* q;
   const int8_t* qb;
@@ -119,20 +121,24 @@ struct Sweep {
   const uint8_t* t;
   int ts;
   int rows, cols;
+  const int8_t* pm;
 };
 
-// A pair's rows: its query codes and biases, its target codes, and its
-// true lengths (0 for a pair with no work).
+// A pair's rows: its query codes and biases (or, for a PSSM query, its
+// profile's rows of alph scores, pm), its target codes, and its true
+// lengths (0 for a pair with no work).
 struct Rows {
   const uint8_t* q;
   const int8_t* qb;
   const uint8_t* t;
   int qn, tn;
+  const int8_t* pm;
 };
 
 // K1/K2's pairs: pair b is row b of (B, Lq) query codes and biases and of
 // (B, Lt) target codes.
 struct PairRows {
+  static constexpr bool kPssm = false;
   const uint8_t* q;
   const int8_t* qb;
   const int32_t* q_len;
@@ -153,6 +159,7 @@ struct PairRows {
 // lane (lj < 0) or tile (qidx < 0), or an index past the matrices, has no
 // work.
 struct TileRows {
+  static constexpr bool kPssm = false;
   const uint8_t* q;
   const int8_t* qb;
   const int32_t* q_len;
@@ -169,6 +176,31 @@ struct TileRows {
     return Rows{q + qr * Lq, qb + qr * Lq, t + tr * Lt,
                 ok ? max(0, min(q_len[qi], Lq)) : 0,
                 ok ? max(0, min(t_len[tj], Lt)) : 0};
+  }
+};
+
+// The PSSM entries' pairs (the inverted profile search): pair b aligns
+// profile li[b], rows of alph int8 scores of a staged (nP, Lq, alph)
+// matrix, against fragment lj[b] of staged (nT, Lt) codes; an index below
+// 0 or past the matrices has no work. No bias: 0 in the rows.
+struct ProfRows {
+  static constexpr bool kPssm = true;
+  const int8_t* prof;
+  const int32_t* p_len;
+  const uint8_t* t;
+  const int32_t* t_len;
+  const int32_t* li;
+  const int32_t* lj;
+  int nP, nT, Lq, Lt, alph;
+
+  __device__ __forceinline__ Rows at(int b) const {
+    const int pi = li[b], tj = lj[b];
+    const bool ok = pi >= 0 && pi < nP && tj >= 0 && tj < nT;
+    const size_t pr = ok ? pi : 0, tr = ok ? tj : 0;
+    return Rows{nullptr, nullptr, t + tr * Lt,
+                ok ? max(0, min(p_len[pi], Lq)) : 0,
+                ok ? max(0, min(t_len[tj], Lt)) : 0,
+                prof + pr * Lq * alph};
   }
 };
 
@@ -254,18 +286,20 @@ __device__ __forceinline__ void stage_codes(const Sweep& p, int c, int alph,
 }
 
 // One stripe of G R rows from sweep row `base`: (with kStage) stage this
-// lane's profile words, then run the wavefront over every column. The
-// lane's R scores against target class a are the R bytes at shared byte
-// offset prof + a kClassBytes. `carry` (per-column H and F of the row
-// before `base`, or null at the top) is read 32 columns at a time, a column
-// a lane, 32 steps ahead, and handed to lane 0 by a shuffle; `carry_out`
-// (the stripe's last row, or null when no stripe follows) is written by
-// lane 31, in place: a column is read at least 32 steps before it is
-// written. The group's target classes are staged in its ring two chunks of
+// lane's profile words, from the substitution matrix and the query's codes
+// or (kPssm) from the query's PSSM rows, then run the wavefront over every
+// column. The lane's R scores against target class a are the R bytes at
+// shared byte offset prof + a kClassBytes. `carry` (per-column H and F of
+// the row before `base`, or null at the top) is read 32 columns at a time,
+// a column a lane, 32 steps ahead, and handed to lane 0 by a shuffle;
+// `carry_out` (the stripe's last row, or null when no stripe follows) is
+// written by lane 31, in place: a column is read at least 32 steps before
+// it is written. The group's target classes are staged in its ring two chunks of
 // 64 columns ahead; a lane reads the class of its column two steps ahead
 // and the profile words one step ahead, so no load waits in the step that
 // uses it. ring is the group's ring (a byte offset of smem).
-template <int G, int R, bool kCap, bool kStage, int kClassBytes>
+template <int G, int R, bool kCap, bool kStage, int kClassBytes,
+          bool kPssm = false>
 __device__ __forceinline__ void stripe(const Sweep& p, int base,
                                        int alph, int prof, int ring,
                                        const uint32_t* carry,
@@ -287,9 +321,24 @@ __device__ __forceinline__ void stripe(const Sweep& p, int base,
   if (on) {
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      if (row0 + r < p.rows) bias[r] = p.qb[p.qs * (row0 + r)];
+      if (row0 + r < p.rows) bias[r] = kPssm ? 0 : p.qb[p.qs * (row0 + r)];
     // each lane reads back only the profile words it writes here
-    if constexpr (kStage) {
+    if constexpr (kStage && kPssm) {
+      for (int a = 0; a < alph; ++a) {
+        uint32_t w[W];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int i = row0 + r;
+          const uint32_t byte =
+              (i < p.rows ? static_cast<uint32_t>(static_cast<uint8_t>(
+                                p.pm[p.qs * i * alph + a]))
+                          : 0u)
+              << (8 * (r % 4));
+          w[r / 4] = r % 4 == 0 ? byte : w[r / 4] | byte;
+        }
+        store_words<W>(smem + (prof + a * kClassBytes) / 4, w);
+      }
+    } else if constexpr (kStage) {
       const int* sm = reinterpret_cast<const int*>(smem);
       int code[R];
 #pragma unroll
@@ -445,14 +494,21 @@ __device__ __forceinline__ void align_group(
     int32_t* score_out, int32_t* row_out, int32_t* col_out) {
   constexpr int kPairs = 32 / G;   // pairs a warp
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr bool kPssm = PairsOf::kPssm;
   const Rows r = pairs.at(b);
   // the reverse pass starts at its end cell, cut to the true lengths
   const int r0 = kRev ? min(q_end[b], r.qn - 1) : r.qn - 1;
   const int c0 = kRev ? min(t_end[b], r.tn - 1) : r.tn - 1;
-  Sweep p{r.q, r.qb, 1, r.t, 1, 0, 0};
+  Sweep p{r.q, r.qb, 1, r.t, 1, 0, 0, r.pm};
   if (have && r0 >= 0 && c0 >= 0) {
-    p = kRev ? Sweep{r.q + r0, r.qb + r0, -1, r.t + c0, -1, r0 + 1, c0 + 1}
-             : Sweep{r.q, r.qb, 1, r.t, 1, r0 + 1, c0 + 1};
+    if constexpr (!kRev)
+      p = Sweep{r.q, r.qb, 1, r.t, 1, r0 + 1, c0 + 1, r.pm};
+    else if constexpr (kPssm)
+      p = Sweep{nullptr, nullptr, -1, r.t + c0, -1, r0 + 1, c0 + 1,
+                r.pm + r0 * alph};
+    else
+      p = Sweep{r.q + r0, r.qb + r0, -1, r.t + c0, -1, r0 + 1, c0 + 1,
+                nullptr};
   }
   // the warp's profile, and its groups' rings of target classes, zeroed so
   // that a look-behind past the left edge reads a class
@@ -471,16 +527,17 @@ __device__ __forceinline__ void align_group(
       const int left = p.rows - base;
       const uint32_t* in = base > 0 ? pc : nullptr;
       if (left <= 32 * 4) {
-        stripe<32, 4, true, true, 32 * 4>(p, base, alph, 4 * (prof + lane),
-                                          ring, in, nullptr, go, ge, best);
+        stripe<32, 4, true, true, 32 * 4, kPssm>(
+            p, base, alph, 4 * (prof + lane), ring, in, nullptr, go, ge,
+            best);
         base += 32 * 4;
       } else if (left <= 32 * 8) {
-        stripe<32, 8, true, true, 32 * 8>(p, base, alph,
-                                          4 * (prof + lane * 2), ring, in,
-                                          nullptr, go, ge, best);
+        stripe<32, 8, true, true, 32 * 8, kPssm>(
+            p, base, alph, 4 * (prof + lane * 2), ring, in, nullptr, go, ge,
+            best);
         base += 32 * 8;
       } else {
-        stripe<32, kMaxRows, true, true, 32 * kMaxRows>(
+        stripe<32, kMaxRows, true, true, 32 * kMaxRows, kPssm>(
             p, base, alph, 4 * (prof + lane * (kMaxRows / 4)), ring, in,
             left > kStripe ? pc : nullptr, go, ge, best);
         base += kStripe;
@@ -488,7 +545,7 @@ __device__ __forceinline__ void align_group(
     }
   } else {
     // at most 128 rows: H <= 254 * 128 < 32767, the cap never binds
-    stripe<G, R, (G * R > 128), true, 32 * R>(
+    stripe<G, R, (G * R > 128), true, 32 * R, kPssm>(
         p, 0, alph, 4 * (prof + lane * (R / 4)), ring, nullptr, nullptr, go,
         ge, best);
   }

@@ -7,6 +7,10 @@
 //                forward affine-gap local alignment ends.
 // sw_pair_starts replaces metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_rev (K2):
 //                the reverse-prefix pass that finds the starts.
+// sw_pair_ends_prof, sw_pair_starts_prof are the same two kernels on a PSSM
+//                query (the inverted profile search: a profile's rows
+//                against a fragment's columns), in place of
+//                sw_pallas.py::_align_full_prof over _build_S_prof.
 // Both also replace sw_pallas.py::_build_S_gapped: the score of cell (i, j)
 // is submat[q_i][t_j] + bias_i, read from an int8 query profile in shared
 // memory with the bias added after the load, instead of an int8 (Lt_pad,
@@ -31,18 +35,23 @@
 // so one shared load per column gives a lane all R of its scores. The
 // reverse pass is the forward sweep over rows qe..0 and columns te..0
 // (each cut to the true lengths), counted from the end cell, as in
-// sw_qm_rt.cu. The contract, the tie-breaks and what bounds the kernel are
-// in sw_group.cuh.
+// sw_qm_rt.cu. The PSSM entries read pair b's profile li[b] and fragment
+// lj[b] from staged matrices (ProfRows in sw_group.cuh: no gathered (B, Lq,
+// 21) copy exists): each lane stages its rows' int8 scores against the
+// alph classes straight from the profile's rows, with no bias, and the
+// sweep is the same. The contract, the tie-breaks and what bounds the
+// kernel are in sw_group.cuh.
 
 #include "sw_group.cuh"
 
 namespace {
 
 // K1/K2's class instance (G, R): 32 / G pairs a warp, the pairs
-// order[lo..hi) of class cls (lo = bounds[cls - 1], hi = bounds[cls]).
-template <int G, int R, bool kRev>
+// order[lo..hi) of class cls (lo = bounds[cls - 1], hi = bounds[cls]);
+// Pairs is PairRows (sequence queries) or ProfRows (PSSM queries).
+template <int G, int R, bool kRev, class Pairs>
 __global__ void __launch_bounds__(32 * kWarps) sw_pair_kernel(
-    const int32_t* __restrict__ submat, int alph, PairRows pairs,
+    const int32_t* __restrict__ submat, int alph, Pairs pairs,
     const int32_t* __restrict__ q_end, const int32_t* __restrict__ t_end,
     int go, int ge, const int32_t* __restrict__ order,
     const int32_t* __restrict__ bounds, int cls,
@@ -52,7 +61,7 @@ __global__ void __launch_bounds__(32 * kWarps) sw_pair_kernel(
   const int lo = cls > 0 ? bounds[cls - 1] : 0, hi = bounds[cls];
   const int block0 = lo + blockIdx.x * kWarps * kPairs;
   if (block0 >= hi) return;   // uniform over the block
-  stage_submat(submat, alph);
+  if constexpr (!Pairs::kPssm) stage_submat(submat, alph);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int slot0 = block0 + warp * kPairs;
@@ -65,10 +74,11 @@ __global__ void __launch_bounds__(32 * kWarps) sw_pair_kernel(
 }
 
 // One launch of K1/K2.
+template <class Pairs>
 struct GroupArgs {
   const int32_t* submat;
   int alph;
-  PairRows pairs;
+  Pairs pairs;
   const int32_t* q_end;
   const int32_t* t_end;
   int B, go, ge;
@@ -81,14 +91,15 @@ struct GroupArgs {
 // One launch of class cls on `stream`: a block per 4 (32 / G) slots of the
 // whole batch, since the class bounds stay on the device; blocks past the
 // class return at once.
-template <int G, int R, bool kRev>
-int launch_group_class(const GroupArgs& a, int cls, cudaStream_t stream) {
+template <int G, int R, bool kRev, class Pairs>
+int launch_group_class(const GroupArgs<Pairs>& a, int cls,
+                       cudaStream_t stream) {
   const size_t bytes = 4 * group_smem_words<G, R>(a.alph);
-  const int rc = allow_smem(sw_pair_kernel<G, R, kRev>, bytes);
+  const int rc = allow_smem(sw_pair_kernel<G, R, kRev, Pairs>, bytes);
   if (rc != 0) return rc;
   const int per_block = kWarps * (32 / G);
-  sw_pair_kernel<G, R, kRev><<<(a.B + per_block - 1) / per_block,
-                                32 * kWarps, bytes, stream>>>(
+  sw_pair_kernel<G, R, kRev, Pairs><<<(a.B + per_block - 1) / per_block,
+                                       32 * kWarps, bytes, stream>>>(
       a.submat, a.alph, a.pairs, a.q_end, a.t_end, a.go, a.ge, a.order,
       a.bounds, cls, a.carry, a.score, a.row, a.col);
   return static_cast<int>(cudaGetLastError());
@@ -96,8 +107,8 @@ int launch_group_class(const GroupArgs& a, int cls, cudaStream_t stream) {
 
 // K1/K2's classes of sw_cuda.PAIR_CLASSES, each on its side stream
 // (on_side_streams).
-template <bool kRev>
-int launch_groups(const GroupArgs& a, cudaStream_t stream) {
+template <bool kRev, class Pairs>
+int launch_groups(const GroupArgs<Pairs>& a, cudaStream_t stream) {
   if (a.alph < 1 || a.alph > kAlphPad || a.pairs.Lq < 1 || a.pairs.Lt < 1 ||
       (a.pairs.Lq > kStripe && a.carry == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -132,10 +143,10 @@ extern "C" int sw_pair_ends(const int32_t* submat, int alph, const uint8_t* q,
                             uint32_t* carry, int32_t* best, int32_t* q_end,
                             int32_t* t_end, void* stream) {
   return launch_groups<false>(
-      GroupArgs{submat, alph, PairRows{q, qb, q_len, t, t_len, Lq,
-                                                 Lt},
-                          nullptr, nullptr, B, go, ge, order, bounds, carry,
-                          best, q_end, t_end},
+      GroupArgs<PairRows>{submat, alph,
+                          PairRows{q, qb, q_len, t, t_len, Lq, Lt}, nullptr,
+                          nullptr, B, go, ge, order, bounds, carry, best,
+                          q_end, t_end},
       static_cast<cudaStream_t>(stream));
 }
 
@@ -150,8 +161,51 @@ extern "C" int sw_pair_starts(const int32_t* submat, int alph,
                               int32_t* score, int32_t* q_start,
                               int32_t* t_start, void* stream) {
   return launch_groups<true>(
-      GroupArgs{submat, alph, PairRows{q, qb, q_len, t, t_len, Lq,
-                                                 Lt},
+      GroupArgs<PairRows>{submat, alph,
+                          PairRows{q, qb, q_len, t, t_len, Lq, Lt}, q_end,
+                          t_end, B, go, ge, order, bounds, carry, score,
+                          q_start, t_start},
+      static_cast<cudaStream_t>(stream));
+}
+
+// The PSSM entries. prof: (nP, Lq, alph) int8 PSSM rows, p_len: (nP,); t:
+// (nT, Lt) fragment codes, t_len: (nT,); pair b aligns profile li[b] with
+// fragment lj[b] (li, lj: (B,)); order and bounds over the pairs' swept
+// rows and columns (pair_classes of p_len[li], t_len[lj]); carry as above.
+// The scores need no check here: they are int8. Otherwise as sw_pair_ends.
+extern "C" int sw_pair_ends_prof(const int8_t* prof, int alph,
+                                 const int32_t* p_len, int nP, int Lq,
+                                 const uint8_t* t, const int32_t* t_len,
+                                 int nT, int Lt, const int32_t* li,
+                                 const int32_t* lj, int B, int go, int ge,
+                                 const int32_t* order, const int32_t* bounds,
+                                 uint32_t* carry, int32_t* best,
+                                 int32_t* q_end, int32_t* t_end,
+                                 void* stream) {
+  return launch_groups<false>(
+      GroupArgs<ProfRows>{nullptr, alph,
+                          ProfRows{prof, p_len, t, t_len, li, lj, nP, nT, Lq,
+                                   Lt, alph},
+                          nullptr, nullptr, B, go, ge, order, bounds, carry,
+                          best, q_end, t_end},
+      static_cast<cudaStream_t>(stream));
+}
+
+// As sw_pair_ends_prof, with each pair's known ends q_end, t_end: (B,).
+extern "C" int sw_pair_starts_prof(const int8_t* prof, int alph,
+                                   const int32_t* p_len, int nP, int Lq,
+                                   const uint8_t* t, const int32_t* t_len,
+                                   int nT, int Lt, const int32_t* li,
+                                   const int32_t* lj, const int32_t* q_end,
+                                   const int32_t* t_end, int B, int go,
+                                   int ge, const int32_t* order,
+                                   const int32_t* bounds, uint32_t* carry,
+                                   int32_t* score, int32_t* q_start,
+                                   int32_t* t_start, void* stream) {
+  return launch_groups<true>(
+      GroupArgs<ProfRows>{nullptr, alph,
+                          ProfRows{prof, p_len, t, t_len, li, lj, nP, nT, Lq,
+                                   Lt, alph},
                           q_end, t_end, B, go, ge, order, bounds, carry,
                           score, q_start, t_start},
       static_cast<cudaStream_t>(stream));

@@ -8,9 +8,10 @@ rebuilt and a stale library is never loaded; the JAX package's
 native/libmetaeuk_host.so is never loaded. Build and load hold a lock, so a
 thread that asks while another thread builds waits for the library instead
 of getting None. Only the entry points that the port's host stages call are
-bound here (comp_bias, orf_scan_strand, chain_dp, chain_dp_groups; the
-prefilter binds its own). Each entry point returns None when the library is
-unavailable, and its callers then fall back to Python.
+bound here (comp_bias, orf_scan_strand, chain_dp, chain_dp_groups,
+banded_sw_traceback_prof; the prefilter binds its own). Each entry point
+returns None when the library is unavailable, and its callers then fall
+back to Python.
 """
 
 import ctypes
@@ -187,3 +188,34 @@ def chain_dp(contig_start, contig_end, t_start, t_end, bit_score, aa_len,
                  prev_id, path_score, num_exons, path_aa_len,
                  ctypes.byref(best_last), ctypes.byref(best_score))
     return prev_id, path_score, int(best_last.value), int(best_score.value)
+
+
+def banded_sw_traceback_prof(prof, t_enc, score, band_width, go=11, ge=1):
+    """Profile-query CIGAR ops (the PROFILE_SEQ banded_sw path,
+    StripedSmithWaterman.cpp:1474): prof = (L, 21) int32 PSSM window
+    rows. None when the library is unavailable (copied from
+    metaeuk_tpu/native.py:120; bound under the loader's lock)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    with _LOCK:
+        if not getattr(lib, "_btp_bound", False):
+            i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+            lib.banded_sw_traceback_prof.restype = ctypes.c_int64
+            lib.banded_sw_traceback_prof.argtypes = [
+                i32p, u8p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64, u8p, ctypes.c_int64]
+            lib._btp_bound = True
+    prof = np.ascontiguousarray(prof, np.int32)
+    t = np.ascontiguousarray(t_enc, np.uint8)
+    q_len = prof.shape[0]
+    cap = q_len + len(t) + 4
+    out = np.zeros(cap, np.uint8)
+    n = lib.banded_sw_traceback_prof(
+        prof.reshape(-1), t, q_len, len(t), int(score), go, ge,
+        int(band_width), prof.shape[1], out, cap)
+    if n < 0:
+        return None
+    return out[:n].tobytes().decode()

@@ -9,8 +9,11 @@ dispatched by the device of the tensors given.
 Counterparts in the JAX package (metaeuk_tpu/ops/sw_pallas.py): sw_ends is
 sw_pallas_ends / _sw_pallas_ends_from_S over _build_S_gapped (K1), sw_starts
 is _sw_pallas_starts_from_S (K2), align_full is _align_full /
-_align_from_S. Batches need no padding to a tile multiple: a group of G
-lanes aligns one pair, with the fragment's rows in registers
+_align_from_S; sw_ends_prof, sw_starts_prof and align_full_prof are the
+same kernels on PSSM queries (_align_full_prof over _build_S_prof), read
+from staged profile and fragment matrices by pair indices, with no gathered
+(B, Lq, 21) copy on the card. Batches need no padding to a tile multiple:
+a group of G lanes aligns one pair, with the fragment's rows in registers
 (csrc/sw_pair.cu; pair_classes bins a launch's pairs by fragment length,
 one G a class, and the kernels write each output at its pair's place).
 qm_ends and qm_starts are _align_ends_qm and _align_starts_qm over
@@ -37,12 +40,15 @@ import functools
 import torch
 
 from . import _build, sw_torch
+from .. import state
 from ..state import default_scoring
 
-KERNELS = ("sw_pair_ends", "sw_pair_starts", "sw_qm_ends", "sw_qm_starts",
+KERNELS = ("sw_pair_ends", "sw_pair_starts", "sw_pair_ends_prof",
+           "sw_pair_starts_prof", "sw_qm_ends", "sw_qm_starts",
            "sw_qm_rt_ends", "sw_qm_rt_starts")
 # the .cu source (csrc/<name>.cu) of each kernel
 SOURCES = {"sw_pair_ends": "sw_pair", "sw_pair_starts": "sw_pair",
+           "sw_pair_ends_prof": "sw_pair", "sw_pair_starts_prof": "sw_pair",
            "sw_qm_ends": "sw_qm", "sw_qm_starts": "sw_qm",
            "sw_qm_rt_ends": "sw_qm_rt", "sw_qm_rt_starts": "sw_qm_rt"}
 # K1-K4's length classes, by the rows a pair sweeps (the fragment, or the
@@ -70,6 +76,13 @@ _ARGTYPES = {
     # as above with q_end, t_end after t_len
     "sw_pair_starts": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _P, _P, _P, _P, _P, _P, _P],
+    # prof, alph, p_lens, nP, Lq, t_mat, t_lens, nT, Lt, li, lj, B, go, ge,
+    # order, bounds, carry, out x3, stream
+    "sw_pair_ends_prof": [_P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I,
+                          _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # as above with q_end, t_end after lj
+    "sw_pair_starts_prof": [_P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
+                            _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     # submat, alph, q_mat, qb_mat, q_lens, nq, Lq, t_mat, t_lens, nt, Lt,
     # qidx, lj, n_tiles, go, ge, stripe hand-off (or NULL), out x3, stream
     "sw_qm_ends": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I,
@@ -221,6 +234,104 @@ def align_full(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
     return sw_torch.align_full(q_enc, q_bias, q_len, t_enc, t_len,
                                scoring=scoring, ends=sw_ends,
                                starts=sw_starts)
+
+
+# the last staged PSSM matrix the PSSM kernels were given, and its int8
+# copy: [source tensor, int8 tensor]; the source is checked once, at its
+# first launch
+_PSSM8 = [None, None]
+
+
+def _pssm_int8(prof_mat):
+    """prof_mat as int8, checked (once per staged matrix) to lie in [-128,
+    127]: the PSSM kernels keep each lane's scores as int8."""
+    if _PSSM8[0] is not prof_mat:
+        if prof_mat.dtype != torch.int8:
+            lo, hi = torch.aminmax(prof_mat)
+            if int(lo) < -128 or int(hi) > 127:
+                raise ValueError("sw_pair PSSM kernels take PSSM scores in "
+                                 f"[-128, 127], got [{int(lo)}, {int(hi)}]")
+        _PSSM8[:] = [prof_mat, prof_mat.to(torch.int8).contiguous()]
+    return _PSSM8[1]
+
+
+def _prof_launch(name, prof_mat, p_lens, t_mat, t_lens, li, lj, *ends):
+    """Launches a PSSM entry of K1 (no ends) or K2 (ends = q_end, t_end) on
+    staged (nP, Lq, 21) PSSM rows and (nT, Lt) fragment codes, pair b being
+    profile li[b] against fragment lj[b]; the row-stripe hand-off of (B,
+    Lt) words only when the profiles are wider than PAIR_STRIPE rows."""
+    dev = prof_mat.device
+    tensors = (prof_mat, p_lens, t_mat, t_lens, li, lj, *ends)
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("sw kernels take tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    (nP, Lq, alph), (nT, Lt), B = prof_mat.shape, t_mat.shape, li.shape[0]
+    if (alph > 32 or p_lens.shape != (nP,) or t_lens.shape != (nT,)
+            or any(v.shape != (B,) for v in (lj, *ends))):
+        raise ValueError("sw_pair PSSM kernels: shapes do not match staged "
+                         "(nP, Lq, <= 32) x (nT, Lt) matrices and (B,) pairs")
+    pm = _pssm_int8(prof_mat)
+    pl, t, tl = (p_lens.to(torch.int32).contiguous(),
+                 t_mat.to(torch.uint8).contiguous(),
+                 t_lens.to(torch.int32).contiguous())
+    li, lj, *ends = (v.to(torch.int32).contiguous() for v in (li, lj, *ends))
+    order, bounds = pair_classes(pl[li.long()], tl[lj.long()], Lq, Lt, *ends)
+    carry = torch.empty((B, Lt), dtype=torch.int32, device=dev) \
+        if Lq > PAIR_STRIPE else None
+    outs = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
+    go, ge = state.GO, state.GE
+    _launch(name, [
+        pm.data_ptr(), alph, pl.data_ptr(), nP, Lq, t.data_ptr(),
+        tl.data_ptr(), nT, Lt, li.data_ptr(), lj.data_ptr(),
+        *(e.data_ptr() for e in ends), B, go, ge, order.data_ptr(),
+        bounds.data_ptr(), None if carry is None else carry.data_ptr(),
+        *(o.data_ptr() for o in outs)])
+    return tuple(outs)
+
+
+def _gathered(prof_mat, p_lens, t_mat, t_lens, li, lj):
+    """The plain versions' operands: each pair's (Lq, 21) profile rows and
+    fragment row, gathered from the staged matrices."""
+    li, lj = li.long(), lj.long()
+    return prof_mat[li], p_lens[li], t_mat[lj], t_lens[lj]
+
+
+def sw_ends_prof(prof_mat, p_lens, t_mat, t_lens, li, lj):
+    """Forward SW ends (K1's PSSM entry) of profile li[b] (staged (nP, Lq,
+    21) PSSM rows, (nP,) lengths) against fragment lj[b] (staged (nT, Lt)
+    codes, (nT,) lengths): (score, q_end, t_end), each (B,) int32."""
+    if prof_mat.device.type == "cpu":
+        PLAIN_CALLS["sw_pair_ends_prof"] += 1
+        return sw_torch.sw_ends_prof(*_gathered(prof_mat, p_lens, t_mat,
+                                                t_lens, li, lj))
+    return _prof_launch("sw_pair_ends_prof", prof_mat, p_lens, t_mat,
+                        t_lens, li, lj)
+
+
+def sw_starts_prof(prof_mat, p_lens, t_mat, t_lens, li, lj, q_end, t_end):
+    """Reverse-prefix starts (K2's PSSM entry) from known ends:
+    (score, q_start, t_start), each (B,) int32."""
+    if prof_mat.device.type == "cpu":
+        PLAIN_CALLS["sw_pair_starts_prof"] += 1
+        return sw_torch.sw_starts_prof(
+            *_gathered(prof_mat, p_lens, t_mat, t_lens, li, lj), q_end,
+            t_end)
+    return _prof_launch("sw_pair_starts_prof", prof_mat, p_lens, t_mat,
+                        t_lens, li, lj, q_end, t_end)
+
+
+def align_full_prof(prof_mat, p_lens, t_mat, t_lens, li, lj):
+    """Ends then starts of the PSSM pairs through the dispatching wrappers
+    (sw_pallas.py _align_full_prof): (score, q_start, q_end, t_start,
+    t_end)."""
+    score, q_end, t_end = sw_ends_prof(prof_mat, p_lens, t_mat, t_lens, li,
+                                       lj)
+    _, q_start, t_start = sw_starts_prof(
+        prof_mat, p_lens, t_mat, t_lens, li, lj, torch.clamp_min(q_end, 0),
+        torch.clamp_min(t_end, 0))
+    aligned = (t_end >= 0) & (score > 0)
+    return (score, torch.where(aligned, q_start, -1), q_end,
+            torch.where(aligned, t_start, -1), t_end)
 
 
 def _qm_inputs(scoring, q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj,

@@ -6,6 +6,8 @@ csrc/sw_qm.cu and csrc/sw_qm_rt.cu:
 
 - sw_ends      <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel (K1)
 - sw_starts    <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_rev (K2)
+- sw_ends_prof, sw_starts_prof <-> the same two kernels on a PSSM query
+  (sw_pallas.py _align_full_prof over _build_S_prof)
 - qm_ends      <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_qm (K3)
 - qm_starts    <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_qm_rev (K4)
 - qm_ends_rt   <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_qm_rt (K5)
@@ -14,8 +16,9 @@ csrc/sw_qm.cu and csrc/sw_qm_rt.cu:
 The pair versions take one query and one target row per pair; the
 query-major ones take staged (nq, Lq) / (nt, Lt) matrices, one query row per
 tile (qidx) and TB = 128 target rows per tile (lj), through the profile and
-lane-major target codes of build_prof_tiles / build_tcodes_T. All score cell
-(i, j) as submat[q_i, t_j] + bias_i, with -128 on padded
+lane-major target codes of build_prof_tiles / build_tcodes_T; the PSSM
+versions take a caller's (B, Lq, 21) profile a pair. All score cell (i, j)
+as submat[q_i, t_j] + bias_i (prof[b, i, t_j], no bias), with -128 on padded
 query rows (i >= q_len) and padded target columns (j >= t_len), exactly as
 _build_S_gapped builds S. The column recurrence is the Pallas one: E starts
 at -go, H at 0, F is the running max over G down the column (torch.cummax),
@@ -204,6 +207,56 @@ def sw_starts(q_enc, q_bias, q_len, t_enc, t_len, q_end, t_end,
     return _starts_loop(lambda j, lo, hi: _column(prof, tcls, j, lo, hi),
                         t_enc.shape[1], B, Lq, q_end, t_end, scoring,
                         q_enc.device)
+
+
+def _pssm_setup(prof, q_len, t_enc, t_len):
+    """(column(j, lo, hi), n_cols, Lq) of the PSSM plain versions: the
+    caller's (B, Lq, A) profile as int32 with PAD_SCORE on rows i >= q_len
+    and an extra class A (a padded target column) of PAD_SCORE, and the
+    target's classes; both axes cut to the batch's longest sequences."""
+    B, _, A = prof.shape
+    lq = max(1, min(prof.shape[1], int(q_len.max()) if len(q_len) else 1))
+    lt = max(1, min(t_enc.shape[1], int(t_len.max()) if len(t_len) else 1))
+    dev = prof.device
+    rows = torch.arange(lq, device=dev)
+    valid = rows[None, :] < q_len.to(torch.int32)[:, None]
+    pr = torch.where(valid[:, :, None], prof[:, :lq].to(torch.int32),
+                     PAD_SCORE)
+    pad = torch.full((B, lq, 1), PAD_SCORE, dtype=torch.int32, device=dev)
+    pr = torch.cat([pr, pad], dim=2)
+    cols = torch.arange(lt, device=dev)
+    tcls = torch.where(cols[None, :] < t_len.to(torch.int32)[:, None],
+                       t_enc[:, :lt].long(), A)
+    return (lambda j, lo, hi: _column(pr, tcls, j, lo, hi)), lt, lq
+
+
+def sw_ends_prof(prof, q_len, t_enc, t_len):
+    """Forward ends of PSSM-vs-sequence pairs (the PROFILE_SEQ path,
+    sw_pallas.py _build_S_prof: cell (i, j) scores prof[b, i, t_j], no
+    bias): (score, q_end, t_end), each (B,) int32. prof: (B, Lq, 21)."""
+    column, n_cols, lq = _pssm_setup(prof, q_len, t_enc, t_len)
+    return _ends_loop(column, n_cols, prof.shape[0], lq, prof.shape[1],
+                      default_scoring(prof.device), prof.device)
+
+
+def sw_starts_prof(prof, q_len, t_enc, t_len, q_end, t_end):
+    """Reverse-prefix starts of PSSM-vs-sequence pairs with known ends:
+    (score, q_start, t_start), each (B,) int32."""
+    column, n_cols, lq = _pssm_setup(prof, q_len, t_enc, t_len)
+    return _starts_loop(column, n_cols, prof.shape[0], lq, q_end, t_end,
+                        default_scoring(prof.device), prof.device)
+
+
+def align_full_prof(prof, q_len, t_enc, t_len):
+    """align_full for PSSM-vs-sequence pairs (sw_pallas.py
+    _align_full_prof): (score, q_start, q_end, t_start, t_end)."""
+    score, q_end, t_end = sw_ends_prof(prof, q_len, t_enc, t_len)
+    _, q_start, t_start = sw_starts_prof(prof, q_len, t_enc, t_len,
+                                         torch.clamp_min(q_end, 0),
+                                         torch.clamp_min(t_end, 0))
+    aligned = (t_end >= 0) & (score > 0)
+    return (score, torch.where(aligned, q_start, -1), q_end,
+            torch.where(aligned, t_start, -1), t_end)
 
 
 def build_prof_tiles(q_mat, qb_mat, q_lens, qidx, scoring=None):

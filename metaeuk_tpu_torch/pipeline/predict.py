@@ -5,12 +5,13 @@ Counterpart of metaeuk_tpu/pipeline/predict.py: EasyPredict.run and
 predict_exons, the pipelined extract/prefilter/align path and the serial
 k-mer, ungapped (--prefilter-mode ungapped, the gapless scores on the
 device) and exhaustive paths, on the port's SearchDriver (search/driver.py)
-and an explicit `device`. The host stages (ORF extraction, the k-mer
+and an explicit `device`, and the profile-DB path on ProfileSearchDriver
+(search/profile_search.py). The host stages (ORF extraction, the k-mer
 prefilter, the chain DP, reduce and the writers) are the port's own copies
 of metaeuk_tpu's modules. The module-level helpers below are copied from
 metaeuk_tpu/pipeline/predict.py; each names its origin.
 
-Not in this package yet: profile-DB targets and contig partitions.
+Not in this package yet: contig partitions.
 """
 
 import os
@@ -523,9 +524,7 @@ class EasyPredict:
         lo, hi = 0, len(contigs)
         timer = log.StageTimer()
         extractor = OrfExtractor(p)
-        if isinstance(targets, ProfileDB):
-            raise NotImplementedError(
-                "profile-DB targets are not ported to metaeuk_tpu_torch yet")
+        is_profile = isinstance(targets, ProfileDB)
         _resumable = tmp_dir and any(
             os.path.exists(os.path.join(tmp_dir, f))
             for f in ("search_hits.npy", "pref_pairs.npy"))
@@ -537,7 +536,8 @@ class EasyPredict:
         # against one target DB builds it once (the reference's
         # createindex role, CreateIndex.cpp:14).
         pref_fut = None
-        if p.prefilter_mode == "kmer" and not _resumable:
+        if (p.prefilter_mode == "kmer" and not _resumable
+                and not is_profile):
             from concurrent.futures import ThreadPoolExecutor
             from ..search.prefilter_kmer import ReferenceKmerPrefilter
             pref_key = (session.db_fingerprint(targets), repr(p),
@@ -601,7 +601,13 @@ class EasyPredict:
             log.info(f"fragments: {len(orf_aa)}")
 
             # --- search (prefilter + batched SW on device) ---
-            if hits_ckpt and os.path.exists(hits_ckpt):
+            if is_profile:
+                # --exhaustive-search inverted profile mode
+                from ..search.profile_search import ProfileSearchDriver
+                with timer.stage("profile search"):
+                    hits = ProfileSearchDriver(p, targets,
+                                               self.device).search(orf_aa)
+            elif hits_ckpt and os.path.exists(hits_ckpt):
                 with timer.stage("resume search_hits"):
                     hits = np.load(hits_ckpt)
                     log.info(f"resumed {hits_ckpt} ({len(hits)} hits)")
@@ -647,7 +653,9 @@ class EasyPredict:
                 os.makedirs(tmp_dir, exist_ok=True)
                 np.save(hits_ckpt, hits)
         tot_aas = targets.total_residues()
-        seqid_rounds = 1  # profile targets (2 rounds) are not ported yet
+        # profile results pass through one extra text round trip
+        # (swapresults re-serializes before resultspercontig)
+        seqid_rounds = 2 if is_profile else 1
 
         # --- resultspercontig + collectoptimalset ---
         orf_contig = np.asarray(orf_contig, dtype=np.int64)

@@ -77,6 +77,33 @@ assert not loaded, loaded
 print("jax-free run ok")
 """
 
+# chip_smoke.py's profile phases import the profile-slice writer of
+# tests/golden/make_profile_slice.py (whose golden writer alone imports jax);
+# the port's easy-predict against the fixture's HMM-profile DB
+_BLOCKED_PROFILE = _BLOCK + r"""
+sys.path.insert(0, "tests/golden")
+import make_profile_slice as mps
+from metaeuk_tpu_torch.io.profiledb import ProfileDB
+from metaeuk_tpu_torch.params import Params
+from metaeuk_tpu_torch.pipeline.predict import EasyPredict
+
+data, golden, out, mode = sys.argv[1:5]
+mps.write_profile_db([("p0 one", b"MKVLAW"), ("p1", b"GGCY")],
+                     out + "_db", 1)
+db = ProfileDB.from_db(out + "_db")
+assert [len(x) for x in db.pssms] == [6, 4] and db.accession(0) == "p0"
+EasyPredict(Params(), device="cpu").run(
+    f"{data}/contigs.fna", f"{golden}/profile/profileDB", out)
+for s in ("fas", "codon.fas", "headersMap.tsv", "gff"):
+    with open(f"{out}.{s}", "rb") as a, \
+            open(f"{golden}/profile/pp.{s}", "rb") as b:
+        assert a.read() == b.read(), s
+loaded = [k for k in sys.modules if sys.modules[k] is not None and (
+    k.split(".")[0].startswith("jax") or k.split(".")[0] == "metaeuk_tpu")]
+assert not loaded, loaded
+print("jax-free run ok")
+"""
+
 
 # the port's microbenchmarks: both entry points on the CPU, jax blocked
 _BLOCKED_TOOLS = _BLOCK + r"""
@@ -165,6 +192,13 @@ def test_long_slice_generator_runs_with_jax_blocked(tmp_path):
     """The long-frame generator that chip_smoke.py imports plants, with jax
     and metaeuk_tpu blocked, one open frame of each asked length."""
     _blocked_run(tmp_path, "kmer", _BLOCKED_LONG_SLICE)
+
+
+def test_profile_path_runs_with_jax_blocked(tmp_path):
+    """The profile-slice writer that chip_smoke.py imports writes a profile
+    DB, and easy-predict against the fixture's HMM-profile DB gives the
+    goldens, with jax and metaeuk_tpu blocked."""
+    _blocked_run(tmp_path, "kmer", _BLOCKED_PROFILE)
 
 
 def test_microbenchmark_entry_points_run_with_jax_blocked(tmp_path):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Candidate pairs of the pair SW kernels (K1/K2) by (Lq, Lt) bucket, for
-the k-mer slices that chip_smoke.py phases 5 and 5c run.
+the k-mer slices that chip_smoke.py phases 5 and 5c run, and of their
+PSSM entries for the profile slice of phase 5d.
 
-    python3 tools/torch_pair_shapes.py [kmer|long ...]
+    python3 tools/torch_pair_shapes.py [kmer|long|profile ...]
 
 Runs on the CPU (no card, no kernel): ORF extraction of the 1.6 Mbp /
 3000-target k-mer slice (tools/make_metagenome.py, tests/golden/
@@ -18,7 +19,11 @@ rate (INT32_OPS_PER_S), the route of the pairs under the default routing
 (pair, query-major or long-query kernels) and, of the pairs that take the
 pair kernels forward, the count in each length class of
 ops/sw_cuda.py PAIR_CLASSES; then the slice's totals, under the default
-routing and under METAEUK_QM=off (every pair on K1/K2).
+routing and under METAEUK_QM=off (every pair on K1/K2). For the profile
+slice (tests/golden/make_profile_slice.py PROFILE_SLICE, the profile
+prefilter of search/profile_search.py) the buckets are the profile search's
+(Lq the profile tier, Lt the fragment tier), the rows are the profiles'
+and every pair takes the PSSM entries; also the candidates a profile.
 """
 
 import json
@@ -100,17 +105,55 @@ def count(smoke, driver, sw_cuda, frags, targets, pairs):
                 buckets=buckets, pair_kernels_forward=totals)
 
 
+def count_profile(smoke, profile_search, sw_cuda, frags, profiles, params):
+    """count()'s buckets for the PSSM entries on the profile slice."""
+    from metaeuk_tpu_torch.data.submat import encode_aa
+    enc = [encode_aa(f) for f in frags]
+    orf_lens = np.array([len(e) for e in enc], np.int64)
+    d = profile_search.ProfileSearchDriver(params, profiles, "cpu")
+    pi, oi = d._candidate_pairs(enc, orf_lens, len(enc), len(profiles))
+    keep = (orf_lens[oi] > 0) & (d.profile_lens[pi] > 0)
+    pi, oi = pi[keep], oi[keep]
+    lq_b = np.array([profile_search._bucket(n) for n in d.profile_lens])[pi]
+    lt_b = np.array([profile_search._bucket(max(n, 1))
+                     for n in orf_lens])[oi]
+    caps = np.array([g * r for g, r in sw_cuda.PAIR_CLASSES[:-1]])
+    buckets = []
+    for Lq, Lt in sorted(set(zip(lq_b.tolist(), lt_b.tolist()))):
+        sel = (lq_b == Lq) & (lt_b == Lt)
+        pl, fl = d.profile_lens[pi[sel]], orf_lens[oi[sel]]
+        cells = pl * fl
+        buckets.append(dict(
+            Lq=int(Lq), Lt=int(Lt), pairs=int(sel.sum()),
+            profile_rows=pcts(pl), frag_aa=pcts(fl), cells=int(cells.sum()),
+            bound_ms=float(cells.sum()) * smoke.SW_OPS
+            / smoke.INT32_OPS_PER_S * 1e3,
+            pair_classes=np.bincount(
+                np.searchsorted(caps, pl),
+                minlength=len(sw_cuda.PAIR_CLASSES)).tolist()))
+    cells = int((d.profile_lens[pi] * orf_lens[oi]).sum())
+    return dict(fragments=len(frags), profiles=len(profiles),
+                pairs=len(pi), cells=cells,
+                bound_ms=cells * smoke.SW_OPS / smoke.INT32_OPS_PER_S * 1e3,
+                pairs_a_profile=pcts(np.bincount(pi,
+                                                 minlength=len(profiles))),
+                frag_aa=pcts(orf_lens), profile_rows=pcts(d.profile_lens),
+                buckets=buckets)
+
+
 def main(argv=None):
     argv = (sys.argv[1:] if argv is None else argv) or ["kmer", "long"]
     sys.path.insert(0, str(ROOT))
     sys.path.insert(1, str(ROOT / "tests" / "golden"))
     import chip_smoke as smoke
     import make_long_slice as mls
+    import make_profile_slice as mps
+    from metaeuk_tpu_torch.io.profiledb import ProfileDB
     from metaeuk_tpu_torch.io.seqdb import DBTYPE_AA, DBTYPE_NUCL, SeqDB
     from metaeuk_tpu_torch.ops import sw_cuda
     from metaeuk_tpu_torch.ops.orf import OrfExtractor
     from metaeuk_tpu_torch.params import Params
-    from metaeuk_tpu_torch.search import driver
+    from metaeuk_tpu_torch.search import driver, profile_search
     from metaeuk_tpu_torch.search.prefilter_kmer import \
         ReferenceKmerPrefilter
     from tools.make_metagenome import make_metagenome, write_fasta
@@ -127,6 +170,15 @@ def main(argv=None):
               "long": long_contigs}
     p = Params()
     for name in argv:
+        if name == "profile":
+            with tempfile.TemporaryDirectory(prefix="meuk_pairs") as td:
+                c, profdb = mps.profile_slice(mps.PROFILE_SLICE, td)
+                frags = smoke.fragments(OrfExtractor(p), SeqDB.from_fasta(
+                    str(c), DBTYPE_NUCL))
+                out = count_profile(smoke, profile_search, sw_cuda, frags,
+                                    ProfileDB.from_db(str(profdb)), p)
+            print(json.dumps({"slice": name, **out}), flush=True)
+            continue
         contigs, proteins = slices[name]()
         with tempfile.TemporaryDirectory(prefix="meuk_pairs") as td:
             write_fasta(f"{td}/c.fna", contigs)
