@@ -44,7 +44,13 @@ Phases, each fatal on failure:
      seeded staged PSSMs in [-32, 31] at the pair kernels' shapes (profiles
      up to 4,608 rows, one over 4096) read in a shuffled order, and on
      pair_edge_batch's planted ties with the PSSM built as submat[q] + bias,
-     where they also equal sw_pair_ends / sw_pair_starts bit for bit
+     where they also equal sw_pair_ends / sw_pair_starts bit for bit;
+     K1/K2's uncapped instances (sw_pair_ends_nocap, sw_pair_starts_nocap,
+     the realign pass) under the realign matrix scores_with_bias(2.0,
+     -0.2) at the pair kernels' shapes, on pair_edge_batch's planted ties
+     (under BLOSUM62 with the planted cells checked, and under the realign
+     matrix) and on self-matches at Lq 4096 whose H passes 32767 in the
+     seventh row stripe (the capped entry stops at 32767 there)
   3b. the microbenchmark kernels against their plain versions, bit for bit
      (floats compared as their bits): every case of tools/kbench.py (T1-T3)
      at its TPU shape (256, 512) and REPS 512 on seeded non-zero inputs,
@@ -74,6 +80,13 @@ Phases, each fatal on failure:
      launched and no plain version called in either; ProfileQueryAligner
      on the enrich profiles against the fixture proteins, hits and
      backtraces equal to its plain run
+  4e. the search workflows on tests/data through the CLI: easy-search
+     (plain and --greedy-best-hits), easy-rbh, rbh (with its seven
+     intermediates), map and search --sens-steps 3 (with its per-step
+     intermediates) and 2, byte-identical to the MMseqs2 goldens in
+     tests/golden/searchwf and senssteps; SearchDriver.search + backtraces
+     equal to tests/golden/aln/search_a; K1/K2 launched, no plain version
+     called
   5. the k-mer main path at a real size: easy-predict on the 1.6 Mbp /
      3000-target synthetic metagenome of tests/golden/multichip_slice.json;
      the four sha256 digests equal the file's, the pair kernels launched and
@@ -107,12 +120,25 @@ Phases, each fatal on failure:
      called; wall, stage and profile-search phase seconds (the profile
      prefilter, the alignment, the filter and swap), pairs, cells and each
      PSSM entry's launches and summed ms (CUDA events) beside its bound
+  5e. the search workflows at full width: 4,000 queries against the k-mer
+     slice's 3,000 targets (make_search_slice.SEARCH_SLICE): easy_search at
+     its defaults, then align_db over its prefilter DB with backtraces and
+     the realign pass; the m8, result DB and realign DB sha256 digests
+     equal tests/golden/search_slice.json's (the JAX package's outputs);
+     the native host library loaded; K1/K2 launched in both runs, K3/K4
+     wherever the routing sent pairs, the uncapped instances in the
+     realign run, no plain version called; each run's wall, stage seconds
+     (prefilter, align, write_blast_tab), the driver's phase seconds
+     (align phases, backtraces, realign SW, realign tracebacks), pairs and
+     cells by route, and each SW kernel's launches and summed ms (CUDA
+     events) beside its bound
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
      rate and its bytes over its memory rate); K1/K2's PSSM entries at
      TIME_SHAPE on the same pairs as K1/K2 (rows submat[q] + bias), their
-     outputs equal to K1/K2's; K1/K2 also at the k-mer
+     outputs equal to K1/K2's; K1/K2's uncapped instances at TIME_SHAPE
+     under the realign matrix; K1/K2 also at the k-mer
      slice's largest bucket (16,384 pairs, Lq 256 x Lt 1024, lengths drawn
      from its percentiles); K3/K4 (with K1/K2 on the same pairs) also at
      one launch of the ungapped slices' largest query-major bucket (1,008
@@ -149,11 +175,16 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
 SUFFIXES = ("fas", "codon.fas", "headersMap.tsv", "gff")
+DB_SUFFIXES = ("", ".index", ".dbtype")
 CSRC = "metaeuk_tpu_torch/csrc"
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "sw_pair_ends": ("sw_pair.cu", "metaeuk_tpu/ops/sw_pallas.py:86"),
     "sw_pair_starts": ("sw_pair.cu", "metaeuk_tpu/ops/sw_pallas.py:220"),
+    # K1/K2's uncapped instances: the realign pass, which the JAX package
+    # runs on sw_jax.sw_align_batch (:176, XLA, no Pallas kernel)
+    "sw_pair_ends_nocap": ("sw_pair.cu", "metaeuk_tpu/ops/sw_jax.py:83"),
+    "sw_pair_starts_nocap": ("sw_pair.cu", "metaeuk_tpu/ops/sw_jax.py:111"),
     "sw_pair_ends_prof": ("sw_pair.cu", "metaeuk_tpu/ops/sw_pallas.py:86"),
     "sw_pair_starts_prof": ("sw_pair.cu",
                             "metaeuk_tpu/ops/sw_pallas.py:220"),
@@ -170,6 +201,7 @@ KERNELS = {
     "qm_variant_ends": ("qm_variants.cu", "tools/kernel_variants.py:48"),
 }
 PAIR_KERNELS = ("sw_pair_ends", "sw_pair_starts")
+NOCAP_KERNELS = ("sw_pair_ends_nocap", "sw_pair_starts_nocap")
 # the PSSM entries of K1/K2 (the profile path: sw_pallas.py
 # _align_full_prof :369 over _build_S_prof :346)
 PROF_KERNELS = ("sw_pair_ends_prof", "sw_pair_starts_prof")
@@ -248,6 +280,10 @@ QM_BUCKET_LENGTHS = ((0, 10, 50, 90, 100), (48, 108, 128, 128, 128),
 # W and C (11 and 9 a cell) whose H passes 32767
 QM_EDGE_WIDTH = 1152
 QM_CAP_SHAPE = (4096, 4096, 3500)
+# K1/K2's uncapped instances past the cap: (Lq, Lt, residues cycled, run
+# length) self-matches under the realign matrix (W:W 10, C:C 9 there)
+# whose H passes 32767 in the seventh row stripe of 512
+NOCAP_RUNS = ((4096, 4096, b"W", 3500), (4096, 4096, b"WWC", 3600))
 # K5/K6 (Lq tier, Lt, tiles), query lengths 8192..16384, timed with the
 # pair kernels on the same pairs (targets of 256-512 aa); then the Lt 1024
 # tier, targets of 513-600 aa (two stripes)
@@ -279,6 +315,9 @@ BYTES_PER_S = 3.35e12
 # end positions' bookkeeping is not counted. Gapless: run = max(run + s, 0)
 # 1, best = max 1.
 SW_OPS, GAPLESS_OPS = 7, 2
+# K1/K2's uncapped instances (the realign pass): H = max(G, F) 1, the rest
+# as SW_OPS
+NOCAP_SW_OPS = 6
 # K1/K2's planted ties (pair_edge_batch): {fragment rows n: rows e whose
 # pair e - 1 / e gets equal scores}: a lane's edge (R - 1 / R) and a
 # group's last rows at the largest n of each length class of
@@ -671,6 +710,103 @@ def check_pair_edges(torch, sw_cuda, sw_torch, errs):
           flush=True)
 
 
+def realign_scoring(device):
+    """The realign pass's scoring: scores_with_bias(2.0, -0.2), gaps 11/1."""
+    from metaeuk_tpu_torch import state
+    from metaeuk_tpu_torch.data.submat import scores_with_bias
+    return state.scoring_from_numpy(scores_with_bias(2.0, -0.2), 11, 1,
+                                    device)
+
+
+def check_nocap_pair(torch, sw_cuda, sw_torch, args, scoring, errs, rng):
+    """K1/K2's uncapped instances on one batch against their plain versions
+    (cap=None): forward ends, then starts from those ends and from random
+    ones; returns the plain (ends, starts from the ends)."""
+    ref = sw_torch.sw_ends(*args, scoring=scoring, cap=None)
+    errs["sw_pair_ends_nocap"] = max(errs["sw_pair_ends_nocap"], max_err(
+        torch, sw_cuda.sw_ends(*args, scoring=scoring, cap=None), ref))
+    (B, Lq), Lt = args[0].shape, args[3].shape[1]
+    fwd_ends = (torch.clamp_min(ref[1], 0), torch.clamp_min(ref[2], 0))
+    starts = []
+    for ends in (fwd_ends, tuple(
+            torch.from_numpy(rng.integers(-1, n + 2, B)).int().cuda()
+            for n in (Lq, Lt))):
+        starts.append(sw_torch.sw_starts(*args, *ends, scoring=scoring,
+                                         cap=None))
+        errs["sw_pair_starts_nocap"] = max(
+            errs["sw_pair_starts_nocap"], max_err(torch, sw_cuda.sw_starts(
+                *args, *ends, scoring=scoring, cap=None), starts[-1]))
+    if not torch.equal(ref[0], starts[0][0]):
+        raise AssertionError("uncapped reverse score differs from the "
+                             "forward best")
+    return ref, starts[0]
+
+
+def check_nocap_kernels(torch, sw_cuda, sw_torch, errs):
+    """K1/K2's uncapped instances (the realign pass) against their plain
+    versions: the realign matrix at the pair kernels' shapes; pair_edge_
+    batch's planted ties under BLOSUM62 (the planted cells checked too) and
+    under the realign matrix; self-matches at Lq 4096 whose H passes 32767
+    in a later row stripe (the 8-byte hand-off), where the capped entry
+    stops at 32767."""
+    import numpy as np
+    from metaeuk_tpu_torch import state
+    from metaeuk_tpu_torch.data.submat import encode_aa
+    rng = np.random.default_rng(20260827)
+    realign = realign_scoring("cuda")
+    for Lq, Lt, B in CHECK_SHAPES:
+        args = ragged_batch(torch, rng, Lq, Lt, B, "cuda")
+        ref, _ = check_nocap_pair(torch, sw_cuda, sw_torch, args, realign,
+                                  errs, rng)
+        max_err(torch, sw_cuda.align_full(*args, scoring=realign, cap=None),
+                sw_torch.align_full(*args, scoring=realign, cap=None))
+        print(f"uncapped pair Lq={Lq} Lt={Lt} B={B}, realign matrix: ends "
+              f"and starts equal ({int((ref[0] > 0).sum())} pairs with a "
+              "hit)", flush=True)
+    arrays, expect = pair_edge_batch(np, rng, 1152, 1152)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+        device="cuda", dtype=dt) for a, dt in zip(arrays, (
+            torch.uint8, torch.int8, torch.int32, torch.uint8, torch.int32)))
+    for name, scoring in (("BLOSUM62", state.default_scoring(
+            torch.device("cuda"))), ("realign", realign)):
+        ref, _ = check_nocap_pair(torch, sw_cuda, sw_torch, args, scoring,
+                                  errs, rng)
+        whole = tuple((a - 1).int() for a in (args[2], args[4]))
+        rev = sw_torch.sw_starts(*args, *whole, scoring=scoring, cap=None)
+        errs["sw_pair_starts_nocap"] = max(
+            errs["sw_pair_starts_nocap"], max_err(torch, sw_cuda.sw_starts(
+                *args, *whole, scoring=scoring, cap=None), rev))
+        if name == "BLOSUM62":
+            for b, ex in enumerate(expect):
+                have = (tuple(int(ref[k][b]) for k in range(3)),
+                        tuple(int(rev[k][b]) for k in range(3)))
+                if ex is not None and have != ex:
+                    raise AssertionError(f"uncapped planted pair {b}: "
+                                         f"{have}, expected {ex}")
+        print(f"uncapped pair edges Lq=Lt=1152, {name}: ends and starts "
+              "equal on the planted ties", flush=True)
+    for Lq, Lt, residues, n in NOCAP_RUNS:
+        run = np.resize(encode_aa(residues), n)
+        q = np.zeros((2, Lq), np.int64)
+        q[:, :n] = run
+        args = (torch.from_numpy(q).to("cuda", torch.uint8),
+                torch.zeros((2, Lq), dtype=torch.int8, device="cuda"),
+                torch.tensor([n, n // 2], dtype=torch.int32, device="cuda"),
+                torch.from_numpy(q[:, :Lt]).to("cuda", torch.uint8),
+                torch.tensor([n, n], dtype=torch.int32, device="cuda"))
+        ref, starts = check_nocap_pair(torch, sw_cuda, sw_torch, args,
+                                       realign, errs, rng)
+        capped = sw_cuda.sw_ends(*args, scoring=realign)
+        if int(ref[0][0]) <= state.SCORE_CAP or \
+                int(capped[0][0]) != state.SCORE_CAP or \
+                (int(ref[1][0]), int(starts[1][0])) != (n - 1, 0):
+            raise AssertionError("uncapped self-match did not pass the cap "
+                                 "from row 0 to row n - 1")
+        print(f"uncapped self-match of {n} x {residues.decode()} at Lq {Lq}:"
+              f" score {int(ref[0][0])} (capped entry {int(capped[0][0])}),"
+              " ends and starts equal", flush=True)
+
+
 def prof_batch(torch, rng, Lq, Lt, B, device):
     """Seeded staged PSSM matrices as the profile search holds them: (B, Lq,
     21) int32 PSSM rows in [-32, 31] (X column 0) of lengths 1..Lq (one of
@@ -822,6 +958,209 @@ def check_profile_aligner(np, torch, counters, driver, prefilter):
     sw_cuda.reset_counts()
     print(f"ProfileQueryAligner: {len(got)} hits and their backtraces equal "
           "to the plain versions' run", flush=True)
+
+
+def same_bytes(mine, golden):
+    if pathlib.Path(mine).read_bytes() != pathlib.Path(golden).read_bytes():
+        raise AssertionError(f"{mine} differs from {golden}")
+
+
+def same_db(mine, golden):
+    for s in DB_SUFFIXES:
+        same_bytes(f"{mine}{s}", f"{golden}{s}")
+
+
+def check_search_workflows(cli, device, td):
+    """Phase 4e: the port's CLI easy-search (plain and --greedy-best-hits),
+    easy-rbh, rbh (with its seven intermediates), map and search
+    --sens-steps 3 (with its per-step intermediates) and 2 on tests/data,
+    each output byte-identical to the MMseqs2 binary's goldens
+    (tests/golden/searchwf, tests/golden/senssteps); then SearchDriver.search
+    + backtraces on the fixture proteins, equal to tests/golden/aln/search_a.
+    Runs on `device` (tests/test_torch_search.py rehearses it on the CPU)."""
+    from metaeuk_tpu_torch import native
+    from metaeuk_tpu_torch.io.mmseqsdb import read_db
+    from metaeuk_tpu_torch.io.seqdb import DBTYPE_AA, SeqDB
+    from metaeuk_tpu_torch.params import Params
+    from metaeuk_tpu_torch.pipeline.alnformat import hits_to_aln_db_entries
+    from metaeuk_tpu_torch.search.driver import SearchDriver
+    data = ROOT / "tests" / "data"
+    wf, steps = GOLDEN / "searchwf", GOLDEN / "senssteps"
+    q, t = str(data / "queries_lin.faa"), str(data / "proteins.faa")
+    dev = ["--device", str(device)]
+    for fasta, db in ((q, "qdb"), (t, "tdb"),
+                      (str(data / "queries_steps.faa"), "sdb")):
+        cli.main(["createdb", fasta, str(td / db)])
+    for cmd, golden, extra in (("easy-search", "easysearch.m8", []),
+                               ("easy-search", "easysearch_greedy.m8",
+                                ["--greedy-best-hits"]),
+                               ("easy-rbh", "easyrbh.m8", [])):
+        out = td / golden
+        cli.main([cmd, q, t, str(out), str(td / f"{golden}_tmp"), *dev,
+                  *extra])
+        same_bytes(out, wf / golden)
+    cli.main(["rbh", str(td / "qdb"), str(td / "tdb"), str(td / "rbh"),
+              str(td / "rbh_tmp"), *dev])
+    for f in ("resAB", "resBA", "resA_best_B", "resB_best_A",
+              "resB_best_A_swap", "res_best_merged",
+              "res_best_merged_sorted"):
+        same_db(td / "rbh_tmp" / f, wf / f"rbh_{f}")
+    same_db(td / "rbh", wf / "rbh")
+    cli.main(["map", str(td / "qdb"), str(td / "tdb"), str(td / "map"),
+              str(td / "map_tmp")])
+    same_db(td / "map", wf / "map")
+    for n, sens, start in ((3, "7.5", "1.0"), (2, "7.0", "2.0")):
+        cli.main(["search", str(td / "sdb"), str(td / "tdb"),
+                  str(td / f"steps{n}"), str(td / f"steps{n}_tmp"),
+                  "--sens-steps", str(n), "-s", sens, "--start-sens", start,
+                  *dev])
+        same_db(td / f"steps{n}", steps / f"steps{n}")
+    for f in ("pref_0", "aln_0", "pref_1", "aln_1"):
+        same_db(td / "steps3_tmp" / f, steps / f"steps3_{f}")
+    if native.get_lib() is None:
+        raise AssertionError("the native host library did not load: "
+                             "backtraces would be empty")
+    targets = SeqDB.from_fasta(t, DBTYPE_AA)
+    seqs = [targets.seq_bytes(i) for i in range(len(targets))]
+    drv = SearchDriver(Params(aln_len_thr=0), targets, device)
+    hits = drv.search(seqs)
+    bts, sids = drv.backtraces(hits, seqs)
+    if dict(hits_to_aln_db_entries(hits, len(targets), bts, sids)) != \
+            dict(read_db(GOLDEN / "aln" / "search_a")):
+        raise AssertionError("search + backtraces differ from aln/search_a")
+    print(f"search workflows on {device}: easy-search (2 modes), easy-rbh, "
+          "rbh (and 7 intermediates), map, search --sens-steps 3 (and 4 "
+          "intermediates) and 2 byte-identical to the MMseqs2 goldens; "
+          f"search + backtraces ({len(hits)} hits) equal aln/search_a",
+          flush=True)
+
+
+@contextlib.contextmanager
+def search_stages(modules):
+    """Host seconds of the search workflows' stages, summed over calls:
+    searchdb.prefilter_db (prefilter), align_module.align_db (align: the
+    driver's search, backtraces, realign and the DB write) and
+    alnformat.write_blast_tab, each wrapped for this script's measurement
+    only; yields {stage: seconds}."""
+    searchdb, align_module, alnformat = modules
+    seconds, saved = {}, []
+    for mod, name, stage in ((searchdb, "prefilter_db", "prefilter"),
+                             (align_module, "align_db", "align"),
+                             (alnformat, "write_blast_tab",
+                              "write_blast_tab")):
+        fn = getattr(mod, name)
+
+        def timed(*a, _fn=fn, _stage=stage, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                seconds[_stage] = seconds.get(_stage, 0.0) \
+                    + time.perf_counter() - t0
+        saved.append((mod, name, fn))
+        setattr(mod, name, timed)
+    try:
+        yield seconds
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def pair_routes(driver, sw_cuda):
+    """Pairs and true-length DP cells by route, for this script's
+    measurement only: SearchDriver's pair launches (K1/K2) and query-major
+    tiles (K3/K4) in the forward pass and the reverse pass (from the gate's
+    survivors' ends), and realign's batches (K1/K2's uncapped instances);
+    yields {route: {pass: [pairs, cells]}}."""
+    import numpy as np
+    routes = {}
+
+    def tally(route, pas, pairs, cells):
+        got = routes.setdefault(route, {}).setdefault(pas, [0, 0])
+        got[0] += int(pairs)
+        got[1] += int(cells)
+
+    def cells_of(ql, tl, ends):
+        if ends is None:
+            return (ql * tl).sum()
+        qe, te = (np.maximum(e, 0).astype(np.int64) for e in ends)
+        return ((np.minimum(qe, ql - 1) + 1) * (np.minimum(te, tl - 1) + 1)
+                ).sum()
+
+    def wrap(name, route):
+        fn = getattr(driver.SearchDriver, name)
+
+        def counted(self, ctx, rows, oi, ti, ends):
+            ql = self._q_cache[2][oi[rows]].astype(np.int64)
+            tl = self.target_lens[ti[rows]].astype(np.int64)
+            tally(route, "fwd" if ends is None else "rev", len(rows),
+                  cells_of(ql, tl, None if ends is None else
+                           (ends[0][rows], ends[1][rows])))
+            return fn(self, ctx, rows, oi, ti, ends)
+        return fn, counted
+
+    batch = sw_cuda.sw_align_batch
+
+    def counted_batch(q, qb, ql, t, tl, **kw):
+        out = batch(q, qb, ql, t, tl, **kw)
+        ql, tl = np.asarray(ql, np.int64), np.asarray(tl, np.int64)
+        tally("realign", "fwd", len(ql), cells_of(ql, tl, None))
+        tally("realign", "rev", len(ql), cells_of(ql, tl, (out[2], out[4])))
+        return out
+    saved = {n: wrap(n, r) for n, r in (("_launch_chunks", "pair"),
+                                        ("_qm_chunks", "query-major"))}
+    for n, (_, counted) in saved.items():
+        setattr(driver.SearchDriver, n, counted)
+    sw_cuda.sw_align_batch = counted_batch
+    try:
+        yield routes
+    finally:
+        for n, (fn, _) in saved.items():
+            setattr(driver.SearchDriver, n, fn)
+        sw_cuda.sw_align_batch = batch
+
+
+def run_search_slice(cfg, td, device, probe=contextlib.nullcontext):
+    """Phase 5e's two runs on the search slice cfg (make_search_slice.py),
+    written under td, on `device`: the port's easy_search at its defaults,
+    then align_db over its pref_0 with add_backtrace=True, realign=True.
+    probe() brackets each run (chip_smoke's: reset the counts, CUDA events
+    around each launch, read the counts after). Returns ({"easy_search":
+    ..., "align_realign": ...} with each run's wall, stage seconds, the
+    driver's phase seconds and cells, its routes and what probe yielded;
+    the digests, keyed as in tests/golden/search_slice.json)."""
+    import make_search_slice as mss
+    from metaeuk_tpu_torch.ops import sw_cuda
+    from metaeuk_tpu_torch.pipeline import alnformat
+    from metaeuk_tpu_torch.search import align_module, driver, searchdb
+    q, t = mss.search_slice(cfg, td)
+    es = td / "es"
+    runs = {}
+    for run in ("easy_search", "align_realign"):
+        for k in driver.CELLS:
+            driver.CELLS[k] = 0
+        driver.PHASE_SECONDS.clear()
+        with probe() as rec, \
+                search_stages((searchdb, align_module, alnformat)) as st, \
+                pair_routes(driver, sw_cuda) as routes:
+            t0 = time.perf_counter()
+            if run == "easy_search":
+                searchdb.easy_search(str(q), str(t), str(td / "es.m8"),
+                                     str(es), device=device)
+            else:
+                align_module.align_db(
+                    str(es / "query"), str(es / "target"),
+                    str(es / "search_tmp" / "pref_0"), str(td / "realign"),
+                    add_backtrace=True, realign=True, device=device)
+            wall = time.perf_counter() - t0
+        runs[run] = dict(wall=wall, stages=st, routes=routes, probe=rec,
+                         phases=dict(driver.PHASE_SECONDS),
+                         cells=dict(driver.CELLS))
+    return runs, {"easy_search": {"m8": sha256(td / "es.m8"), "result": {
+        s: sha256(f"{es / 'result'}{s}") for s in DB_SUFFIXES}},
+        "align_realign": {s: sha256(f"{td / 'realign'}{s}")
+                          for s in DB_SUFFIXES}}
 
 
 def qm_edge_tiles(np, rng, Lq, Lt):
@@ -1283,6 +1622,68 @@ def counts(counters):
     return launches, plain
 
 
+@contextlib.contextmanager
+def probe_run(torch, counters, driver, prefilter, sw_cuda):
+    """Brackets one run: the counts set to 0 before it, CUDA events around
+    each SW launch (launch_events), the counts read after a synchronise;
+    yields the record {"events", "launches", "plain"}, filled at exit."""
+    reset(torch, counters, driver, prefilter)
+    rec = {}
+    with launch_events(torch, sw_cuda) as events:
+        yield rec
+        torch.cuda.synchronize()
+    rec["events"] = events
+    rec["launches"], rec["plain"] = counts(counters)
+
+
+# each SW kernel's (route, pass) in pair_routes' tally
+KERNEL_ROUTES = {"sw_pair_ends": ("pair", "fwd"),
+                 "sw_pair_starts": ("pair", "rev"),
+                 "sw_qm_ends": ("query-major", "fwd"),
+                 "sw_qm_starts": ("query-major", "rev"),
+                 "sw_pair_ends_nocap": ("realign", "fwd"),
+                 "sw_pair_starts_nocap": ("realign", "rev")}
+
+
+def report_search_run(run, r):
+    """Prints one run of phase 5e: wall, stage, align-phase and realign
+    seconds, pairs and cells by route, each SW kernel's launches and summed
+    ms beside its bound; raises unless the run went through K1/K2, the
+    uncapped instances in the realign run and each of K1-K4 wherever the
+    routing sent pairs (and nowhere else), with no plain version called."""
+    rec, routes = r["probe"], r["routes"]
+    print(f"{run}: wall {r['wall']:.3f} s")
+    print(f"{run}: stage seconds " + json.dumps(r["stages"]))
+    print(f"{run}: driver phase seconds " + json.dumps(r["phases"]))
+    print(f"{run}: cells {json.dumps(r['cells'])}; pairs and cells by "
+          "route and pass " + json.dumps(routes))
+    for k, (n, ms) in event_ms(rec["events"]).items():
+        route, pas = KERNEL_ROUTES.get(k, (None, None))
+        cells = routes.get(route, {}).get(pas, [0, 0])[1]
+        ops = NOCAP_SW_OPS if k in NOCAP_KERNELS else SW_OPS
+        bound_ms = cells * ops / INT32_OPS_PER_S * 1e3
+        print(f"{run}: {k} {n} launches, {ms:.3f} ms of kernel time (CUDA "
+              f"events around each launch), {cells} cells, bound "
+              f"{bound_ms:.3f} ms (operations; "
+              f"{bound_ms / max(ms, 1e-9):.1%} of it)", flush=True)
+    print(f"{run}: launches {rec['launches']} plain {rec['plain']}",
+          flush=True)
+    # K1/K2 in every run, the uncapped instances in the realign run, and
+    # each kernel exactly where the routing sent pairs
+    need = list(PAIR_KERNELS) + (list(NOCAP_KERNELS)
+                                 if run == "align_realign" else [])
+    for k, (route, pas) in KERNEL_ROUTES.items():
+        routed = routes.get(route, {}).get(pas, [0, 0])[0] > 0
+        if routed:
+            need.append(k)
+        elif rec["launches"][k]:
+            raise AssertionError(f"{run}: {k} launched with no pair routed "
+                                 "to it")
+    if min(rec["launches"][k] for k in need) == 0 or \
+            any(rec["plain"].values()):
+        raise AssertionError(f"{run} did not go through {sorted(set(need))}")
+
+
 def fragments(extractor, contigs):
     """The serial path's translated fragments (predict.py predict_exons)."""
     orf_aa = []
@@ -1307,6 +1708,8 @@ def time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
         Lq // 2, Lq + 1, B)).int().cuda(), args[3], torch.from_numpy(
         rng.integers(Lt // 2, Lt + 1, B)).int().cuda())
     out.update(time_pair_kernels(torch, sw_cuda, sw_torch, args, errs))
+    out.update(time_pair_kernels(torch, sw_cuda, sw_torch, args, errs,
+                                 nocap=True))
     out.update(time_prof_kernels(torch, sw_cuda, sw_torch, args, errs))
     # the k-mer slice's largest bucket: lengths drawn from its percentiles
     Lq, Lt, B = KMER_PAIR_SHAPE
@@ -1436,27 +1839,31 @@ def time_qm_kernels(torch, sw_cuda, sw_torch, staged, qidx, lj, errs,
     return rows, same
 
 
-def time_pair_kernels(torch, sw_cuda, sw_torch, args, errs):
+def time_pair_kernels(torch, sw_cuda, sw_torch, args, errs, nocap=False):
     """{K1, K2: (ms, plain_ms, bound_ms, bound_by)} on one pair batch, K2
-    from the forward ends; each output equal to its plain version's."""
-    _, qe, te = sw_torch.sw_ends(*args)
+    from the forward ends; each output equal to its plain version's. With
+    nocap, their uncapped instances under the realign matrix."""
+    kw = dict(scoring=realign_scoring("cuda"), cap=None) if nocap else {}
+    e_name, s_name = (f"{k}_nocap" if nocap else k for k in PAIR_KERNELS)
+    ops = NOCAP_SW_OPS if nocap else SW_OPS
+    _, qe, te = sw_torch.sw_ends(*args, **kw)
     qe, te = torch.clamp_min(qe, 0), torch.clamp_min(te, 0)
     fwd = int((args[2].long() * args[4].long()).sum())
     rev = int(((torch.minimum(qe, args[2] - 1).long() + 1)
                * (torch.minimum(te, args[4] - 1).long() + 1)).sum())
-    ends = sw_cuda.sw_ends(*args)
-    errs["sw_pair_ends"] = max(errs["sw_pair_ends"], max_err(
-        torch, ends, sw_torch.sw_ends(*args)))
-    errs["sw_pair_starts"] = max(errs["sw_pair_starts"], max_err(
-        torch, sw_cuda.sw_starts(*args, qe, te),
-        sw_torch.sw_starts(*args, qe, te)))
-    out = {"sw_pair_ends": (
-        time_ms(torch, lambda: sw_cuda.sw_ends(*args), 10),
-        time_ms(torch, lambda: sw_torch.sw_ends(*args), 2),
-        *bound(fwd, SW_OPS, (*args, *ends))), "sw_pair_starts": (
-        time_ms(torch, lambda: sw_cuda.sw_starts(*args, qe, te), 10),
-        time_ms(torch, lambda: sw_torch.sw_starts(*args, qe, te), 2),
-        *bound(rev, SW_OPS, (*args, qe, te, *ends)))}
+    ends = sw_cuda.sw_ends(*args, **kw)
+    errs[e_name] = max(errs[e_name], max_err(
+        torch, ends, sw_torch.sw_ends(*args, **kw)))
+    errs[s_name] = max(errs[s_name], max_err(
+        torch, sw_cuda.sw_starts(*args, qe, te, **kw),
+        sw_torch.sw_starts(*args, qe, te, **kw)))
+    out = {e_name: (
+        time_ms(torch, lambda: sw_cuda.sw_ends(*args, **kw), 10),
+        time_ms(torch, lambda: sw_torch.sw_ends(*args, **kw), 2),
+        *bound(fwd, ops, (*args, *ends))), s_name: (
+        time_ms(torch, lambda: sw_cuda.sw_starts(*args, qe, te, **kw), 10),
+        time_ms(torch, lambda: sw_torch.sw_starts(*args, qe, te, **kw), 2),
+        *bound(rev, ops, (*args, qe, te, *ends)))}
     (B, Lq), Lt = args[0].shape, args[3].shape[1]
     print(f"pair B={B} Lq={Lq} Lt={Lt}: {fwd} forward cells, {rev} "
           "reverse cells", flush=True)
@@ -1975,23 +2382,33 @@ def main():
     pair_usage = ptxas_usage(_build.BUILT.get("sw_pair", {}).get("ptxas",
                                                                   ""))
     qm_usage = ptxas_usage(_build.BUILT.get("sw_qm", {}).get("ptxas", ""))
+    # K1/K2's instances: <G, R, reverse pass, uncapped (kWide), row source>
     for name, usage, symbol, rev, rows in (
-            ("sw_pair_ends", pair_usage, PAIR_KERNEL_SYMBOL, 0, "PairRows"),
-            ("sw_pair_starts", pair_usage, PAIR_KERNEL_SYMBOL, 1,
+            ("sw_pair_ends", pair_usage, PAIR_KERNEL_SYMBOL, "0ELb0",
              "PairRows"),
-            ("sw_pair_ends_prof", pair_usage, PAIR_KERNEL_SYMBOL, 0,
+            ("sw_pair_starts", pair_usage, PAIR_KERNEL_SYMBOL, "1ELb0",
+             "PairRows"),
+            ("sw_pair_ends_nocap", pair_usage, PAIR_KERNEL_SYMBOL, "0ELb1",
+             "PairRows"),
+            ("sw_pair_starts_nocap", pair_usage, PAIR_KERNEL_SYMBOL,
+             "1ELb1", "PairRows"),
+            ("sw_pair_ends_prof", pair_usage, PAIR_KERNEL_SYMBOL, "0ELb0",
              "ProfRows"),
-            ("sw_pair_starts_prof", pair_usage, PAIR_KERNEL_SYMBOL, 1,
+            ("sw_pair_starts_prof", pair_usage, PAIR_KERNEL_SYMBOL, "1ELb0",
              "ProfRows"),
             ("sw_qm_ends", qm_usage, QM_KERNEL_SYMBOLS["sw_qm_ends"], None,
              ""),
             ("sw_qm_starts", qm_usage, QM_KERNEL_SYMBOLS["sw_qm_starts"],
              None, "")):
         for g, r in sw_cuda.PAIR_CLASSES:
+            # the uncapped entries launch the capped instance up to 128 rows
+            shared = rev is not None and rev.endswith("1") and g * r <= 128
+            inst = rev[:-1] + "0" if shared else rev
             tag = f"{symbol}ILi{g}ELi{r}E" + (
-                "" if rev is None else f"Lb{rev}E")
+                "" if rev is None else f"Lb{inst}E")
             found = [v for n, v in usage.items() if tag in n and rows in n]
-            print(f"{name} (G {g}, R {r}): " + (
+            print(f"{name} (G {g}, R {r}"
+                  f"{', the capped instance' if shared else ''}): " + (
                 f"{found[0][0]} registers, {found[0][1]} bytes spill "
                 f"stores, {found[0][2]} bytes spill loads" if found
                 else "no ptxas report (a cached build)"), flush=True)
@@ -2000,6 +2417,7 @@ def main():
     errs = dict.fromkeys(KERNELS, 0)
     check_pair_kernels(torch, sw_cuda, sw_torch, errs)
     check_pair_edges(torch, sw_cuda, sw_torch, errs)
+    check_nocap_kernels(torch, sw_cuda, sw_torch, errs)
     check_prof_kernels(torch, sw_cuda, sw_torch, errs)
     check_prof_edges(torch, sw_cuda, sw_torch, errs)
     check_qm_kernels(torch, sw_cuda, sw_torch, errs)
@@ -2143,6 +2561,19 @@ def main():
         print("profile: fixture outputs byte-identical to pp.*, "
               "slice_search_db digests equal profile_slice.json", flush=True)
         check_profile_aligner(np, torch, counters, driver, prefilter)
+
+        phase("4e the search workflows on tests/data against the MMseqs2 "
+              "goldens")
+        reset(torch, counters, driver, prefilter)
+        (td / "wf").mkdir()
+        t0 = time.perf_counter()
+        check_search_workflows(cli, "cuda", td / "wf")
+        run_l, run_p = counts(counters)
+        print(f"search workflows {time.perf_counter() - t0:.2f} s, "
+              f"launches {run_l}, plain {run_p}", flush=True)
+        if min(run_l[k] for k in PAIR_KERNELS) == 0 or any(run_p.values()):
+            raise AssertionError("the search workflows did not go through "
+                                 "the pair kernels")
 
         phase("5 k-mer main path: 1.6 Mbp / 3000-target slice")
         golden = json.loads((GOLDEN / "multichip_slice.json").read_text())
@@ -2407,6 +2838,31 @@ def main():
             raise AssertionError("profile slice digests differ")
         print("profile slice: 4 sha256 digests equal profile_slice.json",
               flush=True)
+
+        phase("5e the search workflows at full width: 4,000 queries against "
+              "the k-mer slice's 3,000 targets")
+        import make_search_slice as mss
+        search_golden = json.loads((GOLDEN / "search_slice.json")
+                                   .read_text())
+        if search_golden["input"] != mss.SEARCH_SLICE:
+            raise AssertionError("search_slice.json was made from another "
+                                 "input than make_search_slice.SEARCH_SLICE")
+        if native.get_lib() is None:
+            raise AssertionError("the native host library did not load: "
+                                 "backtraces would be empty")
+        (td / "ss").mkdir()
+        runs, got = run_search_slice(
+            mss.SEARCH_SLICE, td / "ss", "cuda", probe=lambda: probe_run(
+                torch, counters, driver, prefilter, sw_cuda))
+        for run, r in runs.items():
+            report_search_run(run, r)
+        for k in NOCAP_KERNELS:
+            launches[k] = runs["align_realign"]["probe"]["launches"][k]
+        for k, v in got.items():
+            if v != search_golden[k]:
+                raise AssertionError(f"search slice {k} digests differ")
+        print("search slice: easy_search's m8 and result DB and align "
+              "--realign -a's DB equal search_slice.json", flush=True)
 
     phase("6 kernel and plain-version times")
     times, same = time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,

@@ -45,10 +45,14 @@
 // cell under it, visiting columns in order and, within a column, its rows
 // in order, and the group reduces its G bests under it. Columns at or past
 // the sweep's end are never computed. Rows at or past it, in the last lane
-// of the last stripe, get a bias of -65536: their Hdiag + s is negative, so
-// their H is at most max(E, F, 0) of a chain fed from real cells, below a
-// real cell of the same or an earlier column; they lie below every real
-// row and feed nothing real, and never win the group's reduction.
+// of the last stripe, get a bias of -65536: their Hdiag + s is negative
+// (uncapped, it lies more than 65,000 below Hdiag, a cell of an earlier
+// column), so their H is at most max(E, F, 0) of a chain fed from real
+// cells, below a real cell of the same or an earlier column; they lie below
+// every real row and feed nothing real, and never win the group's
+// reduction. K1/K2's uncapped instances (kWide, the realign pass: the JAX
+// package's sw_jax.sw_align_batch does not cap H) drop the cap everywhere
+// and hand H and F + go on in 32 bits each.
 // Substitution scores must fit int8 (the wrappers check), and codes must
 // lie below alph. The PSSM entries of K1/K2 (ProfRows) read each lane's
 // int8 scores straight from the query profile's rows, with a bias of 0
@@ -90,17 +94,40 @@ constexpr int kRingStride = kRing + 4;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kClasses = 5;             // sw_cuda.PAIR_CLASSES
 
-// H (0..32767) in the low half, F + go (0..33021) in the high half
-__device__ __forceinline__ uint32_t pack_hf(int h, int f) {
-  return (static_cast<uint32_t>(h) & 0xffffu) |
-         (static_cast<uint32_t>(f) << 16);
-}
-__device__ __forceinline__ int unpack_h(uint32_t w) {
-  return static_cast<int>(w & 0xffffu);
-}
-__device__ __forceinline__ int unpack_f(uint32_t w) {
-  return static_cast<int>(w >> 16);
-}
+// What lane k - 1 hands lane k each step, and the last lane of a stripe
+// the next stripe through the hand-off array: H and F + go. The capped
+// kernels pack both in one 32-bit word, H (0..32767) in the low half and
+// F + go (0..33021) in the high half. The uncapped ones (kWide: the realign
+// pass, whose H passes 32767 on long self-matches) give each a 32-bit word
+// of its own, one 64-bit word that a shuffle moves as two.
+template <bool kWide>
+struct HandOff {
+  using Word = uint32_t;
+  static __device__ __forceinline__ Word pack(int h, int f) {
+    return (static_cast<uint32_t>(h) & 0xffffu) |
+           (static_cast<uint32_t>(f) << 16);
+  }
+  static __device__ __forceinline__ int h(Word w) {
+    return static_cast<int>(w & 0xffffu);
+  }
+  static __device__ __forceinline__ int f(Word w) {
+    return static_cast<int>(w >> 16);
+  }
+};
+template <>
+struct HandOff<true> {
+  using Word = unsigned long long;
+  static __device__ __forceinline__ Word pack(int h, int f) {
+    return static_cast<Word>(static_cast<uint32_t>(h)) |
+           (static_cast<Word>(static_cast<uint32_t>(f)) << 32);
+  }
+  static __device__ __forceinline__ int h(Word w) {
+    return static_cast<int>(static_cast<uint32_t>(w));
+  }
+  static __device__ __forceinline__ int f(Word w) {
+    return static_cast<int>(static_cast<uint32_t>(w >> 32));
+  }
+};
 
 // byte b of w, sign-extended (one PRMT: the selector's msb replicates the
 // byte's sign)
@@ -299,12 +326,13 @@ __device__ __forceinline__ void stage_codes(const Sweep& p, int c, int alph,
 // and the profile words one step ahead, so no load waits in the step that
 // uses it. ring is the group's ring (a byte offset of smem).
 template <int G, int R, bool kCap, bool kStage, int kClassBytes,
-          bool kPssm = false>
-__device__ __forceinline__ void stripe(const Sweep& p, int base,
-                                       int alph, int prof, int ring,
-                                       const uint32_t* carry,
-                                       uint32_t* carry_out, int go, int ge,
-                                       Best& best) {
+          bool kPssm = false, bool kWide = false>
+__device__ __forceinline__ void stripe(
+    const Sweep& p, int base, int alph, int prof, int ring,
+    const typename HandOff<kWide>::Word* carry,
+    typename HandOff<kWide>::Word* carry_out, int go, int ge, Best& best) {
+  using Link = HandOff<kWide>;
+  using Word = typename Link::Word;
   constexpr int W = R / 4;   // profile words of a lane and class
   const int lane = threadIdx.x & 31;
   const int k = lane % G;
@@ -372,9 +400,9 @@ __device__ __forceinline__ void stripe(const Sweep& p, int base,
     hp[r] = 0;
     e[r] = 0;
   }
-  const uint32_t edge = pack_hf(0, 0);   // row -1: H 0, F -go
+  const Word edge = Link::pack(0, 0);   // row -1: H 0, F -go
   int hup = 0;             // H(row0 - 1, j - 1): column -1 is 0
-  uint32_t in = edge;      // H(row0 - 1, j) and F(row0, j) + go
+  Word in = edge;          // H(row0 - 1, j) and F(row0, j) + go
   uint32_t wcur[W];        // the profile words of this step's column
   // shared byte addresses of this lane's profile (class 0) and of the
   // group's ring, kept in registers through the loop (the empty asm hides
@@ -387,7 +415,7 @@ __device__ __forceinline__ void stripe(const Sweep& p, int base,
   load_words<W>(prof_at + load_byte(ring_at + ((-k) & (kRing - 1))) *
                               kClassBytes, wcur);
   int a1 = load_byte(ring_at + ((1 - k) & (kRing - 1)));   // next class
-  uint32_t cw = 0, cw_next = 0;   // carry words of this and the next 32
+  Word cw = 0, cw_next = 0;   // carry words of this and the next 32
   if (carry != nullptr) cw_next = lane < p.cols ? carry[lane] : 0;
   for (int t = 0; t < steps; ++t) {
     const int j = t - k;
@@ -400,7 +428,7 @@ __device__ __forceinline__ void stripe(const Sweep& p, int base,
         cw = cw_next;
         cw_next = t + 32 + lane < p.cols ? carry[t + 32 + lane] : 0;
       }
-      const uint32_t c = __shfl_sync(kFull, cw, t & 31);
+      const Word c = __shfl_sync(kFull, cw, t & 31);
       if (k == 0) in = c;
     } else if (k == 0) {
       in = edge;
@@ -409,11 +437,11 @@ __device__ __forceinline__ void stripe(const Sweep& p, int base,
     const int a2 = load_byte(ring_at + ((j + 2) & (kRing - 1)));
     uint32_t wnext[W];
     load_words<W>(prof_at + a1 * kClassBytes, wnext);
-    uint32_t out = 0;
+    Word out = 0;
     if (on && j >= 0 && j < p.cols) {
       int diag = hup;
-      hup = unpack_h(in);
-      int f = unpack_f(in);   // F + go, as e holds E + go
+      hup = Link::h(in);
+      int f = Link::f(in);   // F + go, as e holds E + go
       int colmax = 0;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -430,7 +458,7 @@ __device__ __forceinline__ void stripe(const Sweep& p, int base,
         hp[r] = h;
         colmax = max(colmax, h);
       }
-      out = pack_hf(hp[R - 1], f);
+      out = Link::pack(hp[R - 1], f);
       if (carry_out != nullptr && k == G - 1) carry_out[j] = out;
       if (colmax > 0 && colmax >= best.score) {   // a new best, or a tie
         int first = R - 1;
@@ -486,12 +514,15 @@ __device__ __forceinline__ void write_best(const Best& best, int b, int Lq,
 // matrix), its ring of target classes after every warp's profile. G = 32
 // sweeps any number of rows in stripes; a smaller G takes pairs of at most
 // G R rows. Call with every lane of the warp, after stage_submat and a
-// __syncthreads.
-template <int G, int R, bool kRev, class PairsOf>
+// __syncthreads. kWide: H is not capped, and the hand-offs carry H and F +
+// go in a 32-bit word each (HandOff<true>; carry then holds 8-byte words).
+template <int G, int R, bool kRev, bool kWide = false, class PairsOf>
 __device__ __forceinline__ void align_group(
     const PairsOf& pairs, int b, bool have, int alph, const int32_t* q_end,
-    const int32_t* t_end, int go, int ge, uint32_t* carry,
+    const int32_t* t_end, int go, int ge, void* carry,
     int32_t* score_out, int32_t* row_out, int32_t* col_out) {
+  using Word = typename HandOff<kWide>::Word;
+  constexpr bool kCap = !kWide;   // the warp class's stripes
   constexpr int kPairs = 32 / G;   // pairs a warp
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   constexpr bool kPssm = PairsOf::kPssm;
@@ -520,24 +551,24 @@ __device__ __forceinline__ void align_group(
   const int ring = 4 * rings + (lane / G) * kRingStride;
   Best best{0, 0, INT_MAX};
   if constexpr (G == 32) {
-    uint32_t* pc = carry != nullptr ? carry + static_cast<size_t>(b) *
-                                              pairs.Lt
-                                    : nullptr;
+    Word* pc = carry != nullptr ? static_cast<Word*>(carry) +
+                                      static_cast<size_t>(b) * pairs.Lt
+                                : nullptr;
     for (int base = 0; base < p.rows;) {   // uniform: one pair a warp
       const int left = p.rows - base;
-      const uint32_t* in = base > 0 ? pc : nullptr;
+      const Word* in = base > 0 ? pc : nullptr;
       if (left <= 32 * 4) {
-        stripe<32, 4, true, true, 32 * 4, kPssm>(
+        stripe<32, 4, kCap, true, 32 * 4, kPssm, kWide>(
             p, base, alph, 4 * (prof + lane), ring, in, nullptr, go, ge,
             best);
         base += 32 * 4;
       } else if (left <= 32 * 8) {
-        stripe<32, 8, true, true, 32 * 8, kPssm>(
+        stripe<32, 8, kCap, true, 32 * 8, kPssm, kWide>(
             p, base, alph, 4 * (prof + lane * 2), ring, in, nullptr, go, ge,
             best);
         base += 32 * 8;
       } else {
-        stripe<32, kMaxRows, true, true, 32 * kMaxRows, kPssm>(
+        stripe<32, kMaxRows, kCap, true, 32 * kMaxRows, kPssm, kWide>(
             p, base, alph, 4 * (prof + lane * (kMaxRows / 4)), ring, in,
             left > kStripe ? pc : nullptr, go, ge, best);
         base += kStripe;
@@ -545,7 +576,7 @@ __device__ __forceinline__ void align_group(
     }
   } else {
     // at most 128 rows: H <= 254 * 128 < 32767, the cap never binds
-    stripe<G, R, (G * R > 128), true, 32 * R, kPssm>(
+    stripe<G, R, (kCap && G * R > 128), true, 32 * R, kPssm, kWide>(
         p, 0, alph, 4 * (prof + lane * (R / 4)), ring, nullptr, nullptr, go,
         ge, best);
   }

@@ -48,14 +48,15 @@ namespace {
 
 // K1/K2's class instance (G, R): 32 / G pairs a warp, the pairs
 // order[lo..hi) of class cls (lo = bounds[cls - 1], hi = bounds[cls]);
-// Pairs is PairRows (sequence queries) or ProfRows (PSSM queries).
-template <int G, int R, bool kRev, class Pairs>
+// Pairs is PairRows (sequence queries) or ProfRows (PSSM queries); kWide:
+// the uncapped instance (align_group).
+template <int G, int R, bool kRev, bool kWide, class Pairs>
 __global__ void __launch_bounds__(32 * kWarps) sw_pair_kernel(
     const int32_t* __restrict__ submat, int alph, Pairs pairs,
     const int32_t* __restrict__ q_end, const int32_t* __restrict__ t_end,
     int go, int ge, const int32_t* __restrict__ order,
     const int32_t* __restrict__ bounds, int cls,
-    uint32_t* __restrict__ carry, int32_t* __restrict__ score_out,
+    void* __restrict__ carry, int32_t* __restrict__ score_out,
     int32_t* __restrict__ row_out, int32_t* __restrict__ col_out) {
   constexpr int kPairs = 32 / G;   // pairs a warp
   const int lo = cls > 0 ? bounds[cls - 1] : 0, hi = bounds[cls];
@@ -68,9 +69,9 @@ __global__ void __launch_bounds__(32 * kWarps) sw_pair_kernel(
   if (slot0 >= hi) return;   // uniform over the warp
   const int slot = slot0 + lane / G;
   const bool have = slot < hi;
-  align_group<G, R, kRev>(pairs, order[have ? slot : slot0], have, alph,
-                          q_end, t_end, go, ge, carry, score_out, row_out,
-                          col_out);
+  align_group<G, R, kRev, kWide>(pairs, order[have ? slot : slot0], have,
+                                 alph, q_end, t_end, go, ge, carry,
+                                 score_out, row_out, col_out);
 }
 
 // One launch of K1/K2.
@@ -84,30 +85,33 @@ struct GroupArgs {
   int B, go, ge;
   const int32_t* order;
   const int32_t* bounds;
-  uint32_t* carry;
+  void* carry;   // 4-byte words, 8-byte in the uncapped instances
   int32_t *score, *row, *col;
 };
 
 // One launch of class cls on `stream`: a block per 4 (32 / G) slots of the
 // whole batch, since the class bounds stay on the device; blocks past the
 // class return at once.
-template <int G, int R, bool kRev, class Pairs>
+template <int G, int R, bool kRev, bool kWide, class Pairs>
 int launch_group_class(const GroupArgs<Pairs>& a, int cls,
                        cudaStream_t stream) {
   const size_t bytes = 4 * group_smem_words<G, R>(a.alph);
-  const int rc = allow_smem(sw_pair_kernel<G, R, kRev, Pairs>, bytes);
+  const int rc = allow_smem(sw_pair_kernel<G, R, kRev, kWide, Pairs>, bytes);
   if (rc != 0) return rc;
   const int per_block = kWarps * (32 / G);
-  sw_pair_kernel<G, R, kRev, Pairs><<<(a.B + per_block - 1) / per_block,
-                                       32 * kWarps, bytes, stream>>>(
+  sw_pair_kernel<G, R, kRev, kWide, Pairs>
+      <<<(a.B + per_block - 1) / per_block, 32 * kWarps, bytes, stream>>>(
       a.submat, a.alph, a.pairs, a.q_end, a.t_end, a.go, a.ge, a.order,
       a.bounds, cls, a.carry, a.score, a.row, a.col);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K1/K2's classes of sw_cuda.PAIR_CLASSES, each on its side stream
-// (on_side_streams).
-template <bool kRev, class Pairs>
+// (on_side_streams). The uncapped instances (kWide) differ only in classes
+// 3 and 4: classes 0-2 sweep at most 128 rows, where the capped instance
+// never caps (align_group) and H fits its 16-bit hand-off, so they launch
+// the capped instance.
+template <bool kRev, bool kWide, class Pairs>
 int launch_groups(const GroupArgs<Pairs>& a, cudaStream_t stream) {
   if (a.alph < 1 || a.alph > kAlphPad || a.pairs.Lq < 1 || a.pairs.Lt < 1 ||
       (a.pairs.Lq > kStripe && a.carry == nullptr))
@@ -115,11 +119,11 @@ int launch_groups(const GroupArgs<Pairs>& a, cudaStream_t stream) {
   if (a.B <= 0) return static_cast<int>(cudaGetLastError());
   return on_side_streams(stream, [&](int c, cudaStream_t s) {
     switch (c) {
-      case 0: return launch_group_class<4, 8, kRev>(a, 0, s);
-      case 1: return launch_group_class<8, 8, kRev>(a, 1, s);
-      case 2: return launch_group_class<16, 8, kRev>(a, 2, s);
-      case 3: return launch_group_class<16, 16, kRev>(a, 3, s);
-      default: return launch_group_class<32, kMaxRows, kRev>(a, 4, s);
+      case 0: return launch_group_class<4, 8, kRev, false>(a, 0, s);
+      case 1: return launch_group_class<8, 8, kRev, false>(a, 1, s);
+      case 2: return launch_group_class<16, 8, kRev, false>(a, 2, s);
+      case 3: return launch_group_class<16, 16, kRev, kWide>(a, 3, s);
+      default: return launch_group_class<32, kMaxRows, kRev, kWide>(a, 4, s);
     }
   });
 }
@@ -142,7 +146,7 @@ extern "C" int sw_pair_ends(const int32_t* submat, int alph, const uint8_t* q,
                             const int32_t* order, const int32_t* bounds,
                             uint32_t* carry, int32_t* best, int32_t* q_end,
                             int32_t* t_end, void* stream) {
-  return launch_groups<false>(
+  return launch_groups<false, false>(
       GroupArgs<PairRows>{submat, alph,
                           PairRows{q, qb, q_len, t, t_len, Lq, Lt}, nullptr,
                           nullptr, B, go, ge, order, bounds, carry, best,
@@ -160,7 +164,7 @@ extern "C" int sw_pair_starts(const int32_t* submat, int alph,
                               const int32_t* bounds, uint32_t* carry,
                               int32_t* score, int32_t* q_start,
                               int32_t* t_start, void* stream) {
-  return launch_groups<true>(
+  return launch_groups<true, false>(
       GroupArgs<PairRows>{submat, alph,
                           PairRows{q, qb, q_len, t, t_len, Lq, Lt}, q_end,
                           t_end, B, go, ge, order, bounds, carry, score,
@@ -182,7 +186,7 @@ extern "C" int sw_pair_ends_prof(const int8_t* prof, int alph,
                                  uint32_t* carry, int32_t* best,
                                  int32_t* q_end, int32_t* t_end,
                                  void* stream) {
-  return launch_groups<false>(
+  return launch_groups<false, false>(
       GroupArgs<ProfRows>{nullptr, alph,
                           ProfRows{prof, p_len, t, t_len, li, lj, nP, nT, Lq,
                                    Lt, alph},
@@ -202,11 +206,51 @@ extern "C" int sw_pair_starts_prof(const int8_t* prof, int alph,
                                    const int32_t* bounds, uint32_t* carry,
                                    int32_t* score, int32_t* q_start,
                                    int32_t* t_start, void* stream) {
-  return launch_groups<true>(
+  return launch_groups<true, false>(
       GroupArgs<ProfRows>{nullptr, alph,
                           ProfRows{prof, p_len, t, t_len, li, lj, nP, nT, Lq,
                                    Lt, alph},
                           q_end, t_end, B, go, ge, order, bounds, carry,
                           score, q_start, t_start},
+      static_cast<cudaStream_t>(stream));
+}
+
+// The uncapped instances of sw_pair_ends / sw_pair_starts (the realign
+// pass: sw_jax.sw_align_batch's contract, H not capped at 32767): the same
+// arguments, with carry holding (B, Lt) 8-byte words (H and F + go in 32
+// bits each) when Lq > 512.
+extern "C" int sw_pair_ends_nocap(const int32_t* submat, int alph,
+                                  const uint8_t* q, const int8_t* qb,
+                                  const int32_t* q_len, const uint8_t* t,
+                                  const int32_t* t_len, int B, int Lq,
+                                  int Lt, int go, int ge,
+                                  const int32_t* order,
+                                  const int32_t* bounds, void* carry,
+                                  int32_t* best, int32_t* q_end,
+                                  int32_t* t_end, void* stream) {
+  return launch_groups<false, true>(
+      GroupArgs<PairRows>{submat, alph,
+                          PairRows{q, qb, q_len, t, t_len, Lq, Lt}, nullptr,
+                          nullptr, B, go, ge, order, bounds, carry, best,
+                          q_end, t_end},
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int sw_pair_starts_nocap(const int32_t* submat, int alph,
+                                    const uint8_t* q, const int8_t* qb,
+                                    const int32_t* q_len, const uint8_t* t,
+                                    const int32_t* t_len,
+                                    const int32_t* q_end,
+                                    const int32_t* t_end, int B, int Lq,
+                                    int Lt, int go, int ge,
+                                    const int32_t* order,
+                                    const int32_t* bounds, void* carry,
+                                    int32_t* score, int32_t* q_start,
+                                    int32_t* t_start, void* stream) {
+  return launch_groups<true, true>(
+      GroupArgs<PairRows>{submat, alph,
+                          PairRows{q, qb, q_len, t, t_len, Lq, Lt}, q_end,
+                          t_end, B, go, ge, order, bounds, carry, score,
+                          q_start, t_start},
       static_cast<cudaStream_t>(stream));
 }

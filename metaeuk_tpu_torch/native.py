@@ -9,7 +9,8 @@ native/libmetaeuk_host.so is never loaded. Build and load hold a lock, so a
 thread that asks while another thread builds waits for the library instead
 of getting None. Only the entry points that the port's host stages call are
 bound here (comp_bias, orf_scan_strand, chain_dp, chain_dp_groups,
-banded_sw_traceback_prof; the prefilter binds its own). Each entry point
+banded_sw_traceback, banded_sw_traceback_prof; the prefilter binds its
+own). Each entry point
 returns None when the library is unavailable, and its callers then fall
 back to Python.
 """
@@ -188,6 +189,42 @@ def chain_dp(contig_start, contig_end, t_start, t_end, bit_score, aa_len,
                  prev_id, path_score, num_exons, path_aa_len,
                  ctypes.byref(best_last), ctypes.byref(best_score))
     return prev_id, path_score, int(best_last.value), int(best_score.value)
+
+
+def banded_sw_traceback(q_enc, bias, t_enc, score, band_width,
+                        go=11, ge=1, submat=None):
+    """CIGAR op string (M/I/D bytes) for an accepted alignment window
+    (native banded_sw port); None when the library is unavailable.
+    submat: 21x21 int32 override (the --realign -0.2-biased matrix).
+    Copied from metaeuk_tpu/native.py:86; bound under the loader's lock."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    with _LOCK:
+        if not getattr(lib, "_bt_bound", False):
+            i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+            i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+            lib.banded_sw_traceback.restype = ctypes.c_int64
+            lib.banded_sw_traceback.argtypes = [
+                u8p, i8p, u8p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, i32p, ctypes.c_int64, u8p, ctypes.c_int64]
+            lib._bt_bound = True
+    from .data.submat import BLOSUM62_SCORES
+    if submat is None:
+        submat = BLOSUM62_SCORES
+    q = np.ascontiguousarray(q_enc, np.uint8)
+    b = np.ascontiguousarray(bias, np.int8)
+    t = np.ascontiguousarray(t_enc, np.uint8)
+    cap = len(q) + len(t) + 4
+    out = np.zeros(cap, np.uint8)
+    n = lib.banded_sw_traceback(
+        q, b, t, len(q), len(t), int(score), go, ge, int(band_width),
+        np.ascontiguousarray(submat, np.int32), 21, out, cap)
+    if n < 0:
+        return None
+    return out[:n].tobytes().decode()
 
 
 def banded_sw_traceback_prof(prof, t_enc, score, band_width, go=11, ge=1):

@@ -9,7 +9,11 @@ dispatched by the device of the tensors given.
 Counterparts in the JAX package (metaeuk_tpu/ops/sw_pallas.py): sw_ends is
 sw_pallas_ends / _sw_pallas_ends_from_S over _build_S_gapped (K1), sw_starts
 is _sw_pallas_starts_from_S (K2), align_full is _align_full /
-_align_from_S; sw_ends_prof, sw_starts_prof and align_full_prof are the
+_align_from_S; with cap=None (sw_pair_ends_nocap / sw_pair_starts_nocap,
+K1/K2's uncapped instances, H not capped at 32767 and handed on in 32 bits)
+the three are metaeuk_tpu/ops/sw_jax.py's sw_batch_ends, sw_batch_starts and
+sw_align_batch, the XLA code of the realign pass, which has no Pallas
+kernel; sw_ends_prof, sw_starts_prof and align_full_prof are the
 same kernels on PSSM queries (_align_full_prof over _build_S_prof), read
 from staged profile and fragment matrices by pair indices, with no gathered
 (B, Lq, 21) copy on the card. Batches need no padding to a tile multiple:
@@ -37,17 +41,21 @@ version, per kernel; reset_counts() sets both to zero.
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from . import _build, sw_torch
 from .. import state
+from ..data.submat import BLOSUM62_SCORES
 from ..state import default_scoring
 
-KERNELS = ("sw_pair_ends", "sw_pair_starts", "sw_pair_ends_prof",
+KERNELS = ("sw_pair_ends", "sw_pair_starts", "sw_pair_ends_nocap",
+           "sw_pair_starts_nocap", "sw_pair_ends_prof",
            "sw_pair_starts_prof", "sw_qm_ends", "sw_qm_starts",
            "sw_qm_rt_ends", "sw_qm_rt_starts")
 # the .cu source (csrc/<name>.cu) of each kernel
 SOURCES = {"sw_pair_ends": "sw_pair", "sw_pair_starts": "sw_pair",
+           "sw_pair_ends_nocap": "sw_pair", "sw_pair_starts_nocap": "sw_pair",
            "sw_pair_ends_prof": "sw_pair", "sw_pair_starts_prof": "sw_pair",
            "sw_qm_ends": "sw_qm", "sw_qm_starts": "sw_qm",
            "sw_qm_rt_ends": "sw_qm_rt", "sw_qm_rt_starts": "sw_qm_rt"}
@@ -91,6 +99,8 @@ _ARGTYPES = {
     "sw_qm_starts": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
                      _P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
+_ARGTYPES["sw_pair_ends_nocap"] = _ARGTYPES["sw_pair_ends"]
+_ARGTYPES["sw_pair_starts_nocap"] = _ARGTYPES["sw_pair_starts"]
 _ARGTYPES["sw_qm_rt_ends"] = _ARGTYPES["sw_qm_ends"]
 _ARGTYPES["sw_qm_rt_starts"] = _ARGTYPES["sw_qm_starts"]
 
@@ -180,10 +190,22 @@ def _launch(name, args):
     LAUNCHES[name] += 1
 
 
+def _pair_kernel(name, cap):
+    """K1/K2's entry `name` for a cap of 32767, or its uncapped instance
+    for cap None."""
+    if cap is None:
+        return name + "_nocap"
+    if cap != state.SCORE_CAP:
+        raise ValueError(f"sw_pair kernels cap H at {state.SCORE_CAP} or not "
+                         f"at all, not at {cap}")
+    return name
+
+
 def _pair_launch(name, scoring, q_enc, q_bias, q_len, t_enc, t_len, *ends):
-    """Launches K1 (no ends) or K2 (ends = q_end, t_end) on its work list,
-    with the row-stripe hand-off of (B, Lt) words only when the batch is
-    wider than PAIR_STRIPE rows."""
+    """Launches K1 (no ends) or K2 (ends = q_end, t_end), capped or not
+    (name), on its work list, with the row-stripe hand-off of (B, Lt) words
+    (8-byte in the uncapped instances) only when the batch is wider than
+    PAIR_STRIPE rows."""
     q, qb, ql, t, tl, *ends, sub = _cuda_inputs(
         scoring, q_enc, q_bias, q_len, t_enc, t_len, *ends)
     # the kernels keep the query profile as int8 and add the bias after
@@ -191,7 +213,8 @@ def _pair_launch(name, scoring, q_enc, q_bias, q_len, t_enc, t_len, *ends):
     (B, Lq), Lt = q.shape, t.shape[1]
     order, bounds = pair_classes(ql, tl, Lq, Lt, *ends)
     dev = q_enc.device
-    carry = torch.empty((B, Lt), dtype=torch.int32, device=dev) \
+    wide = torch.int64 if name.endswith("_nocap") else torch.int32
+    carry = torch.empty((B, Lt), dtype=wide, device=dev) \
         if Lq > PAIR_STRIPE else None
     outs = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
     _launch(name, [
@@ -204,36 +227,73 @@ def _pair_launch(name, scoring, q_enc, q_bias, q_len, t_enc, t_len, *ends):
     return tuple(outs)
 
 
-def sw_ends(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
-    """Forward SW ends (K1): (score, q_end, t_end), each (B,) int32."""
+def sw_ends(q_enc, q_bias, q_len, t_enc, t_len, scoring=None,
+            cap=state.SCORE_CAP):
+    """Forward SW ends (K1; cap=None: its uncapped instance):
+    (score, q_end, t_end), each (B,) int32."""
     scoring = scoring or default_scoring(q_enc.device)
+    name = _pair_kernel("sw_pair_ends", cap)
     if q_enc.device.type == "cpu":
-        PLAIN_CALLS["sw_pair_ends"] += 1
+        PLAIN_CALLS[name] += 1
         return sw_torch.sw_ends(q_enc, q_bias, q_len, t_enc, t_len,
-                                scoring=scoring)
-    return _pair_launch("sw_pair_ends", scoring, q_enc, q_bias, q_len,
-                        t_enc, t_len)
+                                scoring=scoring, cap=cap)
+    return _pair_launch(name, scoring, q_enc, q_bias, q_len, t_enc, t_len)
 
 
 def sw_starts(q_enc, q_bias, q_len, t_enc, t_len, q_end, t_end,
-              scoring=None):
-    """Reverse-prefix SW starts (K2) from known ends:
-    (score, q_start, t_start), each (B,) int32."""
+              scoring=None, cap=state.SCORE_CAP):
+    """Reverse-prefix SW starts (K2; cap=None: its uncapped instance) from
+    known ends: (score, q_start, t_start), each (B,) int32."""
     scoring = scoring or default_scoring(q_enc.device)
+    name = _pair_kernel("sw_pair_starts", cap)
     if q_enc.device.type == "cpu":
-        PLAIN_CALLS["sw_pair_starts"] += 1
+        PLAIN_CALLS[name] += 1
         return sw_torch.sw_starts(q_enc, q_bias, q_len, t_enc, t_len,
-                                  q_end, t_end, scoring=scoring)
-    return _pair_launch("sw_pair_starts", scoring, q_enc, q_bias, q_len,
-                        t_enc, t_len, q_end, t_end)
+                                  q_end, t_end, scoring=scoring, cap=cap)
+    return _pair_launch(name, scoring, q_enc, q_bias, q_len, t_enc, t_len,
+                        q_end, t_end)
 
 
-def align_full(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
-    """Ends then starts (K1 + K2) through the dispatching wrappers:
-    (score, q_start, q_end, t_start, t_end)."""
+def align_full(q_enc, q_bias, q_len, t_enc, t_len, scoring=None,
+               cap=state.SCORE_CAP):
+    """Ends then starts (K1 + K2, or with cap=None their uncapped
+    instances) through the dispatching wrappers: (score, q_start, q_end,
+    t_start, t_end)."""
     return sw_torch.align_full(q_enc, q_bias, q_len, t_enc, t_len,
                                scoring=scoring, ends=sw_ends,
-                               starts=sw_starts)
+                               starts=sw_starts, cap=cap)
+
+
+@functools.lru_cache(maxsize=None)
+def _batch_scoring(submat_bytes, alph, go, ge, device):
+    """One Scoring per (matrix, gap costs, device), kept so that the
+    kernels' score check reads each matrix back once."""
+    sub = np.frombuffer(submat_bytes, np.int32).reshape(alph, alph).copy()
+    return state.scoring_from_numpy(sub, go, ge, device)
+
+
+def sw_align_batch(q_enc, q_bias, q_len, t_enc, t_len, submat=None,
+                   go=state.GO, ge=state.GE, device="cuda"):
+    """Counterpart of metaeuk_tpu/ops/sw_jax.py:176 sw_align_batch, the
+    realign pass's alignment: padded (B, Lq) / (B, Lt) numpy codes and
+    biases and (B,) lengths in, numpy (score, q_start, q_end, t_start,
+    t_end) int32 out, with sw_jax's conventions (H not capped; no hit gives
+    (0, -1, Lq - 1, -1, -1)). submat: the substitution matrix (default
+    BLOSUM62), go/ge: the gap costs. On a CUDA device it runs K1/K2's
+    uncapped instances, on the CPU their plain versions."""
+    device = torch.device(device)
+    sub = np.ascontiguousarray(
+        BLOSUM62_SCORES if submat is None else submat, np.int32)
+    scoring = _batch_scoring(sub.tobytes(), sub.shape[0], int(go), int(ge),
+                             device)
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=device, dtype=dtype)
+    outs = align_full(put(q_enc, torch.uint8), put(q_bias, torch.int8),
+                      put(q_len, torch.int32), put(t_enc, torch.uint8),
+                      put(t_len, torch.int32), scoring=scoring, cap=None)
+    return tuple(o.cpu().numpy() for o in outs)
 
 
 # the last staged PSSM matrix the PSSM kernels were given, and its int8

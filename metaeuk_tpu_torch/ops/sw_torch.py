@@ -22,10 +22,11 @@ as submat[q_i, t_j] + bias_i (prof[b, i, t_j], no bias), with -128 on padded
 query rows (i >= q_len) and padded target columns (j >= t_len), exactly as
 _build_S_gapped builds S. The column recurrence is the Pallas one: E starts
 at -go, H at 0, F is the running max over G down the column (torch.cummax),
-H is capped at 32767. Forward tie-break: highest score, then the first
-column, then the smallest row; no hit gives (0, Lq-1, -1). Reverse: columns
-te..0 and rows <= qe, tie-break the last column, then the largest row; no
-hit gives (0, 0, -1).
+H is capped at 32767 (cap=None: not capped, sw_jax.sw_align_batch's
+contract, which the realign pass keeps). Forward tie-break: highest score,
+then the first column, then the smallest row; no hit gives (0, Lq-1, -1).
+Reverse: columns te..0 and rows <= qe, tie-break the last column, then the
+largest row; no hit gives (0, 0, -1).
 
 Inputs are (B, Lq) / (B, Lt) integer tensors and (B,) lengths on one
 device; outputs are (B,) int32 tensors on that device. Like the kernels,
@@ -74,13 +75,18 @@ def _trim(q_enc, q_bias, q_len, t_enc, t_len):
     return q_enc[:, :lq], q_bias[:, :lq], t_enc[:, :lt]
 
 
+def _capped(H, cap):
+    return H if cap is None else torch.clamp_max(H, cap)
+
+
 def _column(prof, tcls, j, lo, hi):
     B = prof.shape[0]
     idx = tcls[:, j].view(B, 1, 1).expand(B, hi - lo, 1)
     return prof[:, lo:hi].gather(2, idx).squeeze(2)
 
 
-def _ends_loop(column, n_cols, B, Lq, Lq_full, scoring, dev, tq=None):
+def _ends_loop(column, n_cols, B, Lq, Lq_full, scoring, dev, tq=None,
+               cap=SCORE_CAP):
     """The forward recurrence over columns 0..n_cols-1; column(j, lo, hi)
     gives the (B, hi - lo) int32 scores of column j on rows lo..hi-1
     (PAD_SCORE on padded cells). The rows run in tiles of tq (one tile when
@@ -89,7 +95,8 @@ def _ends_loop(column, n_cols, B, Lq, Lq_full, scoring, dev, tq=None):
     k * ge over the rows above (ab) carry into the next tile (sw_pallas.py
     _dp_kernel_qm_rt). The tie-break keeps the earlier column across
     tiles: an earlier tile's best is kept only on an equal score and
-    column, which gives its smaller row."""
+    column, which gives its smaller row. H is capped at cap (None: not
+    capped)."""
     go, ge = scoring.go, scoring.ge
     i32 = dict(dtype=torch.int32, device=dev)
     hb = torch.zeros((B, n_cols), **i32)
@@ -115,7 +122,7 @@ def _ends_loop(column, n_cols, B, Lq, Lq_full, scoring, dev, tq=None):
             A = torch.cummax(G + igge, dim=1).values
             Aex = torch.maximum(torch.cat([neg_row, A[:, :-1]], dim=1),
                                 ab[:, j:j + 1])
-            H = torch.clamp_max(torch.maximum(G, Aex + f_base), SCORE_CAP)
+            H = _capped(torch.maximum(G, Aex + f_base), cap)
             col_max, col_row = torch.max(H, dim=1)
             better = (col_max > best) | ((col_max == best) & (best > 0)
                                          & (j < t_end))
@@ -130,14 +137,15 @@ def _ends_loop(column, n_cols, B, Lq, Lq_full, scoring, dev, tq=None):
 
 
 def _starts_loop(column, n_cols, B, Lq, q_end, t_end, scoring, dev,
-                 tq=None):
+                 tq=None, cap=SCORE_CAP):
     """The reverse-prefix recurrence over columns n_cols-1..0, rows <= q_end
     and columns <= t_end; column as for _ends_loop. The rows run in tiles of
     tq (one tile when tq is None), bottom tile first; per column, the first
     row's H and the suffix F-chain max over the rows below carry into the
     tile above (sw_pallas.py _dp_kernel_qm_rev_rt). The tie-break keeps the
     last column across tiles: a lower tile's best is kept only on an equal
-    score and column, which gives its larger row."""
+    score and column, which gives its larger row. H is capped at cap
+    (None: not capped)."""
     go, ge = scoring.go, scoring.ge
     i32 = dict(dtype=torch.int32, device=dev)
     q_end = q_end.to(torch.int32)
@@ -169,7 +177,7 @@ def _starts_loop(column, n_cols, B, Lq, q_end, t_end, scoring, dev,
             A = torch.cummax((G - igge).flip(1), dim=1).values.flip(1)
             Aex = torch.maximum(torch.cat([A[:, 1:], neg_row], dim=1),
                                 ab[:, j:j + 1])
-            H = torch.clamp_max(torch.maximum(G, Aex + f_base), SCORE_CAP)
+            H = _capped(torch.maximum(G, Aex + f_base), cap)
             col_max, col_last = torch.max(H.flip(1), dim=1)
             better = (col_max > best) | ((col_max == best) & (best > 0)
                                          & (j > t_start))
@@ -183,8 +191,10 @@ def _starts_loop(column, n_cols, B, Lq, q_end, t_end, scoring, dev,
     return best, q_start, t_start
 
 
-def sw_ends(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
-    """Forward ends: (score, q_end, t_end), each (B,) int32."""
+def sw_ends(q_enc, q_bias, q_len, t_enc, t_len, scoring=None,
+            cap=SCORE_CAP):
+    """Forward ends: (score, q_end, t_end), each (B,) int32; H capped at
+    cap (None: not capped)."""
     scoring = scoring or default_scoring(q_enc.device)
     B, Lq_full = q_enc.shape
     q_enc, q_bias, t_enc = _trim(q_enc, q_bias, q_len, t_enc, t_len)
@@ -192,13 +202,14 @@ def sw_ends(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):
     tcls = _target_classes(scoring, t_enc, t_len)
     return _ends_loop(lambda j, lo, hi: _column(prof, tcls, j, lo, hi),
                       t_enc.shape[1], B, q_enc.shape[1], Lq_full, scoring,
-                      q_enc.device)
+                      q_enc.device, cap=cap)
 
 
 def sw_starts(q_enc, q_bias, q_len, t_enc, t_len, q_end, t_end,
-              scoring=None):
+              scoring=None, cap=SCORE_CAP):
     """Reverse-prefix starts for pairs with known ends:
-    (score, q_start, t_start), each (B,) int32."""
+    (score, q_start, t_start), each (B,) int32; H capped at cap (None: not
+    capped)."""
     scoring = scoring or default_scoring(q_enc.device)
     q_enc, q_bias, t_enc = _trim(q_enc, q_bias, q_len, t_enc, t_len)
     B, Lq = q_enc.shape
@@ -206,7 +217,7 @@ def sw_starts(q_enc, q_bias, q_len, t_enc, t_len, q_end, t_end,
     tcls = _target_classes(scoring, t_enc, t_len)
     return _starts_loop(lambda j, lo, hi: _column(prof, tcls, j, lo, hi),
                         t_enc.shape[1], B, Lq, q_end, t_end, scoring,
-                        q_enc.device)
+                        q_enc.device, cap=cap)
 
 
 def _pssm_setup(prof, q_len, t_enc, t_len):
@@ -371,15 +382,17 @@ def qm_starts_rt(q_mat, qb_mat, q_lens, t_mat, t_lens, qidx, lj, q_end,
 
 
 def align_full(q_enc, q_bias, q_len, t_enc, t_len, scoring=None,
-               ends=sw_ends, starts=sw_starts):
+               ends=sw_ends, starts=sw_starts, cap=SCORE_CAP):
     """Ends, then starts from the clamped ends; start coordinates of pairs
-    that did not align are -1 (sw_pallas.py _align_from_S).
-    Returns (score, q_start, q_end, t_start, t_end)."""
+    that did not align are -1 (sw_pallas.py _align_from_S; with cap=None,
+    sw_jax.sw_align_batch). Returns (score, q_start, q_end, t_start,
+    t_end)."""
     score, q_end, t_end = ends(q_enc, q_bias, q_len, t_enc, t_len,
-                               scoring=scoring)
+                               scoring=scoring, cap=cap)
     _, q_start, t_start = starts(q_enc, q_bias, q_len, t_enc, t_len,
                                  torch.clamp_min(q_end, 0),
-                                 torch.clamp_min(t_end, 0), scoring=scoring)
+                                 torch.clamp_min(t_end, 0), scoring=scoring,
+                                 cap=cap)
     aligned = (t_end >= 0) & (score > 0)
     q_start = torch.where(aligned, q_start, -1)
     t_start = torch.where(aligned, t_start, -1)

@@ -7,6 +7,12 @@ the kernels of ops/sw_cuda.py: forward ends for every pair, the host
 E-value gate, then the reverse-prefix starts for the survivors only. The
 hit array is the JAX driver's, field for field.
 
+realign() and backtraces() are the JAX driver's (driver.py:1167, :1273):
+realign's alignments run in (Lq, Lt) buckets through ops/sw_cuda.py
+sw_align_batch on the driver's device (K1/K2's uncapped instances: the
+JAX package's realign runs sw_jax.sw_align_batch, which does not cap H),
+and both trace each hit back on the host with the native banded_sw.
+
 Routing (driver.py _qm_mode, _split_qm and the gate of search()): a query
 with at least QM_MIN_CANDS candidates in its bucket goes to the query-major
 kernels (K3/K4, one query against tiles of TB = 128 target lanes), every
@@ -34,7 +40,9 @@ import numpy as np
 import torch
 
 from .. import state
-from ..data.submat import composition_bias_rounded_batch, encode_aa
+from ..data.submat import (composition_bias_rounded,
+                           composition_bias_rounded_batch, encode_aa,
+                           scores_with_bias)
 from ..ops import sw_cuda
 from ..ops.sw_torch import TB
 from ..utils import log
@@ -60,7 +68,9 @@ HIT_DTYPE = np.dtype([
 # driver.py:58): forward cells over every candidate pair, reverse-prefix
 # cells over E-value survivors
 CELLS = {"fwd": 0, "rev": 0}
-# wall seconds per search() phase, summed over calls; reset like CELLS
+# wall seconds per search() phase, and of backtraces() (backtraces) and
+# realign() (realign_sw, realign_traceback), summed over calls; reset like
+# CELLS
 PHASE_SECONDS = {}
 
 # DP cells per launch, by device type. A group of 4 to 32 lanes aligns one
@@ -629,3 +639,172 @@ class SearchDriver:
                             -hits["bit_score"], hits["evalue"],
                             hits["orf_idx"]))
         return hits[order]
+
+    def realign(self, hits, orf_aa_seqs, realign_score_bias=-0.2,
+                realign_max_seqs=None, realign_cov=0.0, cov_mode=0):
+        """--realign pass (Alignment.cpp:298-446; copied from driver.py:1167):
+        recompute alignment boundaries and backtraces with the
+        scoreBias-shifted matrix (default -0.2); scores and E-values keep
+        the first-pass values, and composition bias is recomputed with the
+        realign matrix. The realign alignments run bucket by bucket, in
+        launches of at most _pairs_per_launch pairs, through
+        sw_cuda.sw_align_batch on the driver's device.
+
+        Returns (hits_out, backtraces, seq_ids): coords replaced by the
+        realign pass; rows dropped only by the realign coverage gate,
+        and per query at most realign_max_seqs rows survive."""
+        native = _traceback_native()
+
+        p = self.params
+        t0 = time.perf_counter()
+        sub = scores_with_bias(2.0, realign_score_bias)
+        enc_cache = {}
+
+        def q_arrays(oi):
+            if oi not in enc_cache:
+                e = encode_aa(orf_aa_seqs[oi])
+                b = composition_bias_rounded(
+                    e, p.comp_bias_correction_scale, scores=sub) \
+                    if p.comp_bias_correction else np.zeros(len(e), np.int8)
+                enc_cache[oi] = (e, b)
+            return enc_cache[oi]
+
+        n = len(hits)
+        score2 = np.zeros(n, np.int32)
+        qs2 = np.zeros(n, np.int32)
+        qe2 = np.zeros(n, np.int32)
+        ts2 = np.zeros(n, np.int32)
+        te2 = np.zeros(n, np.int32)
+        # bucket hit pairs and realign in dense batches
+        ol = np.array([len(q_arrays(int(h["orf_idx"]))[0]) for h in hits],
+                      np.int64)
+        tl = hits["t_len"].astype(np.int64)
+        lq_b = np.array([_bucket(max(l, 1)) for l in ol])
+        lt_b = np.array([_bucket(max(l, 1)) for l in tl])
+        for (Lq, Lt) in sorted(set(zip(lq_b.tolist(), lt_b.tolist()))):
+            sel_all = np.flatnonzero((lq_b == Lq) & (lt_b == Lt))
+            step = self._pairs_per_launch(Lq, Lt)
+            for s in range(0, len(sel_all), step):
+                sel = sel_all[s:s + step]
+                qm = pad_rows([q_arrays(int(hits[i]["orf_idx"]))[0]
+                               for i in sel], Lq)
+                qb = pad_rows([q_arrays(int(hits[i]["orf_idx"]))[1]
+                               for i in sel], Lq)
+                tm = pad_rows([self.targets_enc[int(hits[i]["target_idx"])]
+                               for i in sel], Lt)
+                sc, qs, qe, ts, te = sw_cuda.sw_align_batch(
+                    qm, qb, ol[sel].astype(np.int32), tm,
+                    tl[sel].astype(np.int32), submat=sub,
+                    device=self.device)
+                score2[sel], qs2[sel], qe2[sel] = sc, qs, qe
+                ts2[sel], te2[sel] = ts, te
+        t1 = time.perf_counter()
+
+        keep = np.zeros(n, bool)
+        bts, seq_ids = [], []
+        per_query = {}
+        cap = realign_max_seqs if realign_max_seqs is not None else 1 << 62
+        for i in range(n):
+            oi = int(hits[i]["orf_idx"])
+            if per_query.get(oi, 0) >= cap:
+                continue
+            if score2[i] <= 0 or te2[i] < 0:
+                continue
+            q_cov = (abs(int(qe2[i]) - int(qs2[i])) + 1) / max(int(ol[i]), 1)
+            t_cov = (abs(int(te2[i]) - int(ts2[i])) + 1) / max(int(tl[i]), 1)
+            if cov_mode == 1:  # COV_MODE_TARGET
+                cov_ok = t_cov >= realign_cov
+            elif cov_mode == 2:  # COV_MODE_QUERY
+                cov_ok = q_cov >= realign_cov
+            else:
+                cov_ok = q_cov >= realign_cov and t_cov >= realign_cov
+            if not cov_ok:
+                continue
+            per_query[oi] = per_query.get(oi, 0) + 1
+            keep[i] = True
+            q_enc, q_bias = q_arrays(oi)
+            t_enc = self.targets_enc[int(hits[i]["target_idx"])]
+            qs, qe = int(qs2[i]), int(qe2[i])
+            ts, te = int(ts2[i]), int(te2[i])
+            band = abs((te - ts + 1) - (qe - qs + 1)) + 1
+            bt = native.banded_sw_traceback(
+                q_enc[qs:qe + 1], q_bias[qs:qe + 1], t_enc[ts:te + 1],
+                int(score2[i]), band, p.gap_open, p.gap_extend, submat=sub)
+            if bt is None:
+                bt = ""
+            bts.append(bt)
+            seq_ids.append(_traceback_seq_id(bt, q_enc, qs, t_enc, ts))
+        out = hits[keep].copy()
+        out["q_start"], out["q_end"] = qs2[keep], qe2[keep]
+        out["t_start"], out["t_end"] = ts2[keep], te2[keep]
+        t2 = time.perf_counter()
+        for k, v in (("realign_sw", t1 - t0), ("realign_traceback", t2 - t1)):
+            PHASE_SECONDS[k] = PHASE_SECONDS.get(k, 0.0) + v
+        return out, bts, np.asarray(seq_ids, np.float32)
+
+    def backtraces(self, hits, orf_aa_seqs):
+        """M/I/D backtraces + exact seqIds for accepted hits, the
+        reference's alignment-mode-3 path (banded_sw on the alignment
+        window + computeBacktrace, StripedSmithWaterman.cpp:498-581; copied
+        from driver.py:1273). Returns (list[str], float32 seqIds by
+        alnLen)."""
+        native = _traceback_native()
+
+        p = self.params
+        t0 = time.perf_counter()
+        enc_cache = {}
+        bts = []
+        seq_ids = np.zeros(len(hits), np.float32)
+        for idx, h in enumerate(hits):
+            oi = int(h["orf_idx"])
+            if oi not in enc_cache:
+                e = encode_aa(orf_aa_seqs[oi])
+                b = composition_bias_rounded(e, p.comp_bias_correction_scale) \
+                    if p.comp_bias_correction else np.zeros(len(e), np.int8)
+                enc_cache[oi] = (e, b)
+            q_enc, q_bias = enc_cache[oi]
+            t_enc = self.targets_enc[int(h["target_idx"])]
+            qs, qe = int(h["q_start"]), int(h["q_end"])
+            ts, te = int(h["t_start"]), int(h["t_end"])
+            band = abs((te - ts + 1) - (qe - qs + 1)) + 1
+            bt = native.banded_sw_traceback(
+                q_enc[qs:qe + 1], q_bias[qs:qe + 1], t_enc[ts:te + 1],
+                int(h["score_raw"]), band, p.gap_open, p.gap_extend)
+            if bt is None:
+                bt = ""
+            bts.append(bt)
+            seq_ids[idx] = _traceback_seq_id(bt, q_enc, qs, t_enc, ts)
+        PHASE_SECONDS["backtraces"] = PHASE_SECONDS.get("backtraces", 0.0) \
+            + time.perf_counter() - t0
+        return bts, seq_ids
+
+
+def _traceback_native():
+    """The native module once its library has loaded; raises otherwise, since
+    banded_sw_traceback would give every hit an empty backtrace."""
+    from .. import native
+
+    if native.get_lib() is None:
+        raise RuntimeError("the native host library did not build or load "
+                           "(native.get_lib()); backtraces need its "
+                           "banded_sw_traceback")
+    return native
+
+
+def _traceback_seq_id(bt, q_enc, qs, t_enc, ts):
+    """Identities over the alignment length of backtrace bt from (qs, ts),
+    float32; 0 for an empty backtrace (the loop of driver.py:1240 and
+    :1302)."""
+    if not bt:
+        return np.float32(0.0)
+    qp, tp, ids = qs, ts, 0
+    for op in bt:
+        if op == "M":
+            ids += int(q_enc[qp] == t_enc[tp])
+            qp += 1
+            tp += 1
+        elif op == "I":
+            qp += 1
+        else:
+            tp += 1
+    return np.float32(ids) / np.float32(len(bt))

@@ -34,7 +34,9 @@ COPIES = ["params.py", "utils/log.py", "utils/session.py", "io/fasta.py",
           "data/submat.py", "data/gencode.py", "data/vtml80.py",
           "ops/orf.py", "ops/chain.py", "ops/masker.py",
           "pipeline/output.py", "pipeline/reduce.py",
-          "pipeline/dpformat.py", "pipeline/alnformat.py"]
+          "pipeline/dpformat.py", "pipeline/alnformat.py",
+          "pipeline/dbtools.py", "pipeline/dbtools2.py",
+          "pipeline/filterdb.py", "pipeline/rescorediagonal.py"]
 # copies whose one branch waits for a ROADMAP item, with the lines it drops
 WAITING = {"search/evalue.py": "gumbel", "search/prefilter_kmer.py": "jax"}
 

@@ -104,6 +104,33 @@ assert not loaded, loaded
 print("jax-free run ok")
 """
 
+# chip_smoke.py's search phases import the search-slice writer of
+# tests/golden/make_search_slice.py (whose golden writer alone imports jax);
+# the port's easy-search and align --realign on the fixture
+_BLOCKED_SEARCH = _BLOCK + r"""
+sys.path.insert(0, "tests/golden")
+import make_search_slice as mss
+from metaeuk_tpu_torch.cli import main
+
+data, golden, out, mode = sys.argv[1:5]
+cfg = dict(mss.SEARCH_SLICE, homolog_targets=4, decoys=2)
+queries = mss.search_queries(cfg, [("p", b"ACDEFGHIKLMNPQRSTVWY" * 5)] * 4)
+assert len(queries) == 14 and queries[0][0] == "q0_t0_90", queries[0]
+assert main(["easy-search", f"{data}/queries_lin.faa",
+             f"{data}/proteins.faa", out + ".m8", out + "_tmp",
+             "--device", "cpu"]) == 0
+with open(out + ".m8", "rb") as a, \
+        open(f"{golden}/searchwf/easysearch.m8", "rb") as b:
+    assert a.read() == b.read()
+assert main(["align", out + "_tmp/query", out + "_tmp/target",
+             out + "_tmp/search_tmp/pref_0", out + "_re", "-a", "--realign",
+             "--device", "cpu"]) == 0
+loaded = [k for k in sys.modules if sys.modules[k] is not None and (
+    k.split(".")[0].startswith("jax") or k.split(".")[0] == "metaeuk_tpu")]
+assert not loaded, loaded
+print("jax-free run ok")
+"""
+
 
 # the port's microbenchmarks: both entry points on the CPU, jax blocked
 _BLOCKED_TOOLS = _BLOCK + r"""
@@ -208,3 +235,10 @@ def test_microbenchmark_entry_points_run_with_jax_blocked(tmp_path):
     _blocked_run(tmp_path, "kmer", _BLOCKED_TOOLS.replace(
         'sys.modules["metaeuk_tpu"] = None',
         'sys.modules["metaeuk_tpu"] = None\nsys.modules["tools"] = None'))
+
+
+def test_search_workflows_run_with_jax_blocked(tmp_path):
+    """The search-slice generator that chip_smoke.py imports makes queries,
+    and the port's easy-search (equal to the reference's BLAST-tab golden)
+    and align --realign run, with jax and metaeuk_tpu blocked."""
+    _blocked_run(tmp_path, "kmer", _BLOCKED_SEARCH)

@@ -269,6 +269,8 @@ def test_cpu_tensors_take_the_plain_version():
     sw_cuda.sw_starts(*args, torch.clamp_min(ends[1], 0),
                       torch.clamp_min(ends[2], 0))
     assert sw_cuda.PLAIN_CALLS == {"sw_pair_ends": 1, "sw_pair_starts": 1,
+                                   "sw_pair_ends_nocap": 0,
+                                   "sw_pair_starts_nocap": 0,
                                    "sw_pair_ends_prof": 0,
                                    "sw_pair_starts_prof": 0,
                                    "sw_qm_ends": 0, "sw_qm_starts": 0,

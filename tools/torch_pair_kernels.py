@@ -2,7 +2,7 @@
 """Where K1/K2's time goes at chip_smoke.py's two pair timing shapes, on one
 CUDA device.
 
-    python3 tools/torch_pair_kernels.py
+    python3 tools/torch_pair_kernels.py [--nocap]
 
 For sw_pair_ends (K1) and sw_pair_starts (K2, from the plain version's
 ends) at phase 6's TIME_SHAPE and at KMER_PAIR_SHAPE (the k-mer slice's
@@ -15,9 +15,12 @@ and true cells; then K1 on the first 64 to 4,096 pairs of TIME_SHAPE,
 which shows where a launch stops being bound by the latency of its warps'
 steps (the C entry alone). Prints the card's name, power limit and SM
 clock during a sustained run, and one JSON line per measurement. The
-kernels' outputs are checked against the plain versions first.
+kernels' outputs are checked against the plain versions first. With
+--nocap, the same for the uncapped instances (sw_pair_ends_nocap,
+sw_pair_starts_nocap) under the realign matrix, at the two shapes only.
 """
 
+import functools
 import json
 import pathlib
 import subprocess
@@ -40,13 +43,14 @@ def ev_ms(torch, fn, reps=20):
     return start.elapsed_time(stop) / reps
 
 
-def entry(torch, sw_cuda, name, args, ends, order, bounds):
+def entry(torch, sw_cuda, name, args, ends, order, bounds, scoring=None):
     """A call of the C entry `name` on a fixed work list."""
-    scoring = sw_cuda.default_scoring(args[0].device)
+    scoring = scoring or sw_cuda.default_scoring(args[0].device)
     q, qb, ql, t, tl, *ends, sub = sw_cuda._cuda_inputs(scoring, *args,
                                                         *ends)
     (B, Lq), Lt = q.shape, t.shape[1]
-    carry = torch.empty((B, Lt), dtype=torch.int32, device="cuda") \
+    wide = torch.int64 if name.endswith("_nocap") else torch.int32
+    carry = torch.empty((B, Lt), dtype=wide, device="cuda") \
         if Lq > sw_cuda.PAIR_STRIPE else None
     outs = [torch.empty(B, dtype=torch.int32, device="cuda")
             for _ in range(3)]
@@ -77,15 +81,20 @@ def sweep_sizes(n, ends, Lq, Lt, torch):
     return rows, cols
 
 
-def measure(torch, sw_cuda, sw_torch, tag, args):
-    _, qe, te = sw_torch.sw_ends(*args)
+def measure(torch, sw_cuda, sw_torch, tag, args, scoring=None):
+    """scoring given: the uncapped instances under it."""
+    kw = {} if scoring is None else dict(scoring=scoring, cap=None)
+    suffix = "" if scoring is None else "_nocap"
+    _, qe, te = sw_torch.sw_ends(*args, **kw)
     ends_k2 = (qe.clamp_min(0), te.clamp_min(0))
     Lq, Lt = args[0].shape[1], args[3].shape[1]
     for name, ends in (("sw_pair_ends", ()), ("sw_pair_starts", ends_k2)):
-        wrap = getattr(sw_cuda, "sw_ends" if not ends else "sw_starts")
+        name += suffix
+        wrap = functools.partial(
+            getattr(sw_cuda, "sw_ends" if not ends else "sw_starts"), **kw)
         got = wrap(*args, *ends)
         ref = (sw_torch.sw_ends if not ends else sw_torch.sw_starts)(
-            *args, *ends)
+            *args, *ends, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got, ref)):
             raise AssertionError(f"{name} disagrees with its plain version")
         order, bounds = sw_cuda.pair_classes(args[2], args[4], Lq, Lt,
@@ -97,7 +106,7 @@ def measure(torch, sw_cuda, sw_torch, tag, args):
                    torch, lambda: sw_cuda.pair_classes(
                        args[2], args[4], Lq, Lt, *ends)),
                "entry_ms": ev_ms(torch, entry(torch, sw_cuda, name, args,
-                                              ends, order, bounds)),
+                                              ends, order, bounds, scoring)),
                "classes": []}
         lo = 0
         for c, hi in enumerate(bounds.tolist()):
@@ -105,7 +114,8 @@ def measure(torch, sw_cuda, sw_torch, tag, args):
             alone = torch.tensor([0] * c + [hi - lo] * (len(bounds) - c),
                                  dtype=torch.int32, device="cuda")
             ms = ev_ms(torch, entry(torch, sw_cuda, name, args, ends,
-                                    order[lo:hi].contiguous(), alone)) \
+                                    order[lo:hi].contiguous(), alone,
+                                    scoring)) \
                 if hi > lo else 0.0
             out["classes"].append({
                 "G_R": sw_cuda.PAIR_CLASSES[c], "pairs": hi - lo,
@@ -161,6 +171,11 @@ def main():
         rng.uniform(0, 100, B), pct, at))).int().cuda()
     args = smoke.ragged_batch(torch, rng, Lq, Lt, B, "cuda")
     kmer = (*args[:2], draw(q_at), args[3], draw(t_at))
+    if "--nocap" in sys.argv[1:]:
+        scoring = smoke.realign_scoring("cuda")
+        measure(torch, sw_cuda, sw_torch, "TIME_SHAPE", timed, scoring)
+        measure(torch, sw_cuda, sw_torch, "KMER_PAIR_SHAPE", kmer, scoring)
+        return 0
     measure(torch, sw_cuda, sw_torch, "TIME_SHAPE", timed)
     measure(torch, sw_cuda, sw_torch, "KMER_PAIR_SHAPE", kmer)
     for n in (64, 256, 1024, 2048, 4096):
