@@ -87,6 +87,15 @@ Phases, each fatal on failure:
      tests/golden/searchwf and senssteps; SearchDriver.search + backtraces
      equal to tests/golden/aln/search_a; K1/K2 launched, no plain version
      called
+  4f. MetaEuk's modular commands and the taxonomy workflows on tests/data
+     through the CLI: predictexons -> reduceredundancy -> unitesetstofasta
+     byte-identical to tests/golden/easypredict.* with the intermediates
+     equal to tests/golden/dbs; extractorfs, resultspercontig and
+     collectoptimalset equal to tests/golden/percontig; taxtocontig
+     byte-identical to the MetaEuk binary's tests/golden/tax/reftax_*;
+     taxonomy (with its pref and first DBs), taxonomy --lca-mode 4
+     --tax-output-mode 2 and easy-taxonomy equal to tests/golden/tax2;
+     K1/K2 launched, no plain version called
   5. the k-mer main path at a real size: easy-predict on the 1.6 Mbp /
      3000-target synthetic metagenome of tests/golden/multichip_slice.json;
      the four sha256 digests equal the file's, the pair kernels launched and
@@ -132,6 +141,23 @@ Phases, each fatal on failure:
      (align phases, backtraces, realign SW, realign tracebacks), pairs and
      cells by route, and each SW kernel's launches and summed ms (CUDA
      events) beside its bound
+  5f. the modular commands and taxtocontig at full width: predictexons ->
+     reduceredundancy -> unitesetstofasta on phase 5's slice, the four
+     digests equal to multichip_slice.json, each command's seconds and the
+     DP-format round trip's beside phase 5's wall; taxtocontig (an
+     exhaustive search: every prediction against the 3,000 targets) on
+     those predictions under tests/golden/make_tax_slice.py's synthetic
+     taxonomy, at the default routing and under METAEUK_QM=off, hit arrays
+     equal field by field and both TSVs byte-identical; wall, stage
+     seconds (load, search, per-query LCA loop, io), the driver's phase
+     seconds, pairs and cells by route, each SW kernel's launches and
+     summed ms (CUDA events) beside its bound and the kernels' busy and idle
+     shares of the wall; then easy-predict and taxtocontig on the slice's
+     first 10 contigs, digests equal tests/golden/tax_slice.json's (the JAX
+     package's outputs); K1/K2 launched in predictexons, K3 (every forward
+     pair: each prediction has over 1,000 candidates in each target tier)
+     at the default routing,
+     K1/K2 and no K3 under METAEUK_QM=off, no plain version called
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
@@ -1036,18 +1062,15 @@ def check_search_workflows(cli, device, td):
 
 
 @contextlib.contextmanager
-def search_stages(modules):
-    """Host seconds of the search workflows' stages, summed over calls:
-    searchdb.prefilter_db (prefilter), align_module.align_db (align: the
-    driver's search, backtraces, realign and the DB write) and
-    alnformat.write_blast_tab, each wrapped for this script's measurement
-    only; yields {stage: seconds}."""
-    searchdb, align_module, alnformat = modules
+def timed_calls(specs):
+    """Host seconds of the functions in specs, (module, name, stage) each,
+    summed by stage over calls, each wrapped for this script's measurement
+    only; yields {stage: seconds}. Phase 5e times the search workflows'
+    stages with it (searchdb.prefilter_db, align_module.align_db: the
+    driver's search, backtraces, realign and the DB write,
+    alnformat.write_blast_tab), 5f the DP-format round trip."""
     seconds, saved = {}, []
-    for mod, name, stage in ((searchdb, "prefilter_db", "prefilter"),
-                             (align_module, "align_db", "align"),
-                             (alnformat, "write_blast_tab",
-                              "write_blast_tab")):
+    for mod, name, stage in specs:
         fn = getattr(mod, name)
 
         def timed(*a, _fn=fn, _stage=stage, **kw):
@@ -1142,7 +1165,10 @@ def run_search_slice(cfg, td, device, probe=contextlib.nullcontext):
             driver.CELLS[k] = 0
         driver.PHASE_SECONDS.clear()
         with probe() as rec, \
-                search_stages((searchdb, align_module, alnformat)) as st, \
+                timed_calls(((searchdb, "prefilter_db", "prefilter"),
+                             (align_module, "align_db", "align"),
+                             (alnformat, "write_blast_tab",
+                              "write_blast_tab"))) as st, \
                 pair_routes(driver, sw_cuda) as routes:
             t0 = time.perf_counter()
             if run == "easy_search":
@@ -1161,6 +1187,204 @@ def run_search_slice(cfg, td, device, probe=contextlib.nullcontext):
         s: sha256(f"{es / 'result'}{s}") for s in DB_SUFFIXES}},
         "align_realign": {s: sha256(f"{td / 'realign'}{s}")
                           for s in DB_SUFFIXES}}
+
+
+def check_modular_workflows(cli, device, td):
+    """Phase 4f, first part: MetaEuk's modular commands on tests/data
+    through the port's CLI, on `device`: predictexons -> reduceredundancy
+    -> unitesetstofasta, each DB equal to tests/golden/dbs (dp_preds,
+    red_preds, red_clust) and the four outputs byte-identical to
+    tests/golden/easypredict.*; then createdb, extractorfs --min-length 15
+    (predictexons' preset), resultspercontig over the committed search_res
+    and collectoptimalset, equal to tests/golden/percontig (by_contig,
+    dp_preds). tests/test_torch_modular.py rehearses it on the CPU."""
+    data, dbs, pc = ROOT / "tests" / "data", GOLDEN / "dbs", \
+        GOLDEN / "percontig"
+    c, t = str(data / "contigs.fna"), str(data / "proteins.faa")
+    dev = ["--device", str(device)]
+    cli.main(["predictexons", c, t, str(td / "dp"), *dev])
+    same_db(td / "dp", dbs / "dp_preds")
+    cli.main(["reduceredundancy", str(td / "dp"), str(td / "red"),
+              str(td / "clust")])
+    same_db(td / "red", dbs / "red_preds")
+    same_db(td / "clust", dbs / "red_clust")
+    cli.main(["unitesetstofasta", c, t, str(td / "red"), str(td / "ep"),
+              *dev])
+    for s in SUFFIXES:
+        same_bytes(f"{td / 'ep'}.{s}", GOLDEN / f"easypredict.{s}")
+    cli.main(["createdb", c, str(td / "contigs")])
+    cli.main(["createdb", t, str(td / "targets")])
+    cli.main(["extractorfs", str(td / "contigs"), str(td / "nucl_6f"),
+              "--min-length", "15"])
+    cli.main(["resultspercontig", str(td / "contigs"), str(td / "nucl_6f"),
+              str(pc / "search_res"), str(td / "bc")])
+    same_db(td / "bc", pc / "by_contig")
+    cli.main(["collectoptimalset", str(td / "bc"), str(td / "targets"),
+              str(td / "dp_pc")])
+    same_db(td / "dp_pc", pc / "dp_preds")
+    print(f"modular commands on {device}: predictexons, reduceredundancy "
+          "and unitesetstofasta equal tests/golden/dbs and easypredict.*; "
+          "extractorfs, resultspercontig and collectoptimalset equal "
+          "tests/golden/percontig", flush=True)
+
+
+def check_tax_workflows(cli, device, td):
+    """Phase 4f, second part: taxtocontig on tests/golden/easypredict.* with
+    the toy taxdump of tests/golden/tax, byte-identical to the MetaEuk
+    binary's reftax_tax_per_{pred,contig}.tsv; then createdb + createtaxdb
+    of the fixture proteins with tests/golden/tax2's taxdump and mapping,
+    and taxonomy (default approx-2bLCA, with its pref and first
+    intermediates), taxonomy --lca-mode 4 --tax-output-mode 2 and
+    easy-taxonomy on queries_lin.faa, equal to the MMseqs2 goldens in
+    tests/golden/tax2, as tests/test_taxworkflow.py compares them. On
+    `device` (tests/test_torch_tax.py rehearses it on the CPU)."""
+    data, tax, tax2 = ROOT / "tests" / "data", GOLDEN / "tax", \
+        GOLDEN / "tax2"
+    dev = ["--device", str(device)]
+    dump = tax / "taxdump"
+    cli.main(["taxtocontig", str(GOLDEN / "easypredict.fas"),
+              str(GOLDEN / "easypredict.headersMap.tsv"),
+              str(data / "proteins.faa"), str(tax / "tax_mapping.tsv"),
+              str(dump / "names.dmp"), str(dump / "nodes.dmp"),
+              str(td / "reftax"), "--merged-dmp", str(dump / "merged.dmp"),
+              "--contigs", str(data / "contigs.fna"), *dev])
+    for s in ("tax_per_pred", "tax_per_contig"):
+        same_bytes(f"{td / 'reftax'}_{s}.tsv", tax / f"reftax_{s}.tsv")
+    cli.main(["createdb", str(data / "proteins.faa"), str(td / "ptax")])
+    cli.main(["createtaxdb", str(td / "ptax"), str(td / "ptax_tmp"),
+              "--ncbi-tax-dump", str(tax2 / "taxdump"),
+              "--tax-mapping-file", str(tax2 / "accmap.tsv")])
+    q = str(data / "queries_lin.faa")
+    cli.main(["createdb", q, str(td / "qdb")])
+    cli.main(["taxonomy", str(td / "qdb"), str(td / "ptax"),
+              str(td / "taxwf"), str(td / "taxwf_tmp"), *dev])
+    same_db(td / "taxwf", tax2 / "taxwf")
+    same_db(td / "taxwf_tmp" / "pref", tax2 / "taxwf_pref")
+    same_db(td / "taxwf_tmp" / "first", tax2 / "taxwf_first")
+    cli.main(["taxonomy", str(td / "qdb"), str(td / "ptax"),
+              str(td / "taxth"), str(td / "taxth_tmp"), "--lca-mode", "4",
+              "--tax-output-mode", "2", *dev])
+    same_db(td / "taxth", tax2 / "taxth")
+    same_db(f"{td / 'taxth'}_aln", tax2 / "taxth_aln")
+    cli.main(["easy-taxonomy", q, str(td / "ptax"), str(td / "easytax"),
+              str(td / "easytax_tmp"), *dev])
+    for s in ("_lca.tsv", "_report", "_tophit_report", "_tophit_aln"):
+        same_bytes(f"{td / 'easytax'}{s}", tax2 / f"easytax{s}")
+    print(f"taxonomy on {device}: taxtocontig byte-identical to the MetaEuk "
+          "binary's reftax TSVs; taxonomy (and its pref and first), "
+          "taxonomy --lca-mode 4 --tax-output-mode 2 and easy-taxonomy "
+          "equal tests/golden/tax2", flush=True)
+
+
+def run_modular(cli, contigs, targets, td, device):
+    """Phase 5f (a): predictexons -> reduceredundancy -> unitesetstofasta
+    through the port's CLI on `device`, written under td (td / "slice.*"
+    the outputs); returns {command: seconds} with the DP-format round
+    trip's: dpformat.predictions_payload (dp_write, the predictions as
+    text) and cli._parse_dp_payload (dp_parse, read back)."""
+    from metaeuk_tpu_torch.pipeline import dpformat
+    dev = ["--device", str(device)]
+    seconds = {}
+    with timed_calls(((dpformat, "predictions_payload", "dp_write"),
+                      (cli, "_parse_dp_payload", "dp_parse"))) as st:
+        for name, args in (
+                ("predictexons", [str(contigs), str(targets),
+                                  str(td / "dp"), *dev]),
+                ("reduceredundancy", [str(td / "dp"), str(td / "red"),
+                                      str(td / "clust")]),
+                ("unitesetstofasta", [str(contigs), str(targets),
+                                      str(td / "red"), str(td / "slice"),
+                                      *dev])):
+            t0 = time.perf_counter()
+            cli.main([name, *args])
+            seconds[name] = time.perf_counter() - t0
+    return {**seconds, **st}
+
+
+@contextlib.contextmanager
+def tax_stages(workflow):
+    """Host seconds of taxtocontig's parts, for this script's measurement
+    only: the assigner's SearchDriver.search, TaxonomyAssigner.assign
+    (search and the per-query LCA loop) and TaxToContig.run (assign, reading
+    the predictions, writing the two TSVs); yields ({part: seconds}, [the
+    search's hit arrays])."""
+    seconds, hits = {"search": 0.0, "assign": 0.0, "run": 0.0}, []
+    assign, run = workflow.TaxonomyAssigner.assign, workflow.TaxToContig.run
+
+    def add(part, t0):
+        seconds[part] += time.perf_counter() - t0
+
+    def timed_assign(self, *a, **kw):
+        search = self.driver.search
+
+        def timed_search(*sa, **skw):
+            t0 = time.perf_counter()
+            hits.append(search(*sa, **skw))
+            add("search", t0)
+            return hits[-1]
+        self.driver.search = timed_search
+        t0 = time.perf_counter()
+        try:
+            return assign(self, *a, **kw)
+        finally:
+            add("assign", t0)
+            del self.driver.search
+
+    def timed_run(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return run(self, *a, **kw)
+        finally:
+            add("run", t0)
+    workflow.TaxonomyAssigner.assign = timed_assign
+    workflow.TaxToContig.run = timed_run
+    try:
+        yield seconds, hits
+    finally:
+        workflow.TaxonomyAssigner.assign = assign
+        workflow.TaxToContig.run = run
+
+
+def run_taxtocontig(cli, args, device, probe=contextlib.nullcontext):
+    """One taxtocontig through the port's CLI (args: make_tax_slice.
+    taxtocontig_args's command line) on `device`. probe() brackets the run
+    as in run_search_slice. Returns its wall, stage seconds (load: the
+    target DB, taxonomy, mapping and contigs; search; per_query: the LCA
+    loop; io: reading the predictions and writing the TSVs), the driver's
+    phase seconds and cells, its routes (pair_routes), what probe yielded
+    and the search's hit array."""
+    from metaeuk_tpu_torch.ops import sw_cuda
+    from metaeuk_tpu_torch.search import driver
+    from metaeuk_tpu_torch.tax import workflow
+    for k in driver.CELLS:
+        driver.CELLS[k] = 0
+    driver.PHASE_SECONDS.clear()
+    with probe() as rec, tax_stages(workflow) as (st, hits), \
+            pair_routes(driver, sw_cuda) as routes:
+        t0 = time.perf_counter()
+        cli.main([*args, "--device", str(device)])
+        wall = time.perf_counter() - t0
+    stages = {"load": wall - st["run"], "search": st["search"],
+              "per_query": st["assign"] - st["search"],
+              "io": st["run"] - st["assign"]}
+    return dict(wall=wall, stages=stages, routes=routes, probe=rec,
+                phases=dict(driver.PHASE_SECONDS), cells=dict(driver.CELLS),
+                hits=hits[0], pairs=sum(r["fwd"][0] for r in routes.values()
+                                        if "fwd" in r))
+
+
+def report_tax_run(run, r, need):
+    """Prints one taxtocontig run of phase 5f as report_search_run does
+    (raising unless it went through `need` and every kernel the routing
+    sent pairs to, with no plain version called), then its pairs, hits and
+    the SW kernels' summed ms over its wall (CUDA events; the length
+    classes' side streams may overlap)."""
+    report_search_run(run, r, need)
+    ms = sum(v[1] for v in event_ms(r["probe"]["events"]).values())
+    busy = ms / 1e3 / r["wall"]
+    print(f"{run}: {r['pairs']} pairs, {len(r['hits'])} hits; SW kernels "
+          f"{ms:.3f} ms summed over a wall of {r['wall']:.3f} s: busy share "
+          f"{busy:.4%}, idle share {1 - busy:.4%}", flush=True)
 
 
 def qm_edge_tiles(np, rng, Lq, Lt):
@@ -1645,10 +1869,11 @@ KERNEL_ROUTES = {"sw_pair_ends": ("pair", "fwd"),
                  "sw_pair_starts_nocap": ("realign", "rev")}
 
 
-def report_search_run(run, r):
-    """Prints one run of phase 5e: wall, stage, align-phase and realign
-    seconds, pairs and cells by route, each SW kernel's launches and summed
-    ms beside its bound; raises unless the run went through K1/K2, the
+def report_search_run(run, r, need=PAIR_KERNELS):
+    """Prints one run of phase 5e (or 5f): wall, stage, align-phase and
+    realign seconds, pairs and cells by route, each SW kernel's launches and
+    summed ms beside its bound; raises unless the run went through `need`
+    (K1/K2 by default), the
     uncapped instances in the realign run and each of K1-K4 wherever the
     routing sent pairs (and nowhere else), with no plain version called."""
     rec, routes = r["probe"], r["routes"]
@@ -1668,10 +1893,10 @@ def report_search_run(run, r):
               f"{bound_ms / max(ms, 1e-9):.1%} of it)", flush=True)
     print(f"{run}: launches {rec['launches']} plain {rec['plain']}",
           flush=True)
-    # K1/K2 in every run, the uncapped instances in the realign run, and
+    # `need` in every run, the uncapped instances in the realign run, and
     # each kernel exactly where the routing sent pairs
-    need = list(PAIR_KERNELS) + (list(NOCAP_KERNELS)
-                                 if run == "align_realign" else [])
+    need = list(need) + (list(NOCAP_KERNELS)
+                         if run == "align_realign" else [])
     for k, (route, pas) in KERNEL_ROUTES.items():
         routed = routes.get(route, {}).get(pas, [0, 0])[0] > 0
         if routed:
@@ -2575,9 +2800,24 @@ def main():
             raise AssertionError("the search workflows did not go through "
                                  "the pair kernels")
 
+        phase("4f MetaEuk's modular commands and the taxonomy workflows on "
+              "tests/data against the goldens")
+        reset(torch, counters, driver, prefilter)
+        (td / "mod").mkdir()
+        (td / "tax").mkdir()
+        t0 = time.perf_counter()
+        check_modular_workflows(cli, "cuda", td / "mod")
+        check_tax_workflows(cli, "cuda", td / "tax")
+        run_l, run_p = counts(counters)
+        print(f"modular and taxonomy commands {time.perf_counter() - t0:.2f}"
+              f" s, launches {run_l}, plain {run_p}", flush=True)
+        if min(run_l[k] for k in PAIR_KERNELS) == 0 or any(run_p.values()):
+            raise AssertionError("the modular and taxonomy commands did not "
+                                 "go through the pair kernels")
+
         phase("5 k-mer main path: 1.6 Mbp / 3000-target slice")
         golden = json.loads((GOLDEN / "multichip_slice.json").read_text())
-        t0 = time.perf_counter()
+        t5 = t0 = time.perf_counter()
         contigs, proteins = make_metagenome(golden["mbp"], golden["targets"])
         write_fasta(td / "c.fna", contigs)
         write_fasta(td / "p.faa", proteins)
@@ -2595,6 +2835,7 @@ def main():
         run_l, run_p = counts(counters)
         align_s = sum(driver.PHASE_SECONDS.values())
         cells = driver.CELLS["fwd"] + driver.CELLS["rev"]
+        slice_wall = wall
         print(f"slice wall {wall:.3f} s")
         print("stage seconds " + json.dumps(
             {**ep.predict_stage_seconds, **ep.stage_seconds}))
@@ -2863,6 +3104,92 @@ def main():
                 raise AssertionError(f"search slice {k} digests differ")
         print("search slice: easy_search's m8 and result DB and align "
               "--realign -a's DB equal search_slice.json", flush=True)
+
+        phase("5f MetaEuk's modular commands and taxtocontig at full width: "
+              "the k-mer slice, its 3,000 targets under a synthetic "
+              "taxonomy")
+        import make_tax_slice as mts
+        tax_golden = json.loads((GOLDEN / "tax_slice.json").read_text())
+        if tax_golden["input"] != mts.TAX_SLICE:
+            raise AssertionError("tax_slice.json was made from another input "
+                                 "than make_tax_slice.TAX_SLICE")
+        (td / "m5").mkdir()
+        reset(torch, counters, driver, prefilter)
+        t0 = time.perf_counter()
+        secs = run_modular(cli, td / "c.fna", td / "p.faa", td / "m5",
+                           "cuda")
+        run_l, run_p = counts(counters)
+        print(f"modular commands on the k-mer slice: wall "
+              f"{time.perf_counter() - t0:.3f} s beside phase 5's "
+              f"easy-predict wall {slice_wall:.3f} s; seconds "
+              + json.dumps(secs))
+        print(f"launches {run_l} plain {run_p}", flush=True)
+        if digests(td / "m5" / "slice") != golden["sha256"]:
+            raise AssertionError("modular commands' slice digests differ "
+                                 "from multichip_slice.json")
+        if min(run_l[k] for k in PAIR_KERNELS) == 0 or any(run_p.values()):
+            raise AssertionError("predictexons did not go through the pair "
+                                 "kernels")
+        print("modular commands: 4 sha256 digests equal multichip_slice.json",
+              flush=True)
+        t0 = time.perf_counter()
+        paths = mts.tax_slice(mts.TAX_SLICE, td / "m5")
+        print(f"generated the tax slice {mts.TAX_SLICE} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        tax_runs = {}
+        for run, qm, base in (("taxtocontig", None, "tax"),
+                              ("taxtocontig_qm_off", "off", "tax_off")):
+            if qm:
+                os.environ["METAEUK_QM"] = qm
+            try:
+                tax_runs[run] = r = run_taxtocontig(
+                    cli, mts.taxtocontig_args(
+                        mts.TAX_SLICE, paths, td / "m5" / "slice",
+                        td / "m5" / base, paths["contigs"]),
+                    "cuda", probe=lambda: probe_run(
+                        torch, counters, driver, prefilter, sw_cuda))
+            finally:
+                os.environ.pop("METAEUK_QM", None)
+            # every prediction carries all 3,000 targets as candidates, and
+            # each of the driver's coarse target tiers (up to 256 aa, up to
+            # 1024) holds over 1,000 of them, so the default routing sends
+            # every forward pair to K3 (QM_MIN_CANDS 48) and none to K1
+            report_tax_run(run, r, PAIR_KERNELS if qm else ("sw_qm_ends",))
+            if qm and r["probe"]["launches"]["sw_qm_ends"]:
+                raise AssertionError(f"{run} launched K3")
+        same_hits(np, tax_runs["taxtocontig"]["hits"],
+                  tax_runs["taxtocontig_qm_off"]["hits"],
+                  "taxtocontig on the k-mer slice")
+        if mts.tsv_digests(td / "m5" / "tax") != \
+                mts.tsv_digests(td / "m5" / "tax_off"):
+            raise AssertionError("taxtocontig's TSVs differ between the "
+                                 "routings")
+        print("taxtocontig on the k-mer slice: hits and both TSVs equal "
+              "under the default routing and METAEUK_QM=off", flush=True)
+        reset(torch, counters, driver, prefilter)
+        t0 = time.perf_counter()
+        cli.main(["easy-predict", str(paths["cut"]), str(paths["targets"]),
+                  str(td / "m5" / "cut"), "--device", "cuda"])
+        run_l, run_p = counts(counters)
+        print(f"easy-predict on the cut ({mts.TAX_SLICE['cut_contigs']} "
+              f"contigs): wall {time.perf_counter() - t0:.3f} s, launches "
+              f"{run_l}, plain {run_p}", flush=True)
+        if digests(td / "m5" / "cut") != tax_golden["easy_predict"]:
+            raise AssertionError("the cut's easy-predict digests differ from "
+                                 "tax_slice.json")
+        cut = run_taxtocontig(
+            cli, mts.taxtocontig_args(mts.TAX_SLICE, paths, td / "m5" / "cut",
+                                      td / "m5" / "cut_tax", paths["cut"]),
+            "cuda", probe=lambda: probe_run(torch, counters, driver,
+                                            prefilter, sw_cuda))
+        report_tax_run("taxtocontig_cut", cut, ("sw_qm_ends",))
+        if mts.tsv_digests(td / "m5" / "cut_tax") != \
+                tax_golden["taxtocontig"]:
+            raise AssertionError("the cut's taxtocontig digests differ from "
+                                 "tax_slice.json")
+        print("tax slice cut: easy-predict and taxtocontig digests equal "
+              "tax_slice.json", flush=True)
+        print(f"phases 5-5f: {time.perf_counter() - t5:.2f} s", flush=True)
 
     phase("6 kernel and plain-version times")
     times, same = time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,

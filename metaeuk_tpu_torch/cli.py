@@ -2,18 +2,33 @@
 
     metaeuk-tpu-torch easy-predict contigs.fna targets.faa out_prefix [tmp]
         [--device cuda] [the easy-predict flags of metaeuk-tpu]
+    metaeuk-tpu-torch predictexons | reduceredundancy | unitesetstofasta
+        | groupstoacc | extractorfs | translatenucs | resultspercontig
+        | collectoptimalset | createtsv | taxtocontig ...
     metaeuk-tpu-torch createdb | search | align | convertalis | easy-search
         | rbh | map | easy-rbh | result2rbh | lcaalign ...
+    metaeuk-tpu-torch taxonomy | easy-taxonomy | summarizealis | lca
+        | majoritylca | aggregatetax | aggregatetaxweights | addtaxonomy
+        | filtertaxdb | filtertaxseqdb | taxonomyreport | createbintaxonomy
+        | createbintaxmapping | createdmptaxonomy | createtaxdb ...
 
 The flags and their mapping to Params are those of metaeuk-tpu: _byte_size,
 _add_predict_flags, _params_from_args and _parse_dp_payload are copied from
-metaeuk_tpu/cli.py (:16, :25, :69, :214), and the MMseqs2 search family's
-commands from its cmd_createdb (:582), cmd_search (:734), cmd_convertalis
-(:881), cmd_align (:957) and cmd_rbh .. cmd_lcaalign (:1436-1490), with
-their parsers. Every command that aligns takes --device (default cuda; cpu
-runs the kernels' plain versions); map and result2rbh run on the host only.
-search's --num-iterations > 1 and its nucleotide branch, and the other
-commands of metaeuk-tpu, are not ported yet.
+metaeuk_tpu/cli.py (:16, :25, :69, :214), MetaEuk's modular commands from
+its cmd_predictexons .. cmd_groupstoacc (:172-370), cmd_resultspercontig,
+cmd_collectoptimalset (:694-720), cmd_createtsv and cmd_taxtocontig
+(:907-960), the MMseqs2 search family's commands from its cmd_createdb
+(:582), cmd_search (:734), cmd_convertalis (:881), cmd_align (:957) and
+cmd_rbh .. cmd_lcaalign (:1436-1490), and the taxonomy commands from its
+cmd_taxcmd, cmd_taxonomy, cmd_easy_taxonomy (:1046-1135) and
+cmd_summarizealis (:1492), with their parsers. Every command that aligns
+(easy-predict, predictexons, unitesetstofasta, taxtocontig, search, align,
+easy-search, rbh, easy-rbh, lcaalign, taxonomy, easy-taxonomy) takes
+--device (default cuda; cpu runs the kernels' plain versions); the others
+run on the host only. search's --num-iterations > 1 and its nucleotide
+branch, mergepredictions (multi-process runs) and the other commands of
+metaeuk-tpu (clustering, linsearch, iterative search, the profile and DB
+utilities) are not ported yet.
 """
 
 import argparse
@@ -151,6 +166,244 @@ def cmd_easy_predict(args):
     EasyPredict(_params_from_args(args), device=_device(args.device)).run(
         args.contigs, args.targets, args.out_prefix, tmp_dir=args.tmp)
     print(f"wrote {args.out_prefix}.fas / .codon.fas / .headersMap.tsv / .gff")
+    return 0
+
+
+def cmd_predictexons(args):
+    """contigs + targets -> DP-format predictions DB (MMseqs-compatible)."""
+    from .io.seqdb import SeqDB, DBTYPE_AA, DBTYPE_NUCL
+    from .io import mmseqsdb
+    from .pipeline.dpformat import predictions_payload
+    from .pipeline.predict import EasyPredict
+
+    p = _params_from_args(args)
+    contigs = (mmseqsdb.read_seqdb(args.contigs)
+               if pathlib_exists(f"{args.contigs}.dbtype")
+               else SeqDB.from_fasta(args.contigs, DBTYPE_NUCL))
+    targets = (mmseqsdb.read_seqdb(args.targets)
+               if pathlib_exists(f"{args.targets}.dbtype")
+               else SeqDB.from_fasta(args.targets, DBTYPE_AA))
+    preds = EasyPredict(p, device=_device(args.device)).predict_exons(
+        contigs, targets)
+    mmseqsdb.write_db(args.out_db,
+                      ((ci, predictions_payload(preds.get(ci, [])))
+                       for ci in range(len(contigs))))
+    print(f"wrote {args.out_db} (DP-format predictions DB)")
+    return 0
+
+
+def cmd_reduceredundancy(args):
+    """DP-format predictions DB -> representative DB + cluster-map DB."""
+    from .io import mmseqsdb
+    from .pipeline.dpformat import cluster_rows_payload, predictions_payload
+    from .pipeline.reduce import reduce_redundancy
+
+    params_overlap = args.overlap
+    red, clust = [], []
+    for key, payload in mmseqsdb.read_db(args.in_db):
+        preds = _parse_dp_payload(payload)
+        reps, rows = reduce_redundancy(preds, params_overlap)
+        red.append((key, predictions_payload(reps)))
+        clust.append((key, cluster_rows_payload(rows)))
+    mmseqsdb.write_db(args.out_db, red)
+    mmseqsdb.write_db(args.clust_db, clust)
+    print(f"wrote {args.out_db} + {args.clust_db}")
+    return 0
+
+
+def cmd_extractorfs(args):
+    """Six-frame fragment extraction -> nucleotide fragment DB + headers."""
+    import dataclasses
+    from .io.seqdb import DBTYPE_NUCL
+    from .io import mmseqsdb
+    from .ops.orf import OrfExtractor, orf_header_fields
+    from .pipeline.predict import load_sequence_input
+
+    p = _params_from_args(args) if hasattr(args, "metaeuk_eval") else Params()
+    p = dataclasses.replace(p, orf_min_length=args.min_length,
+                            orf_max_length=args.max_length)
+    contigs = load_sequence_input(args.contigs, DBTYPE_NUCL)
+    ex = OrfExtractor(p)
+    seqs, hdrs = [], []
+    key = 0
+    for ci in range(len(contigs)):
+        locs, frags = ex.extract_contig(contigs.seq_bytes(ci), ci)
+        for loc, frag in zip(locs, frags):
+            from_pos, signed_len = orf_header_fields(loc)
+            complete = int(loc.has_incomplete_start) | \
+                (int(loc.has_incomplete_end) << 1)
+            hdr = (f"{int(contigs.keys[ci])}\t{from_pos}"
+                   f"{'+' if signed_len >= 0 else '-'}{abs(signed_len)}")
+            if complete:
+                hdr += f"\t{complete}"
+            if args.translate:
+                seqs.append((key, ex.translate_fragment(frag) + b"\n"))
+            else:
+                seqs.append((key, frag + b"\n"))
+            hdrs.append((key, hdr.encode() + b"\n"))
+            key += 1
+    mmseqsdb.write_db(args.out_db, seqs,
+                      mmseqsdb.DBTYPE_AA if args.translate
+                      else mmseqsdb.DBTYPE_NUCL)
+    mmseqsdb.write_db(f"{args.out_db}_h", hdrs, mmseqsdb.DBTYPE_GENERIC)
+    print(f"wrote {args.out_db} ({key} fragments)")
+    return 0
+
+
+def cmd_translatenucs(args):
+    """Nucleotide DB -> translated AA DB."""
+    import os
+    import shutil
+    from .data.gencode import GeneticCode
+    from .io import mmseqsdb
+
+    gc = GeneticCode(args.translation_table)
+    out = []
+    for key, payload in mmseqsdb.read_db(args.in_db):
+        nucl = payload.rstrip(b"\n")
+        out.append((key, gc.translate_ascii(nucl) + b"\n"))
+    mmseqsdb.write_db(args.out_db, out, mmseqsdb.DBTYPE_AA)
+    for suffix in ("_h", "_h.index", "_h.dbtype"):
+        if os.path.exists(f"{args.in_db}{suffix}"):
+            shutil.copy(f"{args.in_db}{suffix}", f"{args.out_db}{suffix}")
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_unitesetstofasta(args):
+    """Representative predictions DB -> FASTA/GFF outputs."""
+    import numpy as np
+    from .io.seqdb import DBTYPE_NUCL
+    from .io import mmseqsdb
+    from .pipeline.output import PredictionWriter
+    from .pipeline.predict import (EasyPredict, load_sequence_input,
+                                   load_target_input)
+
+    p = _params_from_args(args)
+    contigs = load_sequence_input(args.contigs, DBTYPE_NUCL)
+    targets = load_target_input(args.targets)
+    preds_per_contig = {}
+    for key, payload in mmseqsdb.read_db(args.preds_db):
+        if payload:
+            preds_per_contig[int(key)] = _parse_dp_payload(payload)
+    ep = EasyPredict(p, device=_device(args.device))
+    writer = PredictionWriter(args.out_prefix, p)
+    target_accs = [targets.accession(i) for i in range(len(targets))]
+    chunks, starts, pos = [], [], 0
+    for ci in range(len(contigs)):
+        starts.append(pos)
+        s = contigs.seq_bytes(ci)
+        chunks.append(s + b"\n\x00")
+        pos += len(s) + 2
+    db_buffer = np.frombuffer(b"".join(chunks), dtype=np.uint8)
+    for ci in range(len(contigs)):
+        preds = preds_per_contig.get(int(contigs.keys[ci]), [])
+        if not preds:
+            continue
+        ep._write_contig(writer, preds, int(contigs.keys[ci]),
+                         contigs.accession(ci), target_accs,
+                         db_buffer[starts[ci]:], int(contigs.lengths[ci]), p)
+    writer.close()
+    print(f"wrote {args.out_prefix}.fas / .codon.fas / .headersMap.tsv / .gff")
+    return 0
+
+
+def cmd_groupstoacc(args):
+    """Cluster-map DB -> accession TSV (groupstoacc equivalent)."""
+    from .io.seqdb import DBTYPE_NUCL
+    from .io import mmseqsdb
+    from .pipeline.groups import groups_to_acc_lines
+    from .pipeline.predict import load_sequence_input, load_target_input
+
+    contigs = load_sequence_input(args.contigs, DBTYPE_NUCL)
+    targets = load_target_input(args.targets)
+    target_accs = [targets.accession(i) for i in range(len(targets))]
+    key_to_acc = {int(k): contigs.accession(i)
+                  for i, k in enumerate(contigs.keys)}
+    with open(args.out_tsv, "w") as f:
+        for key, payload in mmseqsdb.read_db(args.clust_db):
+            rows = []
+            for line in payload.decode().splitlines():
+                c = [int(x) for x in line.split("\t")]
+                rows.append(tuple(c))
+            f.write(groups_to_acc_lines(rows, key_to_acc[int(key)],
+                                        target_accs))
+    print(f"wrote {args.out_tsv}")
+    return 0
+
+
+def cmd_resultspercontig(args):
+    from .pipeline.percontig import resultspercontig
+    resultspercontig(args.contigs_db, args.fragments_db, args.aln_db,
+                     args.out_db)
+    print("resultspercontig done")
+    return 0
+
+
+def cmd_collectoptimalset(args):
+    from .pipeline.percontig import collectoptimalset
+    p = Params(metaeuk_evalue_thr=args.metaeuk_eval,
+               metaeuk_tcov_thr=args.metaeuk_tcov,
+               min_intron_length=args.min_intron,
+               max_intron_length=args.max_intron,
+               max_aa_overlap=args.max_overlap,
+               set_gap_open_penalty=args.set_gap_open,
+               set_gap_extend_penalty=args.set_gap_extend)
+    collectoptimalset(args.contig_res_db, args.targets_db, args.out_db,
+                      params=p)
+    print("collectoptimalset done")
+    return 0
+
+
+def cmd_createtsv(args):
+    """DB entries + headers -> TSV (createtsv equivalent)."""
+    from .io.seqdb import DBTYPE_AA
+    from .io import mmseqsdb
+    from .pipeline.predict import load_sequence_input
+
+    db = load_sequence_input(args.seq_db, DBTYPE_AA) \
+        if pathlib_exists(f"{args.seq_db}_h.dbtype") or \
+        pathlib_exists(f"{args.seq_db}_h") else None
+    with open(args.out_tsv, "w") as f:
+        for key, payload in mmseqsdb.read_db(args.data_db):
+            acc = (db.accession(db.id_of_key(key)) if db is not None
+                   else str(key))
+            text = payload.decode()
+            for line in text.splitlines():
+                f.write(f"{acc}\t{line}\n")
+    print(f"wrote {args.out_tsv}")
+    return 0
+
+
+def cmd_taxtocontig(args):
+    from .io.seqdb import SeqDB, DBTYPE_AA
+    from .tax.ncbi import NcbiTaxonomy
+    from .tax.workflow import TaxToContig
+
+    device = _device(args.device)
+    params = Params(majority_thr=args.majority, vote_mode=args.vote_mode,
+                    search_evalue_thr=args.evalue)
+    targets = SeqDB.from_fasta(args.targets, DBTYPE_AA)
+    tax = NcbiTaxonomy.from_dumps(args.names_dmp, args.nodes_dmp,
+                                  args.merged_dmp)
+    taxids = [0] * len(targets)
+    acc_to_idx = {targets.accession(i): i for i in range(len(targets))}
+    with open(args.mapping) as f:
+        for line in f:
+            acc, taxid = line.split()[:2]
+            if acc in acc_to_idx:
+                taxids[acc_to_idx[acc]] = int(taxid)
+    contig_accs = None
+    if args.contigs:
+        from .pipeline.predict import load_sequence_input
+        from .io.seqdb import DBTYPE_NUCL
+        cdb = load_sequence_input(args.contigs, DBTYPE_NUCL)
+        contig_accs = {int(k): cdb.accession(i)
+                       for i, k in enumerate(cdb.keys)}
+    TaxToContig(params, targets, taxids, tax, device=device).run(
+        args.preds_fasta, args.headers_map, args.out_base, mode=args.lca_mode,
+        contig_accessions=contig_accs)
+    print(f"wrote {args.out_base}_tax_per_pred.tsv / _tax_per_contig.tsv")
     return 0
 
 
@@ -413,6 +666,104 @@ def cmd_lcaalign(args):
     return 0
 
 
+def cmd_summarizealis(args):
+    from .tax.taxworkflow import summarizealis_db
+    summarizealis_db(args.in_db, args.out_db)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_taxcmd(args):
+    """Taxonomy module commands (lib/mmseqs/src/taxonomy/)."""
+    from .tax import mmtax
+    t = args.tool
+    if t in ("lca", "majoritylca"):
+        mmtax.lca_db(args.args[0], args.args[1], args.args[2],
+                     majority=(t == "majoritylca"),
+                     lca_ranks=args.lca_ranks, tax_lineage=args.tax_lineage,
+                     blacklist=args.blacklist, vote_mode=args.vote_mode,
+                     majority_thr=args.majority,
+                     compressed=bool(args.compressed))
+    elif t == "aggregatetax":
+        mmtax.aggregatetax_db(args.args[0], args.args[1], args.args[2],
+                              args.args[3], lca_ranks=args.lca_ranks,
+                              tax_lineage=args.tax_lineage,
+                              vote_mode=args.vote_mode,
+                              majority_thr=args.majority,
+                              compressed=bool(args.compressed))
+    elif t == "aggregatetaxweights":
+        mmtax.aggregatetax_db(args.args[0], args.args[1], args.args[2],
+                              args.args[4], aln_seq_db=args.args[3],
+                              lca_ranks=args.lca_ranks,
+                              tax_lineage=args.tax_lineage,
+                              vote_mode=args.vote_mode,
+                              majority_thr=args.majority,
+                              compressed=bool(args.compressed))
+    elif t == "addtaxonomy":
+        mmtax.addtaxonomy_db(args.args[0], args.args[1], args.args[2],
+                             pick_id_from=args.pick_id_from,
+                             lca_ranks=args.lca_ranks,
+                             tax_lineage=args.tax_lineage,
+                             compressed=bool(args.compressed))
+    elif t == "filtertaxdb":
+        mmtax.filtertaxdb_db(args.args[0], args.args[1], args.args[2],
+                             args.taxon_list,
+                             compressed=bool(args.compressed))
+    elif t == "filtertaxseqdb":
+        mmtax.filtertaxseqdb_db(args.args[0], args.args[1], args.taxon_list,
+                                subdb_mode=args.subdb_mode)
+    elif t == "taxonomyreport":
+        mmtax.taxonomyreport_db(args.args[0], args.args[1], args.args[2],
+                                report_mode=args.report_mode)
+    elif t == "createbintaxonomy":
+        mmtax.createbintaxonomy(args.args[0], args.args[1], args.args[2],
+                                args.args[3])
+    elif t == "createbintaxmapping":
+        mmtax.createbintaxmapping(args.args[0], args.args[1])
+    elif t == "createdmptaxonomy":
+        mmtax.createdmptaxonomy(args.args[0], args.args[1])
+    elif t == "createtaxdb":
+        mmtax.createtaxdb(args.args[0], args.args[1],
+                          ncbi_tax_dump=args.ncbi_tax_dump or None,
+                          tax_mapping_file=args.tax_mapping_file or None,
+                          tax_mapping_mode=args.tax_mapping_mode,
+                          tax_db_mode=args.tax_db_mode)
+    else:
+        raise SystemExit(f"unknown tax command {t}")
+    print(f"{t}: done")
+    return 0
+
+
+def cmd_taxonomy(args):
+    """mmseqs taxonomy workflow (protein query branch)."""
+    from .tax.taxworkflow import taxonomy_workflow
+    taxonomy_workflow(args.query_db, args.target_db, args.out_db, args.tmp,
+                      lca_mode=args.lca_mode,
+                      tax_output_mode=args.tax_output_mode,
+                      sensitivity=args.s, evalue=args.e,
+                      max_accept=args.max_accept,
+                      max_rejected=args.max_rejected,
+                      max_seqs=args.max_seqs, lca_ranks=args.lca_ranks,
+                      tax_lineage=args.tax_lineage,
+                      blacklist=args.blacklist, vote_mode=args.vote_mode,
+                      majority_thr=args.majority,
+                      device=_device(args.device))
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_easy_taxonomy(args):
+    from .tax.taxworkflow import easy_taxonomy
+    easy_taxonomy(args.query_fasta, args.target_db, args.out_prefix,
+                  args.tmp, sensitivity=args.s, evalue=args.e,
+                  lca_mode=args.lca_mode, lca_ranks=args.lca_ranks,
+                  tax_lineage=args.tax_lineage, majority_thr=args.majority,
+                  vote_mode=args.vote_mode, device=_device(args.device))
+    print(f"wrote {args.out_prefix}_lca.tsv/_report/_tophit_report/"
+          "_tophit_aln")
+    return 0
+
+
 def _add_device_flag(p):
     p.add_argument("--device", default="cuda",
                    help="torch device for the alignment (default cuda; "
@@ -540,6 +891,179 @@ def _add_search_commands(sub):
     la.set_defaults(fn=cmd_lcaalign)
 
 
+def _add_modular_commands(sub):
+    """The parsers of MetaEuk's modular commands and taxtocontig
+    (metaeuk_tpu/cli.py:1519-1565, :1806-1827, :1871-1895), each that
+    aligns with --device."""
+    pe = sub.add_parser("predictexons",
+                        help="contigs + targets -> DP-format predictions DB")
+    pe.add_argument("contigs", help="FASTA or MMseqs DB")
+    pe.add_argument("targets", help="FASTA or MMseqs DB")
+    pe.add_argument("out_db")
+    pe.add_argument("tmp", nargs="?")
+    _add_device_flag(pe)
+    _add_predict_flags(pe)
+    pe.set_defaults(fn=cmd_predictexons)
+
+    rr = sub.add_parser("reduceredundancy",
+                        help="DP predictions DB -> representatives + clusters")
+    rr.add_argument("in_db")
+    rr.add_argument("out_db")
+    rr.add_argument("clust_db")
+    rr.add_argument("--overlap", type=int, default=0)
+    rr.set_defaults(fn=cmd_reduceredundancy)
+
+    eo = sub.add_parser("extractorfs",
+                        help="six-frame fragments -> nucleotide/AA DB")
+    eo.add_argument("contigs")
+    eo.add_argument("out_db")
+    eo.add_argument("--min-length", type=int, default=30)
+    eo.add_argument("--max-length", type=int, default=32734)
+    eo.add_argument("--translate", action="store_true")
+    eo.set_defaults(fn=cmd_extractorfs)
+
+    tn = sub.add_parser("translatenucs", help="nucleotide DB -> AA DB")
+    tn.add_argument("in_db")
+    tn.add_argument("out_db")
+    tn.add_argument("--translation-table", type=int, default=1)
+    tn.set_defaults(fn=cmd_translatenucs)
+
+    uf = sub.add_parser("unitesetstofasta",
+                        help="representative predictions DB -> FASTA/GFF")
+    uf.add_argument("contigs")
+    uf.add_argument("targets")
+    uf.add_argument("preds_db")
+    uf.add_argument("out_prefix")
+    _add_device_flag(uf)
+    _add_predict_flags(uf)
+    uf.set_defaults(fn=cmd_unitesetstofasta)
+
+    ga = sub.add_parser("groupstoacc", help="cluster map DB -> accession TSV")
+    ga.add_argument("contigs")
+    ga.add_argument("targets")
+    ga.add_argument("clust_db")
+    ga.add_argument("out_tsv")
+    ga.set_defaults(fn=cmd_groupstoacc)
+
+    rc = sub.add_parser("resultspercontig",
+                        help="swap fragment-vs-target results to contig keys")
+    rc.add_argument("contigs_db")
+    rc.add_argument("fragments_db")
+    rc.add_argument("aln_db")
+    rc.add_argument("out_db")
+    rc.set_defaults(fn=cmd_resultspercontig)
+
+    co = sub.add_parser("collectoptimalset",
+                        help="exon-chaining DP per contig/target/strand")
+    co.add_argument("contig_res_db")
+    co.add_argument("targets_db")
+    co.add_argument("out_db")
+    co.add_argument("--metaeuk-eval", type=float, default=0.001)
+    co.add_argument("--metaeuk-tcov", type=float, default=0.5)
+    co.add_argument("--min-intron", type=int, default=15)
+    co.add_argument("--max-intron", type=int, default=10000)
+    co.add_argument("--max-overlap", type=int, default=10)
+    co.add_argument("--set-gap-open", type=int, default=-1)
+    co.add_argument("--set-gap-extend", type=int, default=-1)
+    co.set_defaults(fn=cmd_collectoptimalset)
+
+    ct = sub.add_parser("createtsv", help="DB + headers -> TSV")
+    ct.add_argument("seq_db")
+    ct.add_argument("data_db")
+    ct.add_argument("out_tsv")
+    ct.set_defaults(fn=cmd_createtsv)
+
+    tc = sub.add_parser("taxtocontig",
+                        help="assign taxonomy to predictions and contigs")
+    tc.add_argument("preds_fasta")
+    tc.add_argument("headers_map")
+    tc.add_argument("targets", help="taxonomy-annotated target FASTA")
+    tc.add_argument("mapping", help="TSV: target accession -> taxid")
+    tc.add_argument("names_dmp")
+    tc.add_argument("nodes_dmp")
+    tc.add_argument("out_base")
+    tc.add_argument("--merged-dmp", default=None)
+    tc.add_argument("--contigs", default=None,
+                    help="contigs FASTA/DB for per-contig TSV accessions")
+    tc.add_argument("--majority", type=float, default=0.5)
+    tc.add_argument("--vote-mode", type=int, default=1)
+    tc.add_argument("--lca-mode", choices=["top-hit", "approx-2blca", "lca"],
+                    default="approx-2blca")
+    tc.add_argument("-e", "--evalue", type=float, default=1.0)
+    _add_device_flag(tc)
+    tc.set_defaults(fn=cmd_taxtocontig)
+
+
+def _add_tax_commands(sub):
+    """The parsers of the taxonomy module's commands, taxonomy,
+    easy-taxonomy and summarizealis (metaeuk_tpu/cli.py:1960-2012,
+    :2412-2416); taxonomy and easy-taxonomy with --device."""
+    for tool, nargs_ in (("lca", 3), ("majoritylca", 3),
+                         ("aggregatetax", 4), ("aggregatetaxweights", 5),
+                         ("addtaxonomy", 3), ("filtertaxdb", 3),
+                         ("filtertaxseqdb", 2), ("taxonomyreport", 3),
+                         ("createbintaxonomy", 4),
+                         ("createbintaxmapping", 2),
+                         ("createdmptaxonomy", 2), ("createtaxdb", 2)):
+        tp = sub.add_parser(tool, help=f"{tool} taxonomy command")
+        tp.add_argument("args", nargs=nargs_)
+        tp.add_argument("--lca-ranks", type=str, default="")
+        tp.add_argument("--tax-lineage", type=int, default=0)
+        tp.add_argument("--blacklist", type=str,
+                        default="12908:unclassified sequences,"
+                                "28384:other sequences")
+        tp.add_argument("--vote-mode", type=int, default=1)
+        tp.add_argument("--majority", type=float, default=0.5)
+        tp.add_argument("--pick-id-from", type=int, default=2)
+        tp.add_argument("--taxon-list", type=str, default="")
+        tp.add_argument("--subdb-mode", type=int, default=0)
+        tp.add_argument("--report-mode", type=int, default=0)
+        tp.add_argument("--ncbi-tax-dump", type=str, default="")
+        tp.add_argument("--tax-mapping-file", type=str, default="")
+        tp.add_argument("--tax-mapping-mode", type=int, default=0)
+        tp.add_argument("--tax-db-mode", type=int, default=1)
+        tp.add_argument("--compressed", type=int, default=0)
+        tp.add_argument("--threads", type=int, default=1)
+        tp.add_argument("-v", type=int, default=3)
+        tp.set_defaults(fn=cmd_taxcmd, tool=tool)
+
+    for tool, fn in (("taxonomy", cmd_taxonomy),
+                     ("easy-taxonomy", cmd_easy_taxonomy)):
+        tx = sub.add_parser(tool, help=f"{tool} workflow")
+        if tool == "taxonomy":
+            tx.add_argument("query_db")
+            tx.add_argument("target_db")
+            tx.add_argument("out_db")
+        else:
+            tx.add_argument("query_fasta")
+            tx.add_argument("target_db")
+            tx.add_argument("out_prefix")
+        tx.add_argument("tmp")
+        tx.add_argument("-s", type=float, default=2.0)
+        tx.add_argument("-e", type=float, default=1.0)
+        tx.add_argument("--max-accept", type=int, default=30)
+        tx.add_argument("--max-rejected", type=int, default=5)
+        tx.add_argument("--max-seqs", type=int, default=300)
+        tx.add_argument("--lca-mode", type=int, default=3,
+                        help="3 approx-2bLCA, 4 top-hit")
+        tx.add_argument("--tax-output-mode", type=int, default=0)
+        tx.add_argument("--lca-ranks", type=str, default="")
+        tx.add_argument("--tax-lineage", type=int, default=0)
+        tx.add_argument("--blacklist", type=str, default=None)
+        tx.add_argument("--vote-mode", type=int, default=1)
+        tx.add_argument("--majority", type=float, default=0.5)
+        tx.add_argument("--threads", type=int, default=1)
+        tx.add_argument("-v", type=int, default=3)
+        _add_device_flag(tx)
+        tx.set_defaults(fn=fn)
+
+    sa = sub.add_parser("summarizealis",
+                        help="per-query alignment summary stats")
+    sa.add_argument("in_db")
+    sa.add_argument("out_db")
+    sa.set_defaults(fn=cmd_summarizealis)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="metaeuk-tpu-torch",
@@ -556,7 +1080,9 @@ def main(argv=None):
     _add_device_flag(ep)
     _add_predict_flags(ep)
     ep.set_defaults(fn=cmd_easy_predict)
+    _add_modular_commands(sub)
     _add_search_commands(sub)
+    _add_tax_commands(sub)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -36,7 +36,9 @@ COPIES = ["params.py", "utils/log.py", "utils/session.py", "io/fasta.py",
           "pipeline/output.py", "pipeline/reduce.py",
           "pipeline/dpformat.py", "pipeline/alnformat.py",
           "pipeline/dbtools.py", "pipeline/dbtools2.py",
-          "pipeline/filterdb.py", "pipeline/rescorediagonal.py"]
+          "pipeline/filterdb.py", "pipeline/rescorediagonal.py",
+          "pipeline/percontig.py", "pipeline/groups.py", "tax/ncbi.py",
+          "tax/mmtax.py"]
 # copies whose one branch waits for a ROADMAP item, with the lines it drops
 WAITING = {"search/evalue.py": "gumbel", "search/prefilter_kmer.py": "jax"}
 

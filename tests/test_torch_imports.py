@@ -132,6 +132,44 @@ print("jax-free run ok")
 """
 
 
+# MetaEuk's modular chain and taxtocontig through the port's CLI on the
+# fixture; chip_smoke.py's phase 5f imports the tax-slice writer of
+# tests/golden/make_tax_slice.py (whose golden writer alone imports jax)
+_BLOCKED_MODULAR = _BLOCK + r"""
+sys.path.insert(0, "tests/golden")
+import make_tax_slice as mts
+from metaeuk_tpu_torch.cli import main
+
+data, golden, out, mode = sys.argv[1:5]
+dev = ["--device", "cpu"]
+c, t = f"{data}/contigs.fna", f"{data}/proteins.faa"
+assert main(["predictexons", c, t, out + "_dp", *dev]) == 0
+assert main(["reduceredundancy", out + "_dp", out + "_red",
+             out + "_clust"]) == 0
+assert main(["unitesetstofasta", c, t, out + "_red", out, *dev]) == 0
+for s in ("fas", "codon.fas", "headersMap.tsv", "gff"):
+    with open(f"{out}.{s}", "rb") as a, \
+            open(f"{golden}/easypredict.{s}", "rb") as b:
+        assert a.read() == b.read(), s
+tax = f"{golden}/tax"
+assert main(["taxtocontig", out + ".fas", out + ".headersMap.tsv", t,
+             f"{tax}/tax_mapping.tsv", f"{tax}/taxdump/names.dmp",
+             f"{tax}/taxdump/nodes.dmp", out + "_tax", "--contigs", c,
+             *dev]) == 0
+for s in ("tax_per_pred", "tax_per_contig"):
+    with open(f"{out}_tax_{s}.tsv", "rb") as a, \
+            open(f"{tax}/reftax_{s}.tsv", "rb") as b:
+        assert a.read() == b.read(), s
+nodes, mapping, merged = mts.target_taxa(
+    mts.TAX_SLICE, [(f"prot{i}", b"ACDEFGHIKL" * (i % 7 + 2))
+                    for i in range(100)])
+assert len(mapping) == 98 and len(merged) == 1 and 1 in nodes
+loaded = [k for k in sys.modules if sys.modules[k] is not None and (
+    k.split(".")[0].startswith("jax") or k.split(".")[0] == "metaeuk_tpu")]
+assert not loaded, loaded
+print("jax-free run ok")
+"""
+
 # the port's microbenchmarks: both entry points on the CPU, jax blocked
 _BLOCKED_TOOLS = _BLOCK + r"""
 import metaeuk_tpu_torch.ops.kbench_cuda
@@ -242,3 +280,11 @@ def test_search_workflows_run_with_jax_blocked(tmp_path):
     and the port's easy-search (equal to the reference's BLAST-tab golden)
     and align --realign run, with jax and metaeuk_tpu blocked."""
     _blocked_run(tmp_path, "kmer", _BLOCKED_SEARCH)
+
+
+def test_modular_chain_and_taxtocontig_run_with_jax_blocked(tmp_path):
+    """predictexons -> reduceredundancy -> unitesetstofasta and taxtocontig
+    through the port's CLI give the MetaEuk binary's goldens, and the
+    tax-slice writer that chip_smoke.py imports assigns taxa, with jax and
+    metaeuk_tpu blocked."""
+    _blocked_run(tmp_path, "kmer", _BLOCKED_MODULAR)
