@@ -50,7 +50,14 @@ Phases, each fatal on failure:
      -0.2) at the pair kernels' shapes, on pair_edge_batch's planted ties
      (under BLOSUM62 with the planted cells checked, and under the realign
      matrix) and on self-matches at Lq 4096 whose H passes 32767 in the
-     seventh row stripe (the capped entry stops at 32767 there)
+     seventh row stripe (the capped entry stops at 32767 there); K1/K2's
+     uncapped PSSM instances (sw_pair_ends_prof_nocap,
+     sw_pair_starts_prof_nocap, the profile-query aligner) on the PSSM
+     entries' seeded staged PSSMs and planted ties (bit-equal there to the
+     uncapped sequence instances), and on self-matches of a profile scoring
+     31 on its own residue and -32 elsewhere: 1,100 rows in the aligner's
+     1152 bucket (34,100 at (1099, 1099)) and 3,500 rows at Lq 4096, where
+     the capped entry stops at 32767
   3b. the microbenchmark kernels against their plain versions, bit for bit
      (floats compared as their bits): every case of tools/kbench.py (T1-T3)
      at its TPU shape (256, 512) and REPS 512 on seeded non-zero inputs,
@@ -87,6 +94,15 @@ Phases, each fatal on failure:
      tests/golden/searchwf and senssteps; SearchDriver.search + backtraces
      equal to tests/golden/aln/search_a; K1/K2 launched, no plain version
      called
+  4g. the iterative search and the profile tools on the fixtures through
+     the CLI, each output byte-identical to the reference's golden: search
+     --num-iterations 2|3 -a (tests/golden/pref/iter*), result2profile
+     (r2p, 13 flag sets), msa2profile (msa), sequence2profile (util9),
+     profile2pssm and convertprofiledb (util), expandaln and expand2profile
+     (util7), the dbtools6 commands with alignall (util6), enrich
+     (enrich/enriched); K1 and the uncapped PSSM instances launched, no
+     plain version called (ProfileQueryAligner in 4d needs the uncapped
+     PSSM instances and no capped PSSM entry)
   4f. MetaEuk's modular commands and the taxonomy workflows on tests/data
      through the CLI: predictexons -> reduceredundancy -> unitesetstofasta
      byte-identical to tests/golden/easypredict.* with the intermediates
@@ -158,13 +174,32 @@ Phases, each fatal on failure:
      pair: each prediction has over 1,000 candidates in each target tier)
      at the default routing,
      K1/K2 and no K3 under METAEUK_QM=off, no plain version called
+  5g. the iterative search at full width: (a) search --num-iterations
+     ITER_FULL_ITERATIONS -a on the search slice's 4,000 queries against
+     its 3,000 targets (tests/golden/make_iter_slice.py), in a process of
+     its own started after the build and joined after phase 6b (its host
+     stages take minutes); wall, stage seconds by step (k-mer prefilter, align,
+     realign, result2profile, profile prefilter, subtractdbs,
+     ProfileQueryAligner.search, backtraces, mergedbs and the prefilter
+     and alignment DB io), the driver's phase seconds, pairs and cells by
+     route and by profile step, each SW kernel's launches and summed ms
+     (CUDA events) beside its bound and the idle share; (b) a seeded
+     sample of 20,000 pairs of its last profile step aligned again through
+     the kernels and through the plain versions on the card: raw outputs
+     and hits equal, and equal to the step's hits; (c) three iterations on
+     the slice's cut (every 10th query): the counts and every digest equal
+     tests/golden/iter_slice.json (the JAX package's); K1/K2, their
+     uncapped and uncapped PSSM instances and K3/K4 where routed launched
+     in (a) and (c), no capped PSSM entry, no plain version called outside
+     (b)
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
      rate and its bytes over its memory rate); K1/K2's PSSM entries at
      TIME_SHAPE on the same pairs as K1/K2 (rows submat[q] + bias), their
-     outputs equal to K1/K2's; K1/K2's uncapped instances at TIME_SHAPE
-     under the realign matrix; K1/K2 also at the k-mer
+     outputs equal to K1/K2's, and their uncapped instances there, equal
+     to K1/K2's uncapped instances; K1/K2's uncapped instances at
+     TIME_SHAPE under the realign matrix; K1/K2 also at the k-mer
      slice's largest bucket (16,384 pairs, Lq 256 x Lt 1024, lengths drawn
      from its percentiles); K3/K4 (with K1/K2 on the same pairs) also at
      one launch of the ungapped slices' largest query-major bucket (1,008
@@ -214,6 +249,13 @@ KERNELS = {
     "sw_pair_ends_prof": ("sw_pair.cu", "metaeuk_tpu/ops/sw_pallas.py:86"),
     "sw_pair_starts_prof": ("sw_pair.cu",
                             "metaeuk_tpu/ops/sw_pallas.py:220"),
+    # K1/K2's uncapped PSSM instances: the profile-query aligner, which the
+    # JAX package runs on sw_jax.sw_align_batch_prof (:149, XLA, no Pallas
+    # kernel)
+    "sw_pair_ends_prof_nocap": ("sw_pair.cu",
+                                "metaeuk_tpu/ops/sw_jax.py:135"),
+    "sw_pair_starts_prof_nocap": ("sw_pair.cu",
+                                  "metaeuk_tpu/ops/sw_jax.py:149"),
     "sw_qm_ends": ("sw_qm.cu", "metaeuk_tpu/ops/sw_pallas.py:405"),
     "sw_qm_starts": ("sw_qm.cu", "metaeuk_tpu/ops/sw_pallas.py:462"),
     "sw_qm_rt_ends": ("sw_qm_rt.cu", "metaeuk_tpu/ops/sw_pallas.py:539"),
@@ -231,6 +273,9 @@ NOCAP_KERNELS = ("sw_pair_ends_nocap", "sw_pair_starts_nocap")
 # the PSSM entries of K1/K2 (the profile path: sw_pallas.py
 # _align_full_prof :369 over _build_S_prof :346)
 PROF_KERNELS = ("sw_pair_ends_prof", "sw_pair_starts_prof")
+# their uncapped instances (the profile-query aligner: sw_jax.py
+# sw_align_batch_prof :149 over sw_batch_ends_prof :135)
+PROF_NOCAP_KERNELS = ("sw_pair_ends_prof_nocap", "sw_pair_starts_prof_nocap")
 UNGAPPED_KERNELS = ("gapless_rows", "sw_qm_ends", "sw_qm_starts")
 RT_KERNELS = ("sw_qm_rt_ends", "sw_qm_rt_starts")
 # K5/K6's __global__ function in ptxas's report (the instance of its
@@ -310,6 +355,19 @@ QM_CAP_SHAPE = (4096, 4096, 3500)
 # length) self-matches under the realign matrix (W:W 10, C:C 9 there)
 # whose H passes 32767 in the seventh row stripe of 512
 NOCAP_RUNS = ((4096, 4096, b"W", 3500), (4096, 4096, b"WWC", 3600))
+# K1/K2's uncapped PSSM instances past the cap: (Lq, Lt, run length)
+# self-matches of a profile that scores 31 on its own residue and -32 on
+# every other (31 * 1057 = 32767 at row and column 1056): the 1,100-row
+# profile of tests/test_torch_profile.py's cap test in the aligner's bucket
+# of 1152 (34,100 at (1099, 1099)), and a 3,500-row one at Lq 4096
+PROF_CAP_RUNS = ((1152, 1152, 1100), (4096, 4096, 3500))
+# phase 5g: the iterations of the full search slice's run (the cut runs
+# make_iter_slice.ITER_SLICE's three; result2profile, a per-query numpy
+# loop, takes minutes a round at 4,000 queries), and the seeded sample of
+# its last profile step's pairs that the plain versions realign on the card
+ITER_FULL_ITERATIONS = 2
+ITER_SAMPLE = 20000
+ITER_SAMPLE_SEED = 20261017
 # K5/K6 (Lq tier, Lt, tiles), query lengths 8192..16384, timed with the
 # pair kernels on the same pairs (targets of 256-512 aa); then the Lt 1024
 # tier, targets of 513-600 aa (two stripes)
@@ -861,57 +919,63 @@ def prof_batch(torch, rng, Lq, Lt, B, device):
             mk(tl, torch.int32), mk(li, torch.int32), mk(lj, torch.int32))
 
 
-def check_prof_ends_starts(torch, sw_cuda, sw_torch, args, ends, errs):
-    """The PSSM entries on staged args against their plain versions: K1's
-    ends, then K2's starts from the forward ends and from each pair of
-    `ends`; returns (K1's outputs, [K2's outputs from the forward ends,
-    then from each of `ends`])."""
-    got = sw_cuda.sw_ends_prof(*args)
+def check_prof_ends_starts(torch, sw_cuda, sw_torch, args, ends, errs,
+                           nocap=False):
+    """The PSSM entries (nocap: their uncapped instances, cap=None) on
+    staged args against their plain versions: K1's ends, then K2's starts
+    from the forward ends and from each pair of `ends`; returns (K1's
+    outputs, [K2's outputs from the forward ends, then from each of
+    `ends`])."""
+    fwd, rev = PROF_NOCAP_KERNELS if nocap else PROF_KERNELS
+    kw = {"cap": None} if nocap else {}
+    got = sw_cuda.sw_ends_prof(*args, **kw)
     torch.cuda.synchronize()
-    ref = sw_torch.sw_ends_prof(*sw_cuda._gathered(*args))
-    errs["sw_pair_ends_prof"] = max(errs["sw_pair_ends_prof"],
-                                    max_err(torch, got, ref))
+    ref = sw_torch.sw_ends_prof(*sw_cuda._gathered(*args), **kw)
+    errs[fwd] = max(errs[fwd], max_err(torch, got, ref))
     starts = []
     for qe, te in [(torch.clamp_min(ref[1], 0), torch.clamp_min(ref[2], 0)),
                    *ends]:
-        got = sw_cuda.sw_starts_prof(*args, qe, te)
+        got = sw_cuda.sw_starts_prof(*args, qe, te, **kw)
         torch.cuda.synchronize()
         starts.append(sw_torch.sw_starts_prof(*sw_cuda._gathered(*args),
-                                              qe, te))
-        errs["sw_pair_starts_prof"] = max(errs["sw_pair_starts_prof"],
-                                          max_err(torch, got, starts[-1]))
+                                              qe, te, **kw))
+        errs[rev] = max(errs[rev], max_err(torch, got, starts[-1]))
     if not torch.equal(ref[0], starts[0][0]):
         raise AssertionError("PSSM reverse score differs from forward best")
     return ref, starts
 
 
-def check_prof_kernels(torch, sw_cuda, sw_torch, errs):
-    """K1/K2's PSSM entries on prof_batch at CHECK_SHAPES (Lq up to 4608,
-    profiles over 4096 rows): ends, starts from the forward ends and from
-    random ends (-1, past the lengths), and align_full_prof."""
+def check_prof_kernels(torch, sw_cuda, sw_torch, errs, nocap=False):
+    """K1/K2's PSSM entries (nocap: their uncapped instances) on prof_batch
+    at CHECK_SHAPES (Lq up to 4608, profiles over 4096 rows): ends, starts
+    from the forward ends and from random ends (-1, past the lengths), and
+    align_full_prof."""
     import numpy as np
     rng = np.random.default_rng(20260826)
+    kw = {"cap": None} if nocap else {}
+    what = "uncapped PSSM" if nocap else "PSSM"
     for Lq, Lt, B in CHECK_SHAPES:
         args = prof_batch(torch, rng, Lq, Lt, B, "cuda")
         rand = tuple(torch.from_numpy(rng.integers(-1, n + 2, B)).int()
                      .cuda() for n in (Lq, Lt))
         ref, _ = check_prof_ends_starts(torch, sw_cuda, sw_torch, args,
-                                        [rand], errs)
-        got = sw_cuda.align_full_prof(*args)
+                                        [rand], errs, nocap)
+        got = sw_cuda.align_full_prof(*args, **kw)
         torch.cuda.synchronize()
         max_err(torch, got,
-                sw_torch.align_full_prof(*sw_cuda._gathered(*args)))
-        print(f"PSSM pairs Lq={Lq} Lt={Lt} B={B}: ends and starts equal "
+                sw_torch.align_full_prof(*sw_cuda._gathered(*args), **kw))
+        print(f"{what} pairs Lq={Lq} Lt={Lt} B={B}: ends and starts equal "
               f"({int((ref[0] > 0).sum())} pairs with a hit, longest "
               f"profile {int(args[1].max())} rows)", flush=True)
 
 
-def check_prof_edges(torch, sw_cuda, sw_torch, errs):
-    """K1/K2's PSSM entries on pair_edge_batch at Lq 1152 x Lt 1152, the
-    PSSM built as submat[q] + bias, staged and read in a shuffled order:
-    equal to their plain versions and, bit for bit, to sw_pair_ends /
-    sw_pair_starts on the same pairs (from the forward ends, over the whole
-    matrix and from random ends)."""
+def check_prof_edges(torch, sw_cuda, sw_torch, errs, nocap=False):
+    """K1/K2's PSSM entries (nocap: their uncapped instances) on
+    pair_edge_batch at Lq 1152 x Lt 1152, the PSSM built as submat[q] +
+    bias, staged and read in a shuffled order: equal to their plain versions
+    and, bit for bit, to sw_pair_ends / sw_pair_starts (nocap: their
+    uncapped instances) on the same pairs (from the forward ends, over the
+    whole matrix and from random ends)."""
     import numpy as np
     from metaeuk_tpu_torch import state
     rng = np.random.default_rng(20260827)
@@ -932,26 +996,65 @@ def check_prof_edges(torch, sw_cuda, sw_torch, errs):
     rand = tuple(torch.from_numpy(rng.integers(-1, n + 2, B)).int().cuda()
                  for n in (Lq, Lt))
     ref, starts = check_prof_ends_starts(torch, sw_cuda, sw_torch, staged,
-                                         [whole, rand], errs)
-    seq_ends = sw_cuda.sw_ends(*seq)
-    max_err(torch, sw_cuda.sw_ends_prof(*staged), seq_ends)
+                                         [whole, rand], errs, nocap)
+    kw = {"cap": None} if nocap else {}
+    seq_ends = sw_cuda.sw_ends(*seq, **kw)
+    max_err(torch, sw_cuda.sw_ends_prof(*staged, **kw), seq_ends)
     for (qe, te), want in zip(
             [(torch.clamp_min(ref[1], 0), torch.clamp_min(ref[2], 0)),
              whole, rand], starts):
-        max_err(torch, sw_cuda.sw_starts(*seq, qe, te), want)
-        max_err(torch, sw_cuda.sw_starts_prof(*staged, qe, te), want)
+        max_err(torch, sw_cuda.sw_starts(*seq, qe, te, **kw), want)
+        max_err(torch, sw_cuda.sw_starts_prof(*staged, qe, te, **kw), want)
     torch.cuda.synchronize()
-    print(f"PSSM pair edges Lq={Lq} Lt={Lt}: {B} pairs equal to the plain "
-          "versions and bit-equal to sw_pair_ends / sw_pair_starts",
-          flush=True)
+    what = "uncapped PSSM" if nocap else "PSSM"
+    seq_names = "sw_pair_ends_nocap / sw_pair_starts_nocap" if nocap else \
+        "sw_pair_ends / sw_pair_starts"
+    print(f"{what} pair edges Lq={Lq} Lt={Lt}: {B} pairs equal to the plain "
+          f"versions and bit-equal to {seq_names}", flush=True)
+
+
+def check_prof_cap_runs(torch, sw_cuda, sw_torch, errs):
+    """K1/K2's uncapped PSSM instances on PROF_CAP_RUNS against their plain
+    versions: pair 0 the whole self-match (31 * n, ending at (n - 1, n - 1)
+    and starting at (0, 0)), pair 1 its profile's first half against the
+    same fragment; the capped entry stops at 32767."""
+    import numpy as np
+    rng = np.random.default_rng(34100)
+    for Lq, Lt, n in PROF_CAP_RUNS:
+        t = np.zeros((2, Lt), np.int64)
+        t[:, :n] = rng.integers(0, 20, n)
+        prof = np.full((2, Lq, 21), -32, np.int64)
+        prof[:, np.arange(n), t[0, :n]] = 31
+        prof[:, :, 20] = 0
+        mk = lambda a, dt: torch.from_numpy(a).to(device="cuda", dtype=dt)
+        staged = (mk(prof, torch.int32), mk(np.array([n, n // 2]),
+                                              torch.int32),
+                  mk(t, torch.uint8), mk(np.array([n, n]), torch.int32),
+                  mk(np.array([0, 1]), torch.int32),
+                  mk(np.array([0, 0]), torch.int32))
+        ref, starts = check_prof_ends_starts(torch, sw_cuda, sw_torch,
+                                             staged, [], errs, nocap=True)
+        capped = sw_cuda.sw_ends_prof(*staged)
+        have = [int(ref[k][0]) for k in range(3)] + \
+            [int(starts[0][k][0]) for k in (1, 2)]
+        if have != [31 * n, n - 1, n - 1, 0, 0] or \
+                int(ref[0][1]) != 31 * (n // 2) or \
+                int(capped[0][0]) != 32767:
+            raise AssertionError(f"uncapped PSSM self-match of {n} rows: "
+                                 f"{have}, capped {int(capped[0][0])}")
+        print(f"uncapped PSSM self-match of {n} rows at Lq {Lq}: score "
+              f"{31 * n}, end ({n - 1}, {n - 1}), start (0, 0) (capped entry"
+              f" {int(capped[0][0])}); equal to the plain versions",
+              flush=True)
 
 
 def check_profile_aligner(np, torch, counters, driver, prefilter):
-    """ProfileQueryAligner (no entry point of the port drives it yet) on the
+    """ProfileQueryAligner (iterative search steps >= 1, enrich) on the
     enrich fixture's 24 profiles against the 6 fixture proteins, every pair,
-    E-value 100: on the card through the PSSM entries, equal field by field
-    and in backtraces and sequence identities to the plain versions' run
-    (tests/test_torch_profile.py holds that run to the JAX package's)."""
+    E-value 100: on the card through the uncapped PSSM instances (never the
+    capped entries), equal field by field and in backtraces and sequence
+    identities to the plain versions' run (tests/test_torch_profile.py
+    holds that run to the JAX package's)."""
     import make_profile_slice as mps
     from metaeuk_tpu_torch.io.profiledb import ProfileDB
     from metaeuk_tpu_torch.io.seqdb import DBTYPE_AA, SeqDB
@@ -971,10 +1074,11 @@ def check_profile_aligner(np, torch, counters, driver, prefilter):
         res[dev] = (hits, *al.backtraces(hits))
         if dev == "cuda":
             run_l, run_p = counts(counters)
-            if min(run_l[k] for k in PROF_KERNELS) == 0 or \
+            if min(run_l[k] for k in PROF_NOCAP_KERNELS) == 0 or \
+                    any(run_l[k] for k in PROF_KERNELS) or \
                     any(run_p.values()):
                 raise AssertionError("ProfileQueryAligner did not go "
-                                     "through the PSSM kernels")
+                                     "through the uncapped PSSM instances")
     (ref, ref_bt, ref_id), (got, got_bt, got_id) = res["cpu"], res["cuda"]
     if len(ref) == 0 or len(ref) != len(got) or any(
             not np.array_equal(ref[f], got[f]) for f in ref.dtype.names) \
@@ -1059,6 +1163,193 @@ def check_search_workflows(cli, device, td):
           "intermediates) and 2 byte-identical to the MMseqs2 goldens; "
           f"search + backtraces ({len(hits)} hits) equal aln/search_a",
           flush=True)
+
+
+# phase 4g: result2profile's flags for each of tests/golden/r2p's goldens
+# (the reference's result2profile on the fixture proteins' self-search,
+# tests/test_result2profile.py), and msa2profile's (source MSA DB, flags)
+# for each of tests/golden/msa's
+CRF = str(ROOT / "tests" / "data" / "tiny.crf")
+R2P_EP = ["-e", "10", "--e-profile", "10"]
+R2P_CASES = {
+    "refr2p": ["--filter-msa", "0"],
+    "refr2p_nm": ["--filter-msa", "0", "--mask-profile", "0"],
+    "refr2p_nb": ["--filter-msa", "0", "--comp-bias-corr", "0"],
+    "refr2p_ep": ["--filter-msa", "0", *R2P_EP],
+    "refr2p_ep_nb2": ["--filter-msa", "0", "--comp-bias-corr", "0",
+                      *R2P_EP],
+    "refr2p_f1": [],
+    "refr2p_f1_ep": R2P_EP,
+    "refr2p_f1s": [*R2P_EP, "--max-seq-id", "0.3", "--diff", "2", "--qsc",
+                   "0.5"],
+    "refr2p_f1q": [*R2P_EP, "--qid", "0.25", "--cov", "0.3"],
+    "refr2p_f1b": [*R2P_EP, "--qid", "0.1,0.3,0.9"],
+    "refr2p_wg": ["--filter-msa", "0", "--wg", "1"],
+    "refr2p_pc1": ["--filter-msa", "0", "--pseudo-cnt-mode", "1",
+                   "--context-lib", CRF],
+    "refr2p_pc1_ep": ["--filter-msa", "0", *R2P_EP, "--pseudo-cnt-mode", "1",
+                      "--context-lib", CRF],
+}
+MSA_CASES = {
+    "refprof1": ("msadb", ["--filter-msa", "0"]),
+    "refprof2": ("msadb2", ["--filter-msa", "0"]),
+    "refprof2_f1": ("msadb2", ["--filter-msa", "1"]),
+    "refprof2_pc1": ("msadb2", ["--filter-msa", "0", "--pseudo-cnt-mode",
+                                "1", "--context-lib", CRF]),
+}
+# search --num-iterations's goldens (the reference's blastpgp.sh chain,
+# tests/test_iterative.py): (tag, iterations, the fixture proteins against
+# themselves (None) or tests/golden/pref's family DBs)
+ITER_GOLDENS = (("iter2", 2, None), ("iter3", 3, None),
+                ("iterfam2", 2, ("pfQ", "pfT")),
+                ("iterfam3", 3, ("pfQ", "pfT")))
+
+
+def run_cli(cli, argv):
+    if cli.main([str(a) for a in argv]) != 0:
+        raise AssertionError(f"metaeuk-tpu-torch {argv[0]} failed")
+
+
+def copy_db(src, dst):
+    import shutil
+    for s in DB_SUFFIXES:
+        shutil.copyfile(f"{src}{s}", f"{dst}{s}")
+
+
+def check_profile_workflows(cli, device, td):
+    """Phase 4g: the iterative search and the profile tools on the fixtures
+    through the port's CLI, on `device`, each output byte-identical to the
+    reference's golden: search --num-iterations 2|3 -a
+    (tests/golden/pref/iter*), result2profile (r2p, every case of
+    R2P_CASES), msa2profile (msa), sequence2profile (util9/s2p*),
+    profile2pssm and convertprofiledb (util), expandaln and expand2profile
+    (util7; over the port's search of queries_lin against the fixture
+    proteins), the dbtools6 commands with alignall (util6) and enrich
+    (enrich/enriched). The options the CLI has no flag for (msa2profile's
+    filter, expand2profile's context pseudocounts) go through the port's
+    functions. tests/test_torch_profilewf.py rehearses it on the CPU.
+    Returns the number of outputs compared."""
+    import shutil
+    from metaeuk_tpu_torch.io.mmseqsdb import read_db, write_seqdb
+    from metaeuk_tpu_torch.io.seqdb import DBTYPE_AA, SeqDB
+    from metaeuk_tpu_torch.pipeline.expand import expandaln_db
+    from metaeuk_tpu_torch.pipeline.msa2profile import msa_db_to_profile_db
+    from metaeuk_tpu_torch.search.align_module import align_db
+    from metaeuk_tpu_torch.search.searchdb import prefilter_db
+    data, dev, n = ROOT / "tests" / "data", ["--device", str(device)], 0
+    run_cli(cli, ["createdb", data / "proteins.faa", td / "pdb"])
+    for tag, its, dbs in ITER_GOLDENS:
+        q, t = (td / "pdb",) * 2 if dbs is None else \
+            (GOLDEN / "pref" / dbs[0], GOLDEN / "pref" / dbs[1])
+        run_cli(cli, ["search", q, t, td / tag, td / f"{tag}_tmp",
+                      "--num-iterations", its, "-a", *dev])
+        same_db(td / tag, GOLDEN / "pref" / tag)
+        n += 1
+    write_seqdb(str(td / "targetsDB"),
+                SeqDB.from_fasta(data / "proteins.faa", DBTYPE_AA),
+                DBTYPE_AA)
+    copy_db(GOLDEN / "aln" / "search_a", td / "self_aln")
+    for tag, extra in R2P_CASES.items():
+        run_cli(cli, ["result2profile", td / "targetsDB",
+                      td / "targetsDB", td / "self_aln", td / tag,
+                      *extra])
+        same_db(td / tag, GOLDEN / "r2p" / tag)
+        n += 1
+    for tag, (src, extra) in MSA_CASES.items():
+        run_cli(cli, ["msa2profile", GOLDEN / "msa" / src, td / tag,
+                      "--match-mode", "1", *extra])
+        same_db(td / tag, GOLDEN / "msa" / tag)
+        n += 1
+    entries = [(k, v.decode())
+               for k, v in read_db(GOLDEN / "msa" / "msadb2")]
+    msa_db_to_profile_db(entries, str(td / "refprof2_f1s"),
+                         match_mode=1, filter_msa=True,
+                         filter_max_seq_id=0.5, ndiff=2)
+    if read_db(td / "refprof2_f1s") != \
+            read_db(GOLDEN / "msa" / "refprof2_f1s"):
+        raise AssertionError("msa2profile refprof2_f1s differs")
+    n += 1
+    for tag, extra in (("s2p", []), ("s2p_tau", ["--tau", "0.35"])):
+        run_cli(cli, ["sequence2profile", td / "pdb", td / tag,
+                      "--context-lib", CRF, *extra])
+        same_db(td / tag, GOLDEN / "util9" / tag)
+        n += 1
+    util = GOLDEN / "util"
+    run_cli(cli, ["profile2pssm", GOLDEN / "r2p" / "refr2p",
+                  td / "pssm"])
+    same_bytes(td / "pssm", util / "refpssm")
+    run_cli(cli, ["profile2pssm", GOLDEN / "r2p" / "refr2p",
+                  td / "pssmdb", "--db-output", "1"])
+    for s in ("", ".index"):
+        same_bytes(f"{td / 'pssmdb'}{s}", f"{util / 'refpssm_db'}{s}")
+    run_cli(cli, ["convertprofiledb", data / "hhmdb", td / "cvt"])
+    for s in (*DB_SUFFIXES, "_h", "_h.index"):
+        same_bytes(f"{td / 'cvt'}{s}", f"{util / 'refcvt'}{s}")
+    n += 3
+
+    # queries_lin against the fixture proteins (util6's and util7's
+    # inputs), the alignment on `device`
+    u6, u7 = GOLDEN / "util6", GOLDEN / "util7"
+    run_cli(cli, ["createdb", data / "queries_lin.faa", td / "qdb"])
+    prefilter_db(str(td / "qdb"), str(td / "pdb"), str(td / "pref"),
+                 sensitivity=4.0)
+    align_db(str(td / "qdb"), str(td / "pdb"), str(td / "pref"),
+             str(td / "aln"), evalue=1e-3, add_backtrace=True,
+             device=device)
+    copy_db(u7 / "selfaln", td / "selfaln")
+    for tool, tag in (("expandaln", "expaln"),
+                      ("expand2profile", "expprof")):
+        run_cli(cli, [tool, td / "qdb", td / "pdb", td / "aln",
+                      td / "selfaln", td / tag])
+        same_db(td / tag, u7 / tag)
+    expandaln_db(str(td / "qdb"), str(td / "pdb"), str(td / "aln"),
+                 str(td / "selfaln"), str(td / "expprof_pc1"),
+                 return_aln=False, pcmode=1, context_lib=CRF)
+    same_db(td / "expprof_pc1", u7 / "expprof_pc1")
+    run_cli(cli, ["result2profile", td / "qdb", td / "pdb", td / "aln",
+                  td / "prof"])
+    for tool, tag in (("profile2consensus", "p2c"),
+                      ("profile2repseq", "p2r")):
+        run_cli(cli, [tool, td / "prof", td / tag])
+        same_db(td / tag, u6 / tag)
+    run_cli(cli, ["profile2neff", td / "prof", td / "p2n.txt"])
+    same_bytes(td / "p2n.txt", u6 / "p2n.txt")
+    for out, extra in (("msadb", []),
+                       ("msadb_ac", ["--identifier-field", "1"])):
+        run_cli(cli, ["convertmsa", u6 / "test.sto", td / out, *extra])
+        same_db(td / out, u6 / out)
+    for out, extra in (("filtered.a3m", ["--max-seq-id", "0.99"]),
+                       ("filtered_diff1.a3m",
+                        ["--diff", "1", "--max-seq-id", "0.95"])):
+        run_cli(cli, ["filtera3m", u6 / "test.a3m", td / out, *extra])
+        same_bytes(td / out, u6 / out)
+    copy_db(u6 / "m8db", td / "m8db")
+    run_cli(cli, ["summarizetabs", td / "m8db", u6 / "lengths.tsv",
+                  td / "sumtabs"])
+    same_db(td / "sumtabs", u6 / "sumtabs")
+    run_cli(cli, ["createdb", data / "contigs.fna", td / "ndb"])
+    copy_db(u6 / "nres", td / "nres")
+    run_cli(cli, ["result2dnamsa", td / "ndb", td / "ndb", td / "nres",
+                  td / "dnamsa"])
+    same_db(td / "dnamsa", u6 / "dnamsa")
+    (td / "all.faa").write_bytes((data / "queries_lin.faa").read_bytes()
+                                 + (data / "proteins.faa").read_bytes())
+    run_cli(cli, ["createdb", td / "all.faa", td / "alldb"])
+    copy_db(u6 / "sets", td / "sets")
+    run_cli(cli, ["alignall", td / "alldb", td / "sets", td / "allaln",
+                  *dev])
+    same_db(td / "allaln", u6 / "allaln")
+    n += 13
+
+    # enrich's target profiles (with their consensus and headers) and
+    # member result DB, as tests/test_enrich.py copies them
+    en = td / "enrich"
+    shutil.copytree(GOLDEN / "enrich", en)
+    run_cli(cli, ["enrich", td / "qdb", td / "alldb", en / "profdb",
+                  en / "saln", td / "enriched", td / "enrich_tmp", *dev])
+    same_db(td / "enriched", GOLDEN / "enrich" / "enriched")
+    n += 1
+    return n
 
 
 @contextlib.contextmanager
@@ -1187,6 +1478,270 @@ def run_search_slice(cfg, td, device, probe=contextlib.nullcontext):
         s: sha256(f"{es / 'result'}{s}") for s in DB_SUFFIXES}},
         "align_realign": {s: sha256(f"{td / 'realign'}{s}")
                           for s in DB_SUFFIXES}}
+
+
+# the host stages of the iterative search that phase 5g times, by step:
+# (module of the port, attribute, stage); a class's method is wrapped on the
+# class
+def iter_stage_specs():
+    from metaeuk_tpu_torch.search import (driver, iterative, prefilter_kmer,
+                                          profile_align)
+    kp, pqa = prefilter_kmer.KmerPrefilter, profile_align.ProfileQueryAligner
+    return ((kp, "match", "k-mer prefilter"),
+            (driver.SearchDriver, "search", "align"),
+            (driver.SearchDriver, "realign", "realign"),
+            (iterative, "result2profile_db", "result2profile"),
+            (kp, "match_profile", "profile prefilter"),
+            (iterative, "subtractdbs", "subtractdbs"),
+            (pqa, "search", "ProfileQueryAligner.search"),
+            (pqa, "backtraces", "backtraces"),
+            (iterative, "mergedbs", "mergedbs"),
+            (iterative, "_write_pref", "write prefilter DB"),
+            (iterative, "_pref_pairs", "read prefilter pairs"),
+            (iterative, "_write_aln", "write alignment DB"))
+
+
+@contextlib.contextmanager
+def iter_stages(torch, sw_cuda):
+    """For this script's measurement only: the host seconds of
+    iter_stage_specs' stages and the profile steps' pairs and DP cells
+    (K1/K2's uncapped PSSM instances through sw_cuda.align_full_prof:
+    forward over every pair, reverse up to each pair's clamped end cell, as
+    the kernels sweep them), both by step, and the last
+    ProfileQueryAligner.search call (its aligner, pairs, eval_thr and hits).
+    A step ends when its result2profile returns (the last stage of every
+    step but the last). Yields (seconds, cells, last): {"step N": {stage:
+    s}}, {"step N": [pairs, fwd cells, rev cells]} and a dict."""
+    from metaeuk_tpu_torch.search import profile_align
+    seconds, cells, last, step, saved = {}, {}, {}, [0], []
+    pqa = profile_align.ProfileQueryAligner
+    search = pqa.search
+
+    def keep_last(self, pairs, eval_thr=None):
+        hits = search(self, pairs, eval_thr=eval_thr)
+        last.update(aligner=self, pairs=pairs, eval_thr=eval_thr, hits=hits)
+        return hits
+    pqa.search = keep_last
+    full = sw_cuda.align_full_prof
+
+    def counted(prof_mat, p_lens, t_mat, t_lens, li, lj, **kw):
+        out = full(prof_mat, p_lens, t_mat, t_lens, li, lj, **kw)
+        ql = p_lens[li.long()].long()
+        tl = t_lens[lj.long()].long()
+        qe = torch.minimum(out[2].long().clamp_min(0), ql - 1) + 1
+        te = torch.minimum(out[4].long().clamp_min(0), tl - 1) + 1
+        got = cells.setdefault(f"step {step[0]}", [0, 0, 0])
+        got[0] += len(li)
+        got[1] += int((ql * tl).sum())
+        got[2] += int((qe.clamp_min(0) * te.clamp_min(0)).sum())
+        return out
+    sw_cuda.align_full_prof = counted
+    for obj, name, stage in iter_stage_specs():
+        fn = getattr(obj, name)
+
+        def timed(*a, _fn=fn, _stage=stage, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                per = seconds.setdefault(f"step {step[0]}", {})
+                per[_stage] = per.get(_stage, 0.0) \
+                    + time.perf_counter() - t0
+                if _stage == "result2profile":
+                    step[0] += 1
+        saved.append((obj, name, fn))
+        setattr(obj, name, timed)
+    try:
+        yield seconds, cells, last
+    finally:
+        for obj, name, fn in reversed(saved):
+            setattr(obj, name, fn)
+        sw_cuda.align_full_prof = full
+        pqa.search = search
+
+
+def run_iter_slice(torch, cli, argv, probe=contextlib.nullcontext):
+    """One iterative search (phase 5g): the port's CLI on argv (search
+    --num-iterations ...), bracketed by probe() (chip_smoke's: reset the
+    counts, CUDA events around each launch, read the counts after), its
+    stages timed by step (iter_stages) and step 0's pairs and cells counted
+    by route (pair_routes). Returns (the run: wall, stage seconds, profile
+    cells, routes, the driver's phase seconds and cells, what probe
+    yielded; the last ProfileQueryAligner call)."""
+    from metaeuk_tpu_torch.ops import sw_cuda
+    from metaeuk_tpu_torch.search import driver
+    for k in driver.CELLS:
+        driver.CELLS[k] = 0
+    driver.PHASE_SECONDS.clear()
+    with probe() as rec, iter_stages(torch, sw_cuda) as (st, cells, last), \
+            pair_routes(driver, sw_cuda) as routes:
+        t0 = time.perf_counter()
+        run_cli(cli, argv)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return dict(wall=wall, stages=st, prof_cells=cells, routes=routes,
+                probe=rec, phases=dict(driver.PHASE_SECONDS),
+                cells=dict(driver.CELLS)), last
+
+
+# each SW kernel of the iterative search's profile steps: (pass) in
+# iter_stages' cells
+PROF_NOCAP_PASS = {"sw_pair_ends_prof_nocap": 1,
+                   "sw_pair_starts_prof_nocap": 2}
+
+
+def report_iter_run(run, r, counts):
+    """Prints one iterative search of phase 5g: wall, stage seconds by step,
+    the driver's phase seconds, step 0's pairs and cells by route, the
+    profile steps' pairs and cells, the prefilter DBs' pairs and the
+    alignment DBs' hits by step (counts: make_iter_slice.summary's), each
+    SW kernel's launches and summed ms beside its bound, and the kernels'
+    busy and idle shares of the wall; raises unless the run went through
+    K1/K2, their uncapped instances (step 0's realign) and uncapped PSSM
+    instances, and K3/K4 wherever the routing sent pairs, with no capped
+    PSSM entry launched and no plain version called. Returns {kernel:
+    [launches, ms]}."""
+    rec, routes = r["probe"], r["routes"]
+    print(f"{run}: wall {r['wall']:.3f} s")
+    for step, st in r["stages"].items():
+        print(f"{run}: {step} stage seconds " + json.dumps(st))
+    print(f"{run}: step 0 driver phase seconds " + json.dumps(r["phases"]))
+    print(f"{run}: step 0 cells {json.dumps(r['cells'])}; pairs and cells "
+          "by route and pass " + json.dumps(routes))
+    print(f"{run}: profile steps' [pairs, forward cells, reverse cells] "
+          + json.dumps(r["prof_cells"]))
+    print(f"{run}: prefilter pairs and alignment hits by step, profiles "
+          + json.dumps(counts))
+    ms_by = event_ms(rec["events"])
+    prof = [sum(c[i] for c in r["prof_cells"].values()) for i in range(3)]
+    busy = 0.0
+    for k, (n, ms) in ms_by.items():
+        busy += ms
+        if k in PROF_NOCAP_PASS:
+            cells, ops = prof[PROF_NOCAP_PASS[k]], NOCAP_SW_OPS
+        else:
+            route, pas = KERNEL_ROUTES.get(k, (None, None))
+            cells = routes.get(route, {}).get(pas, [0, 0])[1]
+            ops = NOCAP_SW_OPS if k in NOCAP_KERNELS else SW_OPS
+        bound_ms = cells * ops / INT32_OPS_PER_S * 1e3
+        print(f"{run}: {k} {n} launches, {ms:.3f} ms of kernel time (CUDA "
+              f"events around each launch), {cells} cells, bound "
+              f"{bound_ms:.3f} ms (operations; "
+              f"{bound_ms / max(ms, 1e-9):.1%} of it)", flush=True)
+    print(f"{run}: kernels busy {busy / 1e3:.3f} s of the wall, idle share "
+          f"{1 - busy / 1e3 / r['wall']:.2%}", flush=True)
+    print(f"{run}: launches {rec['launches']} plain {rec['plain']}",
+          flush=True)
+    need = [*PAIR_KERNELS, *NOCAP_KERNELS, *PROF_NOCAP_KERNELS]
+    for k, (route, pas) in KERNEL_ROUTES.items():
+        if routes.get(route, {}).get(pas, [0, 0])[0] > 0:
+            need.append(k)
+        elif rec["launches"][k]:
+            raise AssertionError(f"{run}: {k} launched with no pair routed "
+                                 "to it")
+    if min(rec["launches"][k] for k in need) == 0 or \
+            any(rec["launches"][k] for k in PROF_KERNELS) or \
+            any(rec["plain"].values()):
+        raise AssertionError(f"{run} did not go through {sorted(set(need))}"
+                             " alone")
+    return ms_by
+
+
+def check_iter_sample(np, torch, sw_cuda, sw_torch, last, n, seed):
+    """Phase 5g (b): a seeded sample of n pairs of the last profile step
+    (last: iter_stages' record of its ProfileQueryAligner.search) aligned
+    again by the same aligner, once through the kernels and once through
+    their plain versions on the same device (sw_torch.align_full_prof on
+    the gathered rows, cap=None), each launch's raw outputs recorded: the
+    raw outputs equal, both runs' hits equal field by field, and equal to
+    the step's own hits on the sampled pairs. Returns (sampled pairs,
+    aligned pairs, hits)."""
+    al, thr, hits = last["aligner"], last["eval_thr"], last["hits"]
+    pairs = np.asarray(last["pairs"], np.int64).reshape(-1, 2)
+    rng = np.random.default_rng(seed)
+    sample = pairs[np.sort(rng.choice(len(pairs), min(n, len(pairs)),
+                                      replace=False))]
+    full = sw_cuda.align_full_prof
+
+    def plain(prof_mat, p_lens, t_mat, t_lens, li, lj, cap=32767):
+        return sw_torch.align_full_prof(
+            *sw_cuda._gathered(prof_mat, p_lens, t_mat, t_lens, li, lj),
+            cap=cap)
+    raw, got = {}, {}
+    for name, fn in (("kernels", full), ("plain", plain)):
+        outs = raw[name] = []
+
+        def recording(*a, _fn=fn, _outs=outs, **kw):
+            o = _fn(*a, **kw)
+            _outs.append([x.cpu() for x in o])
+            return o
+        sw_cuda.align_full_prof = recording
+        try:
+            got[name] = al.search(sample.tolist(), eval_thr=thr)
+        finally:
+            sw_cuda.align_full_prof = full
+    if len(raw["kernels"]) != len(raw["plain"]) or any(
+            not torch.equal(a, b) for ka, kb in zip(raw["kernels"],
+                                                     raw["plain"])
+            for a, b in zip(ka, kb)):
+        raise AssertionError("the sample's raw outputs differ between the "
+                             "kernels and the plain versions")
+    key = lambda h: h["orf_idx"].astype(np.int64) * (1 << 32) \
+        + h["target_idx"].astype(np.int64)
+    ref = hits[np.isin(key(hits), sample[:, 0] * (1 << 32) + sample[:, 1])]
+    for a, b, what in ((got["kernels"], got["plain"], "plain"),
+                       (ref, got["plain"], "the step's")):
+        if len(a) != len(b) or any(not np.array_equal(a[f], b[f])
+                                   for f in a.dtype.names):
+            raise AssertionError(f"the sample's hits differ from {what}")
+    aligned = sum(int((o[0] > 0).sum()) for o in raw["plain"])
+    return len(sample), aligned, len(ref)
+
+
+def iter_child(td):
+    """Phase 5g (a) and (b), in a process of its own that main() starts
+    after the build and joins before phase 6 (its host stages take minutes,
+    while the other phases run): the search slice's 4,000 queries against
+    its 3,000 targets through `search --num-iterations
+    ITER_FULL_ITERATIONS -a` on the card (run_iter_slice), reported by
+    report_iter_run, then check_iter_sample on its last profile step.
+    Writes td/result.json: the run's wall, launches and summed kernel ms,
+    the sample's counts. Returns 0, or raises."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(GOLDEN))
+    import make_iter_slice as mis
+    from metaeuk_tpu_torch import cli
+    from metaeuk_tpu_torch.io.mmseqsdb import read_db
+    from metaeuk_tpu_torch.ops import sw_cuda, sw_torch, ungapped_cuda
+    from metaeuk_tpu_torch.search import driver, prefilter
+    if not torch.cuda.is_available():
+        raise AssertionError("phase 5g needs the card")
+    counters = (sw_cuda, ungapped_cuda)
+    t0 = time.perf_counter()
+    paths = mis.iter_slice(mis.ITER_SLICE, td)
+    print(f"generated the search slice in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    cfg = dict(mis.ITER_SLICE, num_iterations=ITER_FULL_ITERATIONS)
+    argv = mis.search_args(cfg, paths["queries"], paths["targets"],
+                           td / "res", td / "tmp") + ["--device", "cuda"]
+    run, last = run_iter_slice(torch, cli, argv, probe=lambda: probe_run(
+        torch, counters, driver, prefilter, sw_cuda))
+    counts, _ = mis.summary(cfg, td / "res", td / "tmp", read_db)
+    ms_by = report_iter_run("full slice", run, counts)
+    t0 = time.perf_counter()
+    sample = check_iter_sample(np, torch, sw_cuda, sw_torch, last,
+                               ITER_SAMPLE, ITER_SAMPLE_SEED)
+    print(f"(b) {sample[0]} pairs of the last profile step ({sample[1]} "
+          f"aligned, {sample[2]} hits): raw outputs and hits equal to the "
+          f"plain versions' on the card and to the step's hits, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    (td / "result.json").write_text(json.dumps({
+        "wall": run["wall"], "launches": run["probe"]["launches"],
+        "kernel_ms": ms_by, "counts": counts, "sample": sample}))
+    return 0
 
 
 def check_modular_workflows(cli, device, td):
@@ -1936,6 +2491,8 @@ def time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
     out.update(time_pair_kernels(torch, sw_cuda, sw_torch, args, errs,
                                  nocap=True))
     out.update(time_prof_kernels(torch, sw_cuda, sw_torch, args, errs))
+    out.update(time_prof_kernels(torch, sw_cuda, sw_torch, args, errs,
+                                 nocap=True))
     # the k-mer slice's largest bucket: lengths drawn from its percentiles
     Lq, Lt, B = KMER_PAIR_SHAPE
     pct, q_at, t_at = KMER_PAIR_LENGTHS
@@ -2099,13 +2656,17 @@ def time_pair_kernels(torch, sw_cuda, sw_torch, args, errs, nocap=False):
     return out
 
 
-def time_prof_kernels(torch, sw_cuda, sw_torch, args, errs):
-    """{K1's, K2's PSSM entry: (ms, plain_ms, bound_ms, bound_by)} on
-    time_pair_kernels' batch `args` as PSSM pairs: rows submat[q] + bias
-    staged (int32, as the profile search stages them) in a shuffled order,
-    K2 from the forward ends; outputs equal to the plain versions' and to
-    sw_pair_ends' / sw_pair_starts' on the same pairs."""
+def time_prof_kernels(torch, sw_cuda, sw_torch, args, errs, nocap=False):
+    """{K1's, K2's PSSM entry (nocap: their uncapped instances): (ms,
+    plain_ms, bound_ms, bound_by)} on time_pair_kernels' batch `args` as
+    PSSM pairs: rows submat[q] + bias staged (int32, as the profile search
+    stages them) in a shuffled order, K2 from the forward ends; outputs
+    equal to the plain versions' and to sw_pair_ends' / sw_pair_starts'
+    (nocap: their uncapped instances') on the same pairs."""
     from metaeuk_tpu_torch import state
+    fwd_name, rev_name = PROF_NOCAP_KERNELS if nocap else PROF_KERNELS
+    kw = {"cap": None} if nocap else {}
+    ops = NOCAP_SW_OPS if nocap else SW_OPS
     q, qb, ql, t, tl = args
     B = q.shape[0]
     perm = torch.randperm(B, generator=torch.Generator().manual_seed(5)) \
@@ -2115,27 +2676,29 @@ def time_prof_kernels(torch, sw_cuda, sw_torch, args, errs):
     prof = (sub[q.long()] + qb.int()[:, :, None])[perm]
     staged = (prof, ql[perm], t[perm], tl[perm], inv, inv)
     plain = sw_cuda._gathered(*staged)
-    ends = sw_cuda.sw_ends_prof(*staged)
-    max_err(torch, ends, sw_cuda.sw_ends(*args))
-    errs["sw_pair_ends_prof"] = max(errs["sw_pair_ends_prof"], max_err(
-        torch, ends, sw_torch.sw_ends_prof(*plain)))
+    ends = sw_cuda.sw_ends_prof(*staged, **kw)
+    max_err(torch, ends, sw_cuda.sw_ends(*args, **kw))
+    errs[fwd_name] = max(errs[fwd_name], max_err(
+        torch, ends, sw_torch.sw_ends_prof(*plain, **kw)))
     qe, te = torch.clamp_min(ends[1], 0), torch.clamp_min(ends[2], 0)
-    starts = sw_cuda.sw_starts_prof(*staged, qe, te)
-    max_err(torch, starts, sw_cuda.sw_starts(*args, qe, te))
-    errs["sw_pair_starts_prof"] = max(errs["sw_pair_starts_prof"], max_err(
-        torch, starts, sw_torch.sw_starts_prof(*plain, qe, te)))
+    starts = sw_cuda.sw_starts_prof(*staged, qe, te, **kw)
+    max_err(torch, starts, sw_cuda.sw_starts(*args, qe, te, **kw))
+    errs[rev_name] = max(errs[rev_name], max_err(
+        torch, starts, sw_torch.sw_starts_prof(*plain, qe, te, **kw)))
     fwd = int((ql.long() * tl.long()).sum())
     rev = int(((torch.minimum(qe, ql - 1).long() + 1)
                * (torch.minimum(te, tl - 1).long() + 1)).sum())
     # the kernels read the staged rows as int8
     inputs = (prof.to(torch.int8), *staged[1:])
-    out = {"sw_pair_ends_prof": (
-        time_ms(torch, lambda: sw_cuda.sw_ends_prof(*staged), 10),
-        time_ms(torch, lambda: sw_torch.sw_ends_prof(*plain), 2),
-        *bound(fwd, SW_OPS, (*inputs, *ends))), "sw_pair_starts_prof": (
-        time_ms(torch, lambda: sw_cuda.sw_starts_prof(*staged, qe, te), 10),
-        time_ms(torch, lambda: sw_torch.sw_starts_prof(*plain, qe, te), 2),
-        *bound(rev, SW_OPS, (*inputs, qe, te, *starts)))}
+    out = {fwd_name: (
+        time_ms(torch, lambda: sw_cuda.sw_ends_prof(*staged, **kw), 10),
+        time_ms(torch, lambda: sw_torch.sw_ends_prof(*plain, **kw), 2),
+        *bound(fwd, ops, (*inputs, *ends))), rev_name: (
+        time_ms(torch, lambda: sw_cuda.sw_starts_prof(*staged, qe, te, **kw),
+                10),
+        time_ms(torch, lambda: sw_torch.sw_starts_prof(*plain, qe, te, **kw),
+                2),
+        *bound(rev, ops, (*inputs, qe, te, *starts)))}
     (_, Lq, _), Lt = prof.shape, t.shape[1]
     for k, (ms, plain_ms, bound_ms, by) in out.items():
         print(f"{k} at B={B} Lq={Lq} Lt={Lt}: kernel {ms:.4f} ms, plain "
@@ -2548,11 +3111,48 @@ def run_tools(torch, np, kb, kvar, kbench_cuda, kbench_torch,
     return out, launches, library
 
 
+@contextlib.contextmanager
+def iter_child_process():
+    """Starts phase 5g's (a) and (b) (iter_child: `python3 chip_smoke.py
+    --iter-slice DIR`) in a process of its own, its output to DIR/log;
+    yields (the process, DIR); at exit stops it if it still runs and
+    removes DIR."""
+    import shutil
+    td = pathlib.Path(tempfile.mkdtemp(prefix="meuk_iter"))
+    with open(td / "log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--iter-slice",
+             str(td)], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+        try:
+            yield proc, td
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            shutil.rmtree(td, ignore_errors=True)
+
+
+# seconds after its start by which the script joins phase 5g's process (the
+# whole script must end within 1200 s)
+ITER_CHILD_DEADLINE = 1140
+
+
 def main():
     if not (ROOT / CSRC / "sw_pair.cu").exists():
         print("chip_smoke.py must run from a checkout of the repository",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--iter-slice"]:
+        return iter_child(pathlib.Path(sys.argv[2]))
+    # every process a phase starts (phase 5g's) is stopped at exit
+    with contextlib.ExitStack() as stack:
+        return run_phases(stack)
+
+
+def run_phases(stack):
+    """The phases of the module docstring, in order; processes they start
+    are registered on `stack`."""
+    t_start = time.perf_counter()
     import numpy as np
     import torch
     phase("1 device")
@@ -2621,6 +3221,10 @@ def main():
              "ProfRows"),
             ("sw_pair_starts_prof", pair_usage, PAIR_KERNEL_SYMBOL, "1ELb0",
              "ProfRows"),
+            ("sw_pair_ends_prof_nocap", pair_usage, PAIR_KERNEL_SYMBOL,
+             "0ELb1", "ProfRows"),
+            ("sw_pair_starts_prof_nocap", pair_usage, PAIR_KERNEL_SYMBOL,
+             "1ELb1", "ProfRows"),
             ("sw_qm_ends", qm_usage, QM_KERNEL_SYMBOLS["sw_qm_ends"], None,
              ""),
             ("sw_qm_starts", qm_usage, QM_KERNEL_SYMBOLS["sw_qm_starts"],
@@ -2638,6 +3242,12 @@ def main():
                 f"stores, {found[0][2]} bytes spill loads" if found
                 else "no ptxas report (a cached build)"), flush=True)
 
+    # phase 5g's full-slice run goes in a process of its own, started once
+    # the kernels are built and joined after phase 6b: its host stages
+    # (result2profile's round) outlast phases 3-6b, during which it uses
+    # the card for a few seconds only (step 0's alignment)
+    child, child_td = stack.enter_context(iter_child_process())
+
     phase("3 kernels against their plain versions")
     errs = dict.fromkeys(KERNELS, 0)
     check_pair_kernels(torch, sw_cuda, sw_torch, errs)
@@ -2645,6 +3255,9 @@ def main():
     check_nocap_kernels(torch, sw_cuda, sw_torch, errs)
     check_prof_kernels(torch, sw_cuda, sw_torch, errs)
     check_prof_edges(torch, sw_cuda, sw_torch, errs)
+    check_prof_kernels(torch, sw_cuda, sw_torch, errs, nocap=True)
+    check_prof_edges(torch, sw_cuda, sw_torch, errs, nocap=True)
+    check_prof_cap_runs(torch, sw_cuda, sw_torch, errs)
     check_qm_kernels(torch, sw_cuda, sw_torch, errs)
     check_qm_edges(torch, sw_cuda, sw_torch, errs)
     check_qm_rt_kernels(torch, sw_cuda, sw_torch, errs)
@@ -2814,6 +3427,22 @@ def main():
         if min(run_l[k] for k in PAIR_KERNELS) == 0 or any(run_p.values()):
             raise AssertionError("the modular and taxonomy commands did not "
                                  "go through the pair kernels")
+
+        phase("4g the iterative search and the profile tools on the fixtures "
+              "against the goldens")
+        reset(torch, counters, driver, prefilter)
+        (td / "prof").mkdir()
+        t0 = time.perf_counter()
+        n = check_profile_workflows(cli, "cuda", td / "prof")
+        run_l, run_p = counts(counters)
+        print(f"iterative search and profile tools: {n} outputs equal to "
+              f"their goldens, {time.perf_counter() - t0:.2f} s, launches "
+              f"{run_l}, plain {run_p}", flush=True)
+        if min(run_l[k] for k in ("sw_pair_ends", *PROF_NOCAP_KERNELS)) \
+                == 0 or any(run_p.values()):
+            raise AssertionError("the iterative search and the profile tools"
+                                 " did not go through K1 and the uncapped "
+                                 "PSSM instances")
 
         phase("5 k-mer main path: 1.6 Mbp / 3000-target slice")
         golden = json.loads((GOLDEN / "multichip_slice.json").read_text())
@@ -3191,6 +3820,34 @@ def main():
               "tax_slice.json", flush=True)
         print(f"phases 5-5f: {time.perf_counter() - t5:.2f} s", flush=True)
 
+        phase("5g the iterative search at full width: search "
+              "--num-iterations on the search slice's 4,000 queries (its "
+              "own process since the build), then 3 iterations on its cut")
+        import make_iter_slice as mis
+        from metaeuk_tpu_torch.io.mmseqsdb import read_db
+        iter_golden = json.loads((GOLDEN / "iter_slice.json").read_text())
+        if iter_golden["input"] != json.loads(json.dumps(mis.ITER_SLICE)):
+            raise AssertionError("iter_slice.json was made from another "
+                                 "input than make_iter_slice.ITER_SLICE")
+        t0 = time.perf_counter()
+        (td / "ig").mkdir()
+        paths = mis.iter_slice(mis.ITER_SLICE, td / "ig")
+        cut_run, _ = run_iter_slice(torch, cli, mis.search_args(
+            mis.ITER_SLICE, paths["cut"], paths["targets"],
+            td / "ig" / "res", td / "ig" / "tmp") + ["--device", "cuda"],
+            probe=lambda: probe_run(torch, counters, driver, prefilter,
+                                    sw_cuda))
+        cut_counts, cut_digests = mis.summary(
+            mis.ITER_SLICE, td / "ig" / "res", td / "ig" / "tmp", read_db)
+        report_iter_run("(c) the cut", cut_run, cut_counts)
+        if cut_counts != iter_golden["counts"] or \
+                cut_digests != iter_golden["sha256"]:
+            raise AssertionError("the cut's iterative search differs from "
+                                 "iter_slice.json")
+        print(f"(c) the cut ({len(cut_digests)} DBs): every digest equal to "
+              f"iter_slice.json, {time.perf_counter() - t0:.2f} s",
+              flush=True)
+
     phase("6 kernel and plain-version times")
     times, same = time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
                                ungapped_torch, errs)
@@ -3214,6 +3871,25 @@ def main():
     times.update(tool_times)
     launches.update(tool_launches)
     print(f"phase 6b: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    phase("5g (a) and (b): the full slice's process, joined")
+    t0 = time.perf_counter()
+    try:
+        rc = child.wait(timeout=max(
+            1, ITER_CHILD_DEADLINE - (time.perf_counter() - t_start)))
+    except subprocess.TimeoutExpired:
+        rc = None
+    print(f"waited {time.perf_counter() - t0:.2f} s for it; its output:",
+          flush=True)
+    print((child_td / "log").read_text(), flush=True)
+    if rc != 0:
+        raise AssertionError(f"phase 5g's full-slice process failed (exit "
+                             f"{rc})")
+    full = json.loads((child_td / "result.json").read_text())
+    for k in PROF_NOCAP_KERNELS:
+        launches[k] = full["launches"][k]
+    print(f"phase 5g: the full slice's wall {full['wall']:.3f} s, the "
+          f"script at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"{CSRC}/{src}",

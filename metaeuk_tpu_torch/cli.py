@@ -11,6 +11,11 @@
         | majoritylca | aggregatetax | aggregatetaxweights | addtaxonomy
         | filtertaxdb | filtertaxseqdb | taxonomyreport | createbintaxonomy
         | createbintaxmapping | createdmptaxonomy | createtaxdb ...
+    metaeuk-tpu-torch search --num-iterations N | result2profile
+        | msa2profile | sequence2profile | profile2pssm | convertprofiledb
+        | expandaln | expand2profile | profile2consensus | profile2repseq
+        | profile2neff | convertmsa | filtera3m | alignall | summarizetabs
+        | result2dnamsa | enrich ...
 
 The flags and their mapping to Params are those of metaeuk-tpu: _byte_size,
 _add_predict_flags, _params_from_args and _parse_dp_payload are copied from
@@ -21,14 +26,19 @@ cmd_collectoptimalset (:694-720), cmd_createtsv and cmd_taxtocontig
 (:582), cmd_search (:734), cmd_convertalis (:881), cmd_align (:957) and
 cmd_rbh .. cmd_lcaalign (:1436-1490), and the taxonomy commands from its
 cmd_taxcmd, cmd_taxonomy, cmd_easy_taxonomy (:1046-1135) and
-cmd_summarizealis (:1492), with their parsers. Every command that aligns
-(easy-predict, predictexons, unitesetstofasta, taxtocontig, search, align,
-easy-search, rbh, easy-rbh, lcaalign, taxonomy, easy-taxonomy) takes
---device (default cuda; cpu runs the kernels' plain versions); the others
-run on the host only. search's --num-iterations > 1 and its nucleotide
-branch, mergepredictions (multi-process runs) and the other commands of
-metaeuk-tpu (clustering, linsearch, iterative search, the profile and DB
-utilities) are not ported yet.
+cmd_summarizealis (:1492), search's iterative branch from its cmd_search
+(:773-795), and the profile tools from its cmd_msa2profile,
+cmd_result2profile (:395-433), cmd_profile2pssm (:686),
+cmd_sequence2profile, cmd_convertprofiledb (:718-732), cmd_dbtool6
+(:1171), cmd_enrich (:1287) and cmd_expandaln (:1376), with their parsers.
+Every command that aligns (easy-predict, predictexons, unitesetstofasta,
+taxtocontig, search, align, easy-search, rbh, easy-rbh, lcaalign,
+taxonomy, easy-taxonomy, alignall, enrich) takes --device (default cuda;
+cpu runs the kernels' plain versions); the others run on the host only.
+Not ported yet: search's nucleotide branch, mergepredictions
+(multi-process runs), linsearch (easy-linsearch), the clustering family
+(cluster, linclust, kmermatcher and their workflows), result2msa with the
+other DB utilities, and the rest of metaeuk-tpu's commands.
 """
 
 import argparse
@@ -501,10 +511,19 @@ def cmd_search(args):
         print(f"wrote {args.out_db} ({args.sens_steps} sensitivity steps)")
         return 0
     if getattr(args, "num_iterations", 1) > 1:
-        raise NotImplementedError(
-            "search --num-iterations > 1 waits for search/iterative.py, "
-            "which the port does not have yet (ROADMAP section 1, item 4, "
-            "M6)")
+        import tempfile
+        import os
+        from .search.iterative import iterative_search
+        td = args.tmp or tempfile.mkdtemp(prefix="itersearch")
+        os.makedirs(td, exist_ok=True)
+        q_db = _fasta_or_db(args.queries, td, "queryDB")
+        t_db = _fasta_or_db(args.targets, td, "targetDB")
+        iterative_search(q_db, t_db, args.out_db, td,
+                         num_iterations=args.num_iterations,
+                         evalue=p.search_evalue_thr,
+                         e_profile=args.e_profile, params=p, device=device)
+        print(f"wrote {args.out_db} ({args.num_iterations} iterations)")
+        return 0
     queries = load_sequence_input(args.queries, DBTYPE_AA)
     targets = load_target_input(args.targets)
     query_seqs = [queries.seq_bytes(i) for i in range(len(queries))]
@@ -764,6 +783,120 @@ def cmd_easy_taxonomy(args):
     return 0
 
 
+def cmd_msa2profile(args):
+    """MSA DB (or one FASTA MSA) -> HMM-profile DB."""
+    from .io import mmseqsdb
+    from .pipeline.msa2profile import msa_db_to_profile_db
+
+    if pathlib_exists(f"{args.msa_db}.dbtype"):
+        entries = [(k, v.decode()) for k, v in mmseqsdb.read_db(args.msa_db)]
+    else:
+        entries = [(0, open(args.msa_db).read())]
+    msa_db_to_profile_db(entries, args.out_db, match_mode=args.match_mode,
+                         match_ratio=args.match_ratio,
+                         comp_bias_correction=bool(args.comp_bias_corr),
+                         filter_msa=bool(args.filter_msa),
+                         pcmode=args.pseudo_cnt_mode,
+                         context_lib=args.context_lib,
+                         msa_type=args.msa_type,
+                         skip_query=bool(args.skip_query))
+    print(f"wrote {args.out_db} ({len(entries)} profiles)")
+    return 0
+
+
+def cmd_result2profile(args):
+    """Alignment-result DB (with backtraces) -> HMM-profile DB."""
+    from .pipeline.result2profile import result2profile_db
+
+    eval_profile = min(args.e, args.e_profile)  # reference clamps to evalThr
+    result2profile_db(args.query_db, args.target_db, args.aln_db, args.out_db,
+                      eval_profile=eval_profile,
+                      filter_msa=args.filter_msa,
+                      comp_bias_correction=bool(args.comp_bias_corr),
+                      mask_profile=bool(args.mask_profile),
+                      mask_prob=args.mask_prob,
+                      cov_msa_thr=args.cov, qid=args.qid, qsc=args.qsc,
+                      filter_max_seq_id=args.max_seq_id, ndiff=args.diff,
+                      filter_min_enable=args.filter_min_enable,
+                      pcmode=args.pseudo_cnt_mode,
+                      context_lib=args.context_lib, wg=bool(args.wg))
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_profile2pssm(args):
+    """HMM-profile DB -> human-readable PSSM table."""
+    from .pipeline.profile2pssm import profile2pssm_db
+    profile2pssm_db(args.profile_db, args.out, db_out=bool(args.db_output))
+    print(f"wrote {args.out}")
+    return 0
+
+
+def cmd_sequence2profile(args):
+    from .pipeline.sequence2profile import sequence2profile
+    sequence2profile(args.seq_db, args.out_db, args.context_lib,
+                     tau=args.tau)
+    print("sequence2profile done")
+    return 0
+
+
+def cmd_convertprofiledb(args):
+    """HH-suite .hhm text DB -> HMM-profile DB."""
+    from .pipeline.convertprofiledb import convertprofiledb
+    convertprofiledb(args.hhm_db, args.out_db)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_dbtool6(args):
+    from .pipeline import dbtools6 as d6
+    t, a = args.tool, args.args
+    if t in ("profile2consensus", "profile2repseq"):
+        d6.profile2seq(a[0], a[1], consensus=(t == "profile2consensus"))
+    elif t == "profile2neff":
+        d6.profile2neff(a[0], a[1], db_output=bool(args.db_output))
+    elif t == "convertmsa":
+        d6.convertmsa(a[0], a[1], identifier_field=args.identifier_field)
+    elif t == "filtera3m":
+        d6.filtera3m(a[0], a[1], cov=args.cov, qid=args.qid, qsc=args.qsc,
+                     max_seq_id=args.max_seq_id, ndiff=args.diff,
+                     filter_min_enable=args.filter_min_enable)
+    elif t == "alignall":
+        d6.alignall(a[0], a[1], a[2], evalue=args.e, cov=args.c,
+                    cov_mode=args.cov_mode, min_seq_id=args.min_seq_id,
+                    device=_device(args.device))
+    elif t == "summarizetabs":
+        d6.summarizetabs(a[0], a[1], a[2], overlap=args.overlap,
+                         cov=args.c, evalue=args.e)
+    elif t == "result2dnamsa":
+        d6.result2dnamsa(a[0], a[1], a[2], a[3],
+                         skip_query=args.skip_query)
+    print(f"{t}: done")
+    return 0
+
+
+def cmd_enrich(args):
+    from .pipeline.enrich import enrich_workflow
+    enrich_workflow(args.query_db, args.target_seq_db,
+                    args.target_prof_db, args.target_res_db, args.out_db,
+                    args.tmp, num_iterations=args.num_iterations,
+                    evalue=args.e, eval_profile=args.e_profile,
+                    sensitivity=args.s, device=_device(args.device))
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_expandaln(args):
+    from .pipeline.expand import expandaln_db
+    expandaln_db(args.a_db, args.c_db, args.result_ab, args.result_bc,
+                 args.out_db, return_aln=not args.profile, evalue=args.e,
+                 cov=args.c, cov_mode=args.cov_mode,
+                 min_seq_id=args.min_seq_id,
+                 expansion_mode=args.expansion_mode)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
 def _add_device_flag(p):
     p.add_argument("--device", default="cuda",
                    help="torch device for the alignment (default cuda; "
@@ -787,8 +920,7 @@ def _add_search_commands(sub):
     se.add_argument("-a", "--backtrace", action="store_true",
                     help="compute backtraces (alignment mode 3)")
     se.add_argument("--num-iterations", type=int, default=1,
-                    help=">1 = iterative profile search (blastpgp role; "
-                         "not ported yet)")
+                    help=">1 = iterative profile search (blastpgp role)")
     se.add_argument("--e-profile", type=float, default=0.1)
     se.add_argument("-s", type=float, default=None, dest="s",
                     help="sensitivity (default: Params default; the "
@@ -1064,6 +1196,149 @@ def _add_tax_commands(sub):
     sa.set_defaults(fn=cmd_summarizealis)
 
 
+def _add_profile_commands(sub):
+    """The parsers of the profile tools (metaeuk_tpu/cli.py:1598-1642,
+    :1794-1804, :1828-1837, :2046-2077, :2159, :2274-2288); alignall and
+    enrich with --device, the rest host-only."""
+    mp = sub.add_parser("msa2profile", help="MSA DB/FASTA -> HMM-profile DB")
+    mp.add_argument("msa_db")
+    mp.add_argument("out_db")
+    mp.add_argument("--match-mode", type=int, default=0, choices=[0, 1])
+    mp.add_argument("--match-ratio", type=float, default=0.5)
+    mp.add_argument("--filter-msa", type=int, default=1,
+                    help="reference default: filter the MSA before "
+                         "profile computation")
+    mp.add_argument("--comp-bias-corr", type=int, default=1)
+    mp.add_argument("--pseudo-cnt-mode", type=int, default=0, choices=[0, 1])
+    mp.add_argument("--context-lib", default=None,
+                    help="CRF context library file (required for "
+                         "--pseudo-cnt-mode 1)")
+    mp.add_argument("--msa-type", type=int, default=2, choices=[1, 2],
+                    help="1 = A3M (lowercase insert states skipped, "
+                         "ss_ entries dropped — the PDB70 chain)")
+    mp.add_argument("--skip-query", action="store_true",
+                    help="drop the first MSA record (the CDD chain)")
+    mp.set_defaults(fn=cmd_msa2profile)
+
+    rp = sub.add_parser("result2profile",
+                        help="alignment DB (-a) -> HMM-profile DB")
+    rp.add_argument("query_db")
+    rp.add_argument("target_db")
+    rp.add_argument("aln_db")
+    rp.add_argument("out_db")
+    rp.add_argument("-e", type=float, default=1e-3)
+    rp.add_argument("--e-profile", type=float, default=1e-3)
+    rp.add_argument("--filter-msa", type=int, default=1)
+    rp.add_argument("--comp-bias-corr", type=int, default=1)
+    rp.add_argument("--mask-profile", type=int, default=1)
+    rp.add_argument("--mask-prob", type=float, default=0.9)
+    rp.add_argument("--cov", type=float, default=0.0)
+    rp.add_argument("--qid", type=str, default="0.0")
+    rp.add_argument("--qsc", type=float, default=-20.0)
+    rp.add_argument("--max-seq-id", type=float, default=0.9)
+    rp.add_argument("--diff", type=int, default=1000)
+    rp.add_argument("--filter-min-enable", type=int, default=0)
+    rp.add_argument("--pseudo-cnt-mode", type=int, default=0, choices=[0, 1])
+    rp.add_argument("--wg", type=int, default=0,
+                    help="global sequence weighting for profiles")
+    rp.add_argument("--context-lib", default=None,
+                    help="CRF context library file (required for "
+                         "--pseudo-cnt-mode 1)")
+    rp.set_defaults(fn=cmd_result2profile)
+
+    pp = sub.add_parser("profile2pssm", help="profile DB -> PSSM table")
+    pp.add_argument("profile_db")
+    pp.add_argument("out")
+    pp.add_argument("--db-output", type=int, default=0)
+    pp.set_defaults(fn=cmd_profile2pssm)
+
+    cv = sub.add_parser("convertprofiledb",
+                        help="HH-suite .hhm DB -> profile DB")
+    cv.add_argument("hhm_db")
+    cv.add_argument("out_db")
+    cv.set_defaults(fn=cmd_convertprofiledb)
+
+    s2 = sub.add_parser("sequence2profile",
+                        help="sequence DB -> context-specific profile DB")
+    s2.add_argument("seq_db")
+    s2.add_argument("out_db")
+    s2.add_argument("--context-lib", required=True,
+                    help="CRF context library file (the reference bakes "
+                         "K4000.crf into the binary; that blob is a "
+                         "missing LFS object upstream)")
+    s2.add_argument("--tau", type=float, default=0.9)
+    s2.set_defaults(fn=cmd_sequence2profile)
+
+    d6_tools = {
+        "profile2consensus": 2, "profile2repseq": 2, "profile2neff": 2,
+        "convertmsa": 2, "filtera3m": 2, "alignall": 3,
+        "summarizetabs": 3, "result2dnamsa": 4,
+    }
+    for tool, nargs in d6_tools.items():
+        dp6 = sub.add_parser(tool, help=f"{tool} utility")
+        dp6.add_argument("args", nargs=nargs)
+        if tool == "profile2neff":
+            dp6.add_argument("--db-output", type=int, default=0)
+        elif tool == "convertmsa":
+            dp6.add_argument("--identifier-field", type=int, default=1)
+        elif tool == "filtera3m":
+            dp6.add_argument("--cov", type=float, default=0.0)
+            dp6.add_argument("--qid", type=str, default="0.0")
+            dp6.add_argument("--qsc", type=float, default=-20.0)
+            dp6.add_argument("--max-seq-id", type=float, default=0.9)
+            dp6.add_argument("--diff", type=int, default=1000)
+            dp6.add_argument("--filter-min-enable", type=int, default=0)
+        elif tool == "alignall":
+            dp6.add_argument("-e", type=float, default=1e-3)
+            dp6.add_argument("-c", type=float, default=0.0)
+            dp6.add_argument("--cov-mode", type=int, default=0)
+            dp6.add_argument("--min-seq-id", type=float, default=0.0)
+            _add_device_flag(dp6)
+        elif tool == "summarizetabs":
+            dp6.add_argument("--overlap", type=float, default=0.0)
+            dp6.add_argument("-c", type=float, default=0.0)
+            dp6.add_argument("-e", type=float, default=0.001)
+        elif tool == "result2dnamsa":
+            dp6.add_argument("--skip-query", action="store_true")
+        dp6.add_argument("--threads", type=int, default=1)
+        dp6.add_argument("-v", type=int, default=3)
+        dp6.set_defaults(fn=cmd_dbtool6, tool=tool)
+
+    en = sub.add_parser("enrich", help="boost search-result diversity "
+                        "through target profiles (the reference's "
+                        "6-path enrich.sh contract)")
+    en.add_argument("query_db")
+    en.add_argument("target_seq_db")
+    en.add_argument("target_prof_db")
+    en.add_argument("target_res_db")
+    en.add_argument("out_db")
+    en.add_argument("tmp")
+    en.add_argument("--num-iterations", type=int, default=3)
+    en.add_argument("-e", type=float, default=0.001)
+    en.add_argument("--e-profile", type=float, default=0.1)
+    en.add_argument("-s", type=float, default=4.0)
+    en.add_argument("--threads", type=int, default=1)
+    en.add_argument("-v", type=int, default=3)
+    _add_device_flag(en)
+    en.set_defaults(fn=cmd_enrich)
+
+    for tool in ("expandaln", "expand2profile"):
+        ex = sub.add_parser(tool, help=f"{tool}: A->B + B->C -> A->C")
+        ex.add_argument("a_db")
+        ex.add_argument("c_db")
+        ex.add_argument("result_ab")
+        ex.add_argument("result_bc")
+        ex.add_argument("out_db")
+        ex.add_argument("-e", type=float, default=1e-3)
+        ex.add_argument("-c", type=float, default=0.0)
+        ex.add_argument("--cov-mode", type=int, default=0)
+        ex.add_argument("--min-seq-id", type=float, default=0.0)
+        ex.add_argument("--expansion-mode", type=int, default=0)
+        ex.add_argument("--threads", type=int, default=1)
+        ex.add_argument("-v", type=int, default=3)
+        ex.set_defaults(fn=cmd_expandaln, profile=(tool == "expand2profile"))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="metaeuk-tpu-torch",
@@ -1083,6 +1358,7 @@ def main(argv=None):
     _add_modular_commands(sub)
     _add_search_commands(sub)
     _add_tax_commands(sub)
+    _add_profile_commands(sub)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -11,6 +11,12 @@
 //                query (the inverted profile search: a profile's rows
 //                against a fragment's columns), in place of
 //                sw_pallas.py::_align_full_prof over _build_S_prof.
+// sw_pair_ends_nocap, sw_pair_starts_nocap and their PSSM twins
+//                sw_pair_ends_prof_nocap, sw_pair_starts_prof_nocap are
+//                the uncapped instances (H not capped at 32767), in place
+//                of the JAX package's XLA code: sw_jax.py sw_align_batch
+//                (the realign pass) and sw_align_batch_prof (the
+//                profile-query aligner, search/profile_align.py).
 // Both also replace sw_pallas.py::_build_S_gapped: the score of cell (i, j)
 // is submat[q_i][t_j] + bias_i, read from an int8 query profile in shared
 // memory with the bias added after the load, instead of an int8 (Lt_pad,
@@ -252,5 +258,44 @@ extern "C" int sw_pair_starts_nocap(const int32_t* submat, int alph,
                           PairRows{q, qb, q_len, t, t_len, Lq, Lt}, q_end,
                           t_end, B, go, ge, order, bounds, carry, score,
                           q_start, t_start},
+      static_cast<cudaStream_t>(stream));
+}
+
+// The uncapped instances of sw_pair_ends_prof / sw_pair_starts_prof (the
+// profile-query aligner: sw_jax.sw_align_batch_prof's contract, H not
+// capped at 32767): the same arguments, with carry holding (B, Lt) 8-byte
+// words when Lq > 512.
+extern "C" int sw_pair_ends_prof_nocap(const int8_t* prof, int alph,
+                                       const int32_t* p_len, int nP, int Lq,
+                                       const uint8_t* t,
+                                       const int32_t* t_len, int nT, int Lt,
+                                       const int32_t* li, const int32_t* lj,
+                                       int B, int go, int ge,
+                                       const int32_t* order,
+                                       const int32_t* bounds, void* carry,
+                                       int32_t* best, int32_t* q_end,
+                                       int32_t* t_end, void* stream) {
+  return launch_groups<false, true>(
+      GroupArgs<ProfRows>{nullptr, alph,
+                          ProfRows{prof, p_len, t, t_len, li, lj, nP, nT, Lq,
+                                   Lt, alph},
+                          nullptr, nullptr, B, go, ge, order, bounds, carry,
+                          best, q_end, t_end},
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int sw_pair_starts_prof_nocap(
+    const int8_t* prof, int alph, const int32_t* p_len, int nP, int Lq,
+    const uint8_t* t, const int32_t* t_len, int nT, int Lt,
+    const int32_t* li, const int32_t* lj, const int32_t* q_end,
+    const int32_t* t_end, int B, int go, int ge, const int32_t* order,
+    const int32_t* bounds, void* carry, int32_t* score, int32_t* q_start,
+    int32_t* t_start, void* stream) {
+  return launch_groups<true, true>(
+      GroupArgs<ProfRows>{nullptr, alph,
+                          ProfRows{prof, p_len, t, t_len, li, lj, nP, nT, Lq,
+                                   Lt, alph},
+                          q_end, t_end, B, go, ge, order, bounds, carry,
+                          score, q_start, t_start},
       static_cast<cudaStream_t>(stream));
 }

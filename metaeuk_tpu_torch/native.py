@@ -9,10 +9,10 @@ native/libmetaeuk_host.so is never loaded. Build and load hold a lock, so a
 thread that asks while another thread builds waits for the library instead
 of getting None. Only the entry points that the port's host stages call are
 bound here (comp_bias, orf_scan_strand, chain_dp, chain_dp_groups,
-banded_sw_traceback, banded_sw_traceback_prof; the prefilter binds its
-own). Each entry point
-returns None when the library is unavailable, and its callers then fall
-back to Python.
+banded_sw_traceback, banded_sw_traceback_prof, rcp_nr; the prefilter binds
+its own). Each entry point but rcp_nr returns None when the library is
+unavailable, and its callers then fall back to Python; rcp_nr raises, since
+its callers' fallback (an exact division) gives other bytes.
 """
 
 import ctypes
@@ -256,3 +256,26 @@ def banded_sw_traceback_prof(prof, t_enc, score, band_width, go=11, ge=1):
     if n < 0:
         return None
     return out[:n].tobytes().decode()
+
+
+def rcp_nr(x):
+    """Hardware rcpps + one Newton-Raphson iteration per element (the
+    reference's simdf32_rcp recipe, PSSMCalculator.cpp:506-520), float32 in
+    and out (copied from metaeuk_tpu/native.py:149; bound under the
+    loader's lock). Raises when the library is unavailable, and never
+    returns None: ops/pssm.py's exact-division fallback would give other
+    bytes than the reference's."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("rcp_nr needs the native host library, which "
+                           "could not be built or loaded")
+    with _LOCK:
+        if not getattr(lib, "_rcp_bound", False):
+            f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+            lib.rcp_nr.restype = None
+            lib.rcp_nr.argtypes = [f32p, f32p, ctypes.c_int64]
+            lib._rcp_bound = True
+    x = np.ascontiguousarray(x, np.float32)
+    out = np.empty_like(x)
+    lib.rcp_nr(x.ravel(), out.ravel(), x.size)
+    return out.reshape(x.shape)

@@ -16,10 +16,14 @@ sw_align_batch, the XLA code of the realign pass, which has no Pallas
 kernel; sw_ends_prof, sw_starts_prof and align_full_prof are the
 same kernels on PSSM queries (_align_full_prof over _build_S_prof), read
 from staged profile and fragment matrices by pair indices, with no gathered
-(B, Lq, 21) copy on the card. Batches need no padding to a tile multiple:
-a group of G lanes aligns one pair, with the fragment's rows in registers
-(csrc/sw_pair.cu; pair_classes bins a launch's pairs by fragment length,
-one G a class, and the kernels write each output at its pair's place).
+(B, Lq, 21) copy on the card; with cap=None (sw_pair_ends_prof_nocap /
+sw_pair_starts_prof_nocap) they are sw_jax.py's sw_batch_ends_prof and
+sw_align_batch_prof, the XLA code of the profile-query aligner
+(search/profile_align.py), which has no Pallas kernel either. Batches
+need no padding to a tile multiple: a group of G lanes aligns one pair,
+with the fragment's rows in registers (csrc/sw_pair.cu; pair_classes bins
+a launch's pairs by fragment length, one G a class, and the kernels write
+each output at its pair's place).
 qm_ends and qm_starts are _align_ends_qm and _align_starts_qm over
 build_prof_tiles / build_tcodes_T (K3, K4): one query row per tile of TB =
 128 target lanes, read from the staged matrices. Their CUDA kernels
@@ -51,12 +55,15 @@ from ..state import default_scoring
 
 KERNELS = ("sw_pair_ends", "sw_pair_starts", "sw_pair_ends_nocap",
            "sw_pair_starts_nocap", "sw_pair_ends_prof",
-           "sw_pair_starts_prof", "sw_qm_ends", "sw_qm_starts",
+           "sw_pair_starts_prof", "sw_pair_ends_prof_nocap",
+           "sw_pair_starts_prof_nocap", "sw_qm_ends", "sw_qm_starts",
            "sw_qm_rt_ends", "sw_qm_rt_starts")
 # the .cu source (csrc/<name>.cu) of each kernel
 SOURCES = {"sw_pair_ends": "sw_pair", "sw_pair_starts": "sw_pair",
            "sw_pair_ends_nocap": "sw_pair", "sw_pair_starts_nocap": "sw_pair",
            "sw_pair_ends_prof": "sw_pair", "sw_pair_starts_prof": "sw_pair",
+           "sw_pair_ends_prof_nocap": "sw_pair",
+           "sw_pair_starts_prof_nocap": "sw_pair",
            "sw_qm_ends": "sw_qm", "sw_qm_starts": "sw_qm",
            "sw_qm_rt_ends": "sw_qm_rt", "sw_qm_rt_starts": "sw_qm_rt"}
 # K1-K4's length classes, by the rows a pair sweeps (the fragment, or the
@@ -101,6 +108,8 @@ _ARGTYPES = {
 }
 _ARGTYPES["sw_pair_ends_nocap"] = _ARGTYPES["sw_pair_ends"]
 _ARGTYPES["sw_pair_starts_nocap"] = _ARGTYPES["sw_pair_starts"]
+_ARGTYPES["sw_pair_ends_prof_nocap"] = _ARGTYPES["sw_pair_ends_prof"]
+_ARGTYPES["sw_pair_starts_prof_nocap"] = _ARGTYPES["sw_pair_starts_prof"]
 _ARGTYPES["sw_qm_rt_ends"] = _ARGTYPES["sw_qm_ends"]
 _ARGTYPES["sw_qm_rt_starts"] = _ARGTYPES["sw_qm_starts"]
 
@@ -316,10 +325,11 @@ def _pssm_int8(prof_mat):
 
 
 def _prof_launch(name, prof_mat, p_lens, t_mat, t_lens, li, lj, *ends):
-    """Launches a PSSM entry of K1 (no ends) or K2 (ends = q_end, t_end) on
-    staged (nP, Lq, 21) PSSM rows and (nT, Lt) fragment codes, pair b being
-    profile li[b] against fragment lj[b]; the row-stripe hand-off of (B,
-    Lt) words only when the profiles are wider than PAIR_STRIPE rows."""
+    """Launches a PSSM entry of K1 (no ends) or K2 (ends = q_end, t_end),
+    capped or not (name), on staged (nP, Lq, 21) PSSM rows and (nT, Lt)
+    fragment codes, pair b being profile li[b] against fragment lj[b]; the
+    row-stripe hand-off of (B, Lt) words (8-byte in the uncapped instances)
+    only when the profiles are wider than PAIR_STRIPE rows."""
     dev = prof_mat.device
     tensors = (prof_mat, p_lens, t_mat, t_lens, li, lj, *ends)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -336,7 +346,8 @@ def _prof_launch(name, prof_mat, p_lens, t_mat, t_lens, li, lj, *ends):
                  t_lens.to(torch.int32).contiguous())
     li, lj, *ends = (v.to(torch.int32).contiguous() for v in (li, lj, *ends))
     order, bounds = pair_classes(pl[li.long()], tl[lj.long()], Lq, Lt, *ends)
-    carry = torch.empty((B, Lt), dtype=torch.int32, device=dev) \
+    wide = torch.int64 if name.endswith("_nocap") else torch.int32
+    carry = torch.empty((B, Lt), dtype=wide, device=dev) \
         if Lq > PAIR_STRIPE else None
     outs = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
     go, ge = state.GO, state.GE
@@ -356,39 +367,45 @@ def _gathered(prof_mat, p_lens, t_mat, t_lens, li, lj):
     return prof_mat[li], p_lens[li], t_mat[lj], t_lens[lj]
 
 
-def sw_ends_prof(prof_mat, p_lens, t_mat, t_lens, li, lj):
-    """Forward SW ends (K1's PSSM entry) of profile li[b] (staged (nP, Lq,
-    21) PSSM rows, (nP,) lengths) against fragment lj[b] (staged (nT, Lt)
-    codes, (nT,) lengths): (score, q_end, t_end), each (B,) int32."""
+def sw_ends_prof(prof_mat, p_lens, t_mat, t_lens, li, lj,
+                 cap=state.SCORE_CAP):
+    """Forward SW ends (K1's PSSM entry; cap=None: its uncapped instance)
+    of profile li[b] (staged (nP, Lq, 21) PSSM rows, (nP,) lengths) against
+    fragment lj[b] (staged (nT, Lt) codes, (nT,) lengths): (score, q_end,
+    t_end), each (B,) int32."""
+    name = _pair_kernel("sw_pair_ends_prof", cap)
     if prof_mat.device.type == "cpu":
-        PLAIN_CALLS["sw_pair_ends_prof"] += 1
+        PLAIN_CALLS[name] += 1
         return sw_torch.sw_ends_prof(*_gathered(prof_mat, p_lens, t_mat,
-                                                t_lens, li, lj))
-    return _prof_launch("sw_pair_ends_prof", prof_mat, p_lens, t_mat,
-                        t_lens, li, lj)
+                                                t_lens, li, lj), cap=cap)
+    return _prof_launch(name, prof_mat, p_lens, t_mat, t_lens, li, lj)
 
 
-def sw_starts_prof(prof_mat, p_lens, t_mat, t_lens, li, lj, q_end, t_end):
-    """Reverse-prefix starts (K2's PSSM entry) from known ends:
-    (score, q_start, t_start), each (B,) int32."""
+def sw_starts_prof(prof_mat, p_lens, t_mat, t_lens, li, lj, q_end, t_end,
+                   cap=state.SCORE_CAP):
+    """Reverse-prefix starts (K2's PSSM entry; cap=None: its uncapped
+    instance) from known ends: (score, q_start, t_start), each (B,)
+    int32."""
+    name = _pair_kernel("sw_pair_starts_prof", cap)
     if prof_mat.device.type == "cpu":
-        PLAIN_CALLS["sw_pair_starts_prof"] += 1
+        PLAIN_CALLS[name] += 1
         return sw_torch.sw_starts_prof(
             *_gathered(prof_mat, p_lens, t_mat, t_lens, li, lj), q_end,
-            t_end)
-    return _prof_launch("sw_pair_starts_prof", prof_mat, p_lens, t_mat,
-                        t_lens, li, lj, q_end, t_end)
+            t_end, cap=cap)
+    return _prof_launch(name, prof_mat, p_lens, t_mat, t_lens, li, lj,
+                        q_end, t_end)
 
 
-def align_full_prof(prof_mat, p_lens, t_mat, t_lens, li, lj):
+def align_full_prof(prof_mat, p_lens, t_mat, t_lens, li, lj,
+                    cap=state.SCORE_CAP):
     """Ends then starts of the PSSM pairs through the dispatching wrappers
-    (sw_pallas.py _align_full_prof): (score, q_start, q_end, t_start,
-    t_end)."""
+    (sw_pallas.py _align_full_prof; with cap=None, sw_jax.py
+    sw_align_batch_prof): (score, q_start, q_end, t_start, t_end)."""
     score, q_end, t_end = sw_ends_prof(prof_mat, p_lens, t_mat, t_lens, li,
-                                       lj)
+                                       lj, cap=cap)
     _, q_start, t_start = sw_starts_prof(
         prof_mat, p_lens, t_mat, t_lens, li, lj, torch.clamp_min(q_end, 0),
-        torch.clamp_min(t_end, 0))
+        torch.clamp_min(t_end, 0), cap=cap)
     aligned = (t_end >= 0) & (score > 0)
     return (score, torch.where(aligned, q_start, -1), q_end,
             torch.where(aligned, t_start, -1), t_end)

@@ -7,7 +7,9 @@ csrc/sw_qm.cu and csrc/sw_qm_rt.cu:
 - sw_ends      <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel (K1)
 - sw_starts    <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_rev (K2)
 - sw_ends_prof, sw_starts_prof <-> the same two kernels on a PSSM query
-  (sw_pallas.py _align_full_prof over _build_S_prof)
+  (sw_pallas.py _align_full_prof over _build_S_prof; with cap=None,
+  sw_jax.py sw_batch_ends_prof under sw_align_batch_prof, the
+  profile-query aligner's XLA code)
 - qm_ends      <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_qm (K3)
 - qm_starts    <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_qm_rev (K4)
 - qm_ends_rt   <-> metaeuk_tpu/ops/sw_pallas.py::_dp_kernel_qm_rt (K5)
@@ -22,8 +24,9 @@ as submat[q_i, t_j] + bias_i (prof[b, i, t_j], no bias), with -128 on padded
 query rows (i >= q_len) and padded target columns (j >= t_len), exactly as
 _build_S_gapped builds S. The column recurrence is the Pallas one: E starts
 at -go, H at 0, F is the running max over G down the column (torch.cummax),
-H is capped at 32767 (cap=None: not capped, sw_jax.sw_align_batch's
-contract, which the realign pass keeps). Forward tie-break: highest score,
+H is capped at 32767 (cap=None: not capped, sw_jax.sw_align_batch's and
+sw_align_batch_prof's contract, which the realign pass and the
+profile-query aligner keep). Forward tie-break: highest score,
 then the first column, then the smallest row; no hit gives (0, Lq-1, -1).
 Reverse: columns te..0 and rows <= qe, tie-break the last column, then the
 largest row; no hit gives (0, 0, -1).
@@ -241,30 +244,33 @@ def _pssm_setup(prof, q_len, t_enc, t_len):
     return (lambda j, lo, hi: _column(pr, tcls, j, lo, hi)), lt, lq
 
 
-def sw_ends_prof(prof, q_len, t_enc, t_len):
+def sw_ends_prof(prof, q_len, t_enc, t_len, cap=SCORE_CAP):
     """Forward ends of PSSM-vs-sequence pairs (the PROFILE_SEQ path,
     sw_pallas.py _build_S_prof: cell (i, j) scores prof[b, i, t_j], no
-    bias): (score, q_end, t_end), each (B,) int32. prof: (B, Lq, 21)."""
+    bias): (score, q_end, t_end), each (B,) int32. prof: (B, Lq, 21). H
+    capped at cap (None: not capped)."""
     column, n_cols, lq = _pssm_setup(prof, q_len, t_enc, t_len)
     return _ends_loop(column, n_cols, prof.shape[0], lq, prof.shape[1],
-                      default_scoring(prof.device), prof.device)
+                      default_scoring(prof.device), prof.device, cap=cap)
 
 
-def sw_starts_prof(prof, q_len, t_enc, t_len, q_end, t_end):
+def sw_starts_prof(prof, q_len, t_enc, t_len, q_end, t_end, cap=SCORE_CAP):
     """Reverse-prefix starts of PSSM-vs-sequence pairs with known ends:
-    (score, q_start, t_start), each (B,) int32."""
+    (score, q_start, t_start), each (B,) int32; H capped at cap (None: not
+    capped)."""
     column, n_cols, lq = _pssm_setup(prof, q_len, t_enc, t_len)
     return _starts_loop(column, n_cols, prof.shape[0], lq, q_end, t_end,
-                        default_scoring(prof.device), prof.device)
+                        default_scoring(prof.device), prof.device, cap=cap)
 
 
-def align_full_prof(prof, q_len, t_enc, t_len):
+def align_full_prof(prof, q_len, t_enc, t_len, cap=SCORE_CAP):
     """align_full for PSSM-vs-sequence pairs (sw_pallas.py
-    _align_full_prof): (score, q_start, q_end, t_start, t_end)."""
-    score, q_end, t_end = sw_ends_prof(prof, q_len, t_enc, t_len)
+    _align_full_prof; with cap=None, sw_jax.py sw_align_batch_prof):
+    (score, q_start, q_end, t_start, t_end)."""
+    score, q_end, t_end = sw_ends_prof(prof, q_len, t_enc, t_len, cap=cap)
     _, q_start, t_start = sw_starts_prof(prof, q_len, t_enc, t_len,
                                          torch.clamp_min(q_end, 0),
-                                         torch.clamp_min(t_end, 0))
+                                         torch.clamp_min(t_end, 0), cap=cap)
     aligned = (t_end >= 0) & (score > 0)
     return (score, torch.where(aligned, q_start, -1), q_end,
             torch.where(aligned, t_start, -1), t_end)

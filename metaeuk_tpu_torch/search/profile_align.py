@@ -12,9 +12,13 @@ Matcher::compareHits order and resultToBuffer formatting; backtraces via
 the banded PROFILE_SEQ traceback; seqId counts target residues equal to
 the profile's query letters (computerBacktrace,
 StripedSmithWaterman.cpp:558). The alignment runs on the wrappers of the
-profile search (ops/sw_cuda.py align_full_prof): per (Lq, Lt) bucket the
-bucket's profiles and targets are staged once and the pairs launched by
-index.
+profile search (ops/sw_cuda.py align_full_prof) with cap=None: K1/K2's
+uncapped PSSM instances, since the JAX aligner runs sw_jax's
+sw_align_batch_prof, which does not cap H at 32767 (the profile search's
+ProfileSearchDriver follows the Pallas route and caps). Per (Lq, Lt)
+bucket the bucket's profiles and targets are staged once and the pairs
+launched by index; a pair that does not align reports q_end Lq - 1 of its
+bucket, as the JAX aligner's padded batch does.
 """
 
 import numpy as np
@@ -86,7 +90,8 @@ class ProfileQueryAligner:
                     lj_all[s:s + batch_cap].astype(np.int32)).to(dev)
                 score, qs, qe, ts, te = (
                     o.cpu().numpy()
-                    for o in sw_cuda.align_full_prof(*staged, li, lj))
+                    for o in sw_cuda.align_full_prof(*staged, li, lj,
+                                                     cap=None))
                 part = np.zeros(len(chunk), dtype=HIT_DTYPE)
                 part["orf_idx"] = pi[chunk]
                 part["target_idx"] = ti[chunk]

@@ -38,7 +38,11 @@ COPIES = ["params.py", "utils/log.py", "utils/session.py", "io/fasta.py",
           "pipeline/dbtools.py", "pipeline/dbtools2.py",
           "pipeline/filterdb.py", "pipeline/rescorediagonal.py",
           "pipeline/percontig.py", "pipeline/groups.py", "tax/ncbi.py",
-          "tax/mmtax.py"]
+          "tax/mmtax.py", "ops/pssm.py", "ops/msafilter.py",
+          "ops/csprofile.py", "pipeline/result2profile.py",
+          "pipeline/msa2profile.py", "pipeline/sequence2profile.py",
+          "pipeline/profile2pssm.py", "pipeline/convertprofiledb.py",
+          "pipeline/expand.py"]
 # copies whose one branch waits for a ROADMAP item, with the lines it drops
 WAITING = {"search/evalue.py": "gumbel", "search/prefilter_kmer.py": "jax"}
 

@@ -170,6 +170,33 @@ assert not loaded, loaded
 print("jax-free run ok")
 """
 
+# search --num-iterations 2 through the port's CLI on the fixture (the
+# reference's golden); chip_smoke.py's phase 5g imports the iterative
+# slice's writer, tests/golden/make_iter_slice.py (whose golden writer alone
+# imports jax)
+_BLOCKED_ITERATIVE = _BLOCK + r"""
+sys.path.insert(0, "tests/golden")
+import make_iter_slice as mis
+from metaeuk_tpu_torch.cli import main
+
+data, golden, out, mode = sys.argv[1:5]
+assert main(["createdb", f"{data}/proteins.faa", out + "_db"]) == 0
+assert main(["search", out + "_db", out + "_db", out, out + "_tmp",
+             "--num-iterations", "2", "-a", "--device", "cpu"]) == 0
+for s in ("", ".index", ".dbtype"):
+    with open(out + s, "rb") as a, open(f"{golden}/pref/iter2{s}", "rb") as b:
+        assert a.read() == b.read(), s
+args = mis.search_args(mis.ITER_SLICE, "q", "t", "o", "tmp")
+assert args[:5] == ["search", "q", "t", "o", "tmp"] and "-a" in args
+assert sorted(mis.step_dbs(mis.ITER_SLICE, "o", "tmp")) == [
+    "aln_0", "aln_1", "aln_2", "pref_0", "pref_1", "pref_2", "profile_0",
+    "profile_1", "result"]
+loaded = [k for k in sys.modules if sys.modules[k] is not None and (
+    k.split(".")[0].startswith("jax") or k.split(".")[0] == "metaeuk_tpu")]
+assert not loaded, loaded
+print("jax-free run ok")
+"""
+
 # the port's microbenchmarks: both entry points on the CPU, jax blocked
 _BLOCKED_TOOLS = _BLOCK + r"""
 import metaeuk_tpu_torch.ops.kbench_cuda
@@ -288,3 +315,10 @@ def test_modular_chain_and_taxtocontig_run_with_jax_blocked(tmp_path):
     tax-slice writer that chip_smoke.py imports assigns taxa, with jax and
     metaeuk_tpu blocked."""
     _blocked_run(tmp_path, "kmer", _BLOCKED_MODULAR)
+
+
+def test_iterative_search_runs_with_jax_blocked(tmp_path):
+    """search --num-iterations 2 through the port's CLI gives the
+    reference's golden, and the iterative slice's writer that chip_smoke.py
+    imports names the slice's DBs, with jax and metaeuk_tpu blocked."""
+    _blocked_run(tmp_path, "kmer", _BLOCKED_ITERATIVE)

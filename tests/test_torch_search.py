@@ -150,10 +150,6 @@ def test_waiting_branches_raise(dbs, tmp_path):
         easy_linsearch(str(DATA / "queries_lin.faa"),
                        str(DATA / "proteins.faa"), str(tmp_path / "x.m8"),
                        str(tmp_path / "t"))
-    with pytest.raises(NotImplementedError, match="iterative"):
-        cli.main(["search", str(dbs / "qdb"), str(dbs / "tdb"),
-                  str(tmp_path / "it"), "--num-iterations", "2",
-                  "--device", "cpu"])
 
 
 def _cli_case(name, d, fix):
