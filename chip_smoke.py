@@ -112,6 +112,19 @@ Phases, each fatal on failure:
      taxonomy (with its pref and first DBs), taxonomy --lca-mode 4
      --tax-output-mode 2 and easy-taxonomy equal to tests/golden/tax2;
      K1/K2 launched, no plain version called
+  4h. the clustering and linear-search family on the fixtures through the
+     CLI, each output byte-identical to the MMseqs2 binary's golden: cluster
+     at its defaults (the linclust pre-step and every cascade step's
+     pref_step, aln_step and clu_step, tests/golden/clusterwf) and at
+     --min-seq-id 0.9, easy-cluster and easy-linclust (three files each),
+     kmermatcher (4 flag sets) and linclust (tests/golden/kmermatcher),
+     createlinindex, kmersearch, linsearch (tests/golden/linsearch) and
+     easy-linsearch (its m8 and result DB against the JAX package's digests
+     in tests/golden/cluster_slice.json), convertca3m (ca3m), result2msa and
+     result2repseq (utils), pickconsensusrep and clusterupdate (util8); the
+     native host library loaded; K1/K2 launched, the uncapped PSSM
+     instances in pickconsensusrep (and no capped PSSM entry), no plain
+     version called
   5. the k-mer main path at a real size: easy-predict on the 1.6 Mbp /
      3000-target synthetic metagenome of tests/golden/multichip_slice.json;
      the four sha256 digests equal the file's, the pair kernels launched and
@@ -192,6 +205,24 @@ Phases, each fatal on failure:
      uncapped and uncapped PSSM instances and K3/K4 where routed launched
      in (a) and (c), no capped PSSM entry, no plain version called outside
      (b)
+  5h. the clustering and linear-search family at full width: the search
+     slice's 3,000 targets and 4,000 queries in one DB of 7,000 proteins
+     (tests/golden/make_cluster_slice.py); first its cut (200 families
+     whole, 200 other targets, 200 decoys) through easy-cluster,
+     easy-linclust and easy-linsearch at their defaults, the counts and
+     digests (the cascade's DBs too) equal tests/golden/cluster_slice.json
+     (the JAX package's); then the three on the whole slice, each at the
+     default routing and under METAEUK_QM=off: every SearchDriver.search
+     hit array equal field by field, every output byte-identical, and
+     equal to cluster_slice.json's runs of the whole slice; K1/K2 launched
+     in every run, K3/K4 wherever the routing sent pairs, no plain version
+     called; each run's wall, seconds by step in call order (createdb,
+     linclust, kmermatcher, each rescorediagonal, createsubdb, each
+     prefilter, each align with its SearchDriver.search and backtraces,
+     clust, mergeclusters, createlinindex, kmersearch, filterdb,
+     swapresults and the writers), the driver's phase seconds, pairs and
+     cells by route, each SW kernel's launches and summed ms (CUDA events)
+     beside its bound, and the kernels' busy and idle shares of the wall
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
@@ -1352,32 +1383,250 @@ def check_profile_workflows(cli, device, td):
     return n
 
 
+# phase 4h: kmermatcher's flags for each of tests/golden/kmermatcher's
+# goldens (the reference's kmermatcher, tests/test_kmermatcher.py): (input
+# DB, flags)
+KMER_CASES = {"refkm": (GOLDEN / "pref" / "pfT", []),
+              "refkm2": (GOLDEN / "kmermatcher" / "kmF", []),
+              "refkm3": (GOLDEN / "kmermatcher" / "kmF",
+                         ["--kmer-per-seq", "40"]),
+              "refkm4": (GOLDEN / "kmermatcher" / "kmF", ["-k", "10"])}
+# result2msa's flags for each of tests/golden/utils' MSA goldens
+# (tests/test_dbtools3.py), over the fixture proteins' self-search
+# utils/selfres
+RESULT2MSA_CASES = {"msa_fasta": [], "msa_sto": ["--msa-format-mode", "4"],
+                    "msa_filt": ["--filter-msa", "1"]}
+CASCADE = ("clu_redundancy", *(f"{n}{s}" for s in range(3)
+                               for n in ("pref_step", "aln_step", "clu_step")))
+EASY_CLUSTER_FILES = ("_cluster.tsv", "_rep_seq.fasta", "_all_seqs.fasta")
+
+
+@contextlib.contextmanager
+def prof_cells(torch, sw_cuda, tally):
+    """For this script's measurement only: tally(pairs, forward cells,
+    reverse cells) for each sw_cuda.align_full_prof call (K1/K2's PSSM
+    entries: forward over every pair, reverse up to each pair's clamped end
+    cell, as the kernels sweep them)."""
+    full = sw_cuda.align_full_prof
+
+    def counted(prof_mat, p_lens, t_mat, t_lens, li, lj, **kw):
+        out = full(prof_mat, p_lens, t_mat, t_lens, li, lj, **kw)
+        ql = p_lens[li.long()].long()
+        tl = t_lens[lj.long()].long()
+        qe = torch.minimum(out[2].long().clamp_min(0), ql - 1) + 1
+        te = torch.minimum(out[4].long().clamp_min(0), tl - 1) + 1
+        tally(len(li), int((ql * tl).sum()),
+              int((qe.clamp_min(0) * te.clamp_min(0)).sum()))
+        return out
+    sw_cuda.align_full_prof = counted
+    try:
+        yield
+    finally:
+        sw_cuda.align_full_prof = full
+
+
+@contextlib.contextmanager
+def prof_probe(torch, sw_cuda):
+    """For this script's measurement only: brackets one run that aligns
+    profile queries (pickconsensusrep's ProfileQueryAligner): CUDA events
+    around each SW launch (launch_events), the pairs and DP cells of
+    prof_cells and the change in sw_cuda's LAUNCHES and PLAIN_CALLS over
+    the run; yields the record {"events", "cells": [pairs, fwd cells, rev
+    cells], "launches", "plain"}, filled at exit."""
+    before = (dict(sw_cuda.LAUNCHES), dict(sw_cuda.PLAIN_CALLS))
+    cells, rec = [0, 0, 0], {}
+
+    def tally(*got):
+        for i, v in enumerate(got):
+            cells[i] += v
+    with prof_cells(torch, sw_cuda, tally), \
+            launch_events(torch, sw_cuda) as events:
+        yield rec
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    rec["events"], rec["cells"] = events, cells
+    rec["launches"] = {k: v - before[0][k]
+                       for k, v in sw_cuda.LAUNCHES.items()}
+    rec["plain"] = {k: v - before[1][k]
+                    for k, v in sw_cuda.PLAIN_CALLS.items()}
+
+
+def check_cluster_workflows(cli, device, td):
+    """Phase 4h: the clustering and linear-search family on the fixtures
+    through the port's CLI, on `device`, each output byte-identical to the
+    MMseqs2 binary's golden: cluster at its defaults with the linclust
+    pre-step and every step's pref_step, aln_step and clu_step
+    (tests/golden/clusterwf) and at --min-seq-id 0.9 (clu90); easy-cluster
+    and easy-linclust (their three files); kmermatcher (kmermatcher/refkm*,
+    every case of KMER_CASES) and linclust with three intermediates
+    (reflc); createlinindex, kmersearch, linsearch with its two
+    intermediates, easy-linsearch's prefilter and ungapped DBs (linsearch)
+    and its m8 and result DB (the JAX package's digests in
+    cluster_slice.json's easy_linsearch_fixture); convertca3m
+    (ca3m/convout), result2msa (every case of RESULT2MSA_CASES) and
+    result2repseq (utils); pickconsensusrep (util8/consrep) and
+    clusterupdate (util8/newmapdb, newclu). tests/test_torch_cluster.py
+    rehearses it on the CPU. Returns (the number of outputs compared,
+    pickconsensusrep's prof_probe record)."""
+    import shutil
+
+    import torch
+    from metaeuk_tpu_torch import native
+    from metaeuk_tpu_torch.ops import sw_cuda
+    if native.get_lib() is None:
+        raise AssertionError("the native host library did not load: "
+                             "backtraces would be empty")
+    data, dev, n = ROOT / "tests" / "data", ["--device", str(device)], 0
+    cw, km, ls = (GOLDEN / "clusterwf", GOLDEN / "kmermatcher",
+                  GOLDEN / "linsearch")
+    run_cli(cli, ["cluster", cw / "clusterwf_input.faa", td / "clu",
+                  td / "clu_tmp", *dev])
+    for f in CASCADE:
+        same_db(td / "clu_tmp" / f, cw / f)
+    same_db(td / "clu", cw / "clu")
+    run_cli(cli, ["cluster", cw / "clusterwf_input.faa", td / "clu90",
+                  td / "clu90_tmp", "--min-seq-id", "0.9", *dev])
+    same_db(td / "clu90", cw / "clu90")
+    n += len(CASCADE) + 2
+    for tool, tag in (("easy-cluster", "easycluster"),
+                      ("easy-linclust", "easylinclust")):
+        run_cli(cli, [tool, cw / "clusterwf_input.faa", td / tag,
+                      td / f"{tag}_tmp", *dev])
+        for f in EASY_CLUSTER_FILES:
+            same_bytes(f"{td / tag}{f}", cw / f"{tag}{f}")
+        n += len(EASY_CLUSTER_FILES)
+    for tag, (src, extra) in KMER_CASES.items():
+        run_cli(cli, ["kmermatcher", src, td / tag, *extra])
+        for s in ("", ".index"):
+            same_bytes(f"{td / tag}{s}", f"{km / tag}{s}")
+        n += 1
+    run_cli(cli, ["linclust", km / "kmF", td / "reflc", td / "lc_tmp",
+                  *dev])
+    for s in ("", ".index"):
+        same_bytes(f"{td / 'reflc'}{s}", f"{km / 'reflc'}{s}")
+    for f in ("pref_rescore1", "pre_clust", "clust"):
+        same_bytes(td / "lc_tmp" / f, km / f)
+    n += 4
+
+    for fasta, db in (("queries_lin.faa", "qdb"), ("proteins.faa", "tdb")):
+        run_cli(cli, ["createdb", data / fasta, td / db])
+    run_cli(cli, ["createlinindex", td / "tdb"])
+    run_cli(cli, ["kmersearch", td / "qdb", f"{td / 'tdb'}.linidx.npz",
+                  td / "kpref"])
+    same_db(td / "kpref", ls / "pref")
+    run_cli(cli, ["linsearch", td / "qdb", td / "tdb", td / "lout",
+                  td / "ls_tmp", *dev])
+    for f in ("reverse_ungapaln", "reverse_aln"):
+        same_db(td / "ls_tmp" / f, ls / f)
+    same_db(td / "lout", ls / "lout")
+    run_cli(cli, ["easy-linsearch", data / "queries_lin.faa",
+                  data / "proteins.faa", td / "els.m8", td / "els_tmp",
+                  *dev])
+    for f in ("pref", "reverse_ungapaln"):
+        same_db(td / "els_tmp" / "search_tmp" / f, ls / f)
+    # easy-linsearch aligns in mode 3 (linsearch in 2): its m8 and result
+    # DB against the JAX package's (make_cluster_slice.py)
+    want = json.loads((GOLDEN / "cluster_slice.json").read_text())[
+        "sha256"]["easy_linsearch_fixture"]
+    if sha256(td / "els.m8") != want["m8"] or \
+            {s: sha256(f"{td / 'els_tmp' / 'result'}{s}")
+             for s in DB_SUFFIXES} != want["result"]:
+        raise AssertionError("easy-linsearch on the fixture differs from "
+                             "cluster_slice.json")
+    n += 8
+
+    (td / "ca3m").mkdir()
+    for f in (GOLDEN / "ca3m").iterdir():
+        shutil.copyfile(f, td / "ca3m" / f.name)
+    run_cli(cli, ["convertca3m", td / "ca3m" / "ca3mdb", td / "conv"])
+    same_db(td / "conv", GOLDEN / "ca3m" / "convout")
+    utils = GOLDEN / "utils"
+    for tag, extra in RESULT2MSA_CASES.items():
+        run_cli(cli, ["result2msa", td / "tdb", td / "tdb",
+                      utils / "selfres", td / tag, *extra])
+        # the Stockholm output is a flat file
+        (same_bytes if tag == "msa_sto" else same_db)(td / tag, utils / tag)
+    run_cli(cli, ["result2repseq", td / "tdb", utils / "selfres",
+                  td / "repseq"])
+    same_db(td / "repseq", utils / "repseq")
+    n += len(RESULT2MSA_CASES) + 2
+
+    u8 = GOLDEN / "util8"
+    (td / "all.faa").write_bytes((data / "queries_lin.faa").read_bytes()
+                                 + (data / "proteins.faa").read_bytes())
+    run_cli(cli, ["createdb", td / "all.faa", td / "alldb"])
+    copy_db(u8 / "clu", td / "u8clu")
+    with prof_probe(torch, sw_cuda) as pcr:
+        run_cli(cli, ["pickconsensusrep", td / "alldb", td / "u8clu",
+                      td / "consrep", td / "pcr_tmp", *dev])
+    same_db(td / "consrep", u8 / "consrep")
+    copy_db(u8 / "oldclu", td / "oldclu")
+    run_cli(cli, ["clusterupdate", td / "qdb", td / "alldb", td / "oldclu",
+                  td / "newmapdb", td / "newclu", td / "cu_tmp", *dev])
+    same_db(td / "newmapdb", u8 / "newmapdb")
+    same_db(td / "newclu", u8 / "newclu")
+    n += 3
+    print(f"clustering and linear search on {device}: {n} outputs equal to "
+          "the MMseqs2 goldens (cluster and its cascade, easy-cluster, "
+          "easy-linclust, kmermatcher, linclust, the linsearch family, "
+          "convertca3m, result2msa, result2repseq, pickconsensusrep, "
+          "clusterupdate)", flush=True)
+    return n, pcr
+
+
+@contextlib.contextmanager
+def timed_steps(specs):
+    """For this script's measurement only: every call of specs' functions
+    (each wrapped), in the order the calls start, with its nesting depth,
+    and the hit arrays of the SearchDriver.search calls among them; yields
+    ([[stage, depth, seconds]], [hit arrays]), filled as the calls
+    return."""
+    steps, hits, depth, saved = [], [], [0], []
+    for obj, name, stage in specs:
+        fn = getattr(obj, name)
+
+        def timed(*a, _fn=fn, _stage=stage, **kw):
+            row = [_stage, depth[0], 0.0]
+            steps.append(row)
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                out = _fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+                row[2] = time.perf_counter() - t0
+            if _stage == "SearchDriver.search":
+                hits.append(out)
+            return out
+        saved.append((obj, name, fn))
+        setattr(obj, name, timed)
+    try:
+        yield steps, hits
+    finally:
+        for obj, name, fn in reversed(saved):
+            setattr(obj, name, fn)
+
+
+def stage_seconds(steps):
+    """{stage: seconds} summed over timed_steps' record."""
+    seconds = {}
+    for stage, _, s in steps:
+        seconds[stage] = seconds.get(stage, 0.0) + s
+    return seconds
+
+
 @contextlib.contextmanager
 def timed_calls(specs):
     """Host seconds of the functions in specs, (module, name, stage) each,
-    summed by stage over calls, each wrapped for this script's measurement
-    only; yields {stage: seconds}. Phase 5e times the search workflows'
-    stages with it (searchdb.prefilter_db, align_module.align_db: the
-    driver's search, backtraces, realign and the DB write,
+    summed by stage over calls (timed_steps), for this script's measurement
+    only; yields {stage: seconds}, filled at exit. Phase 5e times the search
+    workflows' stages with it (searchdb.prefilter_db, align_module.align_db:
+    the driver's search, backtraces, realign and the DB write,
     alnformat.write_blast_tab), 5f the DP-format round trip."""
-    seconds, saved = {}, []
-    for mod, name, stage in specs:
-        fn = getattr(mod, name)
-
-        def timed(*a, _fn=fn, _stage=stage, **kw):
-            t0 = time.perf_counter()
-            try:
-                return _fn(*a, **kw)
-            finally:
-                seconds[_stage] = seconds.get(_stage, 0.0) \
-                    + time.perf_counter() - t0
-        saved.append((mod, name, fn))
-        setattr(mod, name, timed)
-    try:
+    seconds = {}
+    with timed_steps(specs) as (steps, _):
         yield seconds
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+    seconds.update(stage_seconds(steps))
 
 
 @contextlib.contextmanager
@@ -1505,9 +1754,8 @@ def iter_stage_specs():
 def iter_stages(torch, sw_cuda):
     """For this script's measurement only: the host seconds of
     iter_stage_specs' stages and the profile steps' pairs and DP cells
-    (K1/K2's uncapped PSSM instances through sw_cuda.align_full_prof:
-    forward over every pair, reverse up to each pair's clamped end cell, as
-    the kernels sweep them), both by step, and the last
+    (K1/K2's uncapped PSSM instances, prof_cells), both by step, and the
+    last
     ProfileQueryAligner.search call (its aligner, pairs, eval_thr and hits).
     A step ends when its result2profile returns (the last stage of every
     step but the last). Yields (seconds, cells, last): {"step N": {stage:
@@ -1522,20 +1770,11 @@ def iter_stages(torch, sw_cuda):
         last.update(aligner=self, pairs=pairs, eval_thr=eval_thr, hits=hits)
         return hits
     pqa.search = keep_last
-    full = sw_cuda.align_full_prof
 
-    def counted(prof_mat, p_lens, t_mat, t_lens, li, lj, **kw):
-        out = full(prof_mat, p_lens, t_mat, t_lens, li, lj, **kw)
-        ql = p_lens[li.long()].long()
-        tl = t_lens[lj.long()].long()
-        qe = torch.minimum(out[2].long().clamp_min(0), ql - 1) + 1
-        te = torch.minimum(out[4].long().clamp_min(0), tl - 1) + 1
-        got = cells.setdefault(f"step {step[0]}", [0, 0, 0])
-        got[0] += len(li)
-        got[1] += int((ql * tl).sum())
-        got[2] += int((qe.clamp_min(0) * te.clamp_min(0)).sum())
-        return out
-    sw_cuda.align_full_prof = counted
+    def tally(*got):
+        per = cells.setdefault(f"step {step[0]}", [0, 0, 0])
+        for i, v in enumerate(got):
+            per[i] += v
     for obj, name, stage in iter_stage_specs():
         fn = getattr(obj, name)
 
@@ -1552,11 +1791,11 @@ def iter_stages(torch, sw_cuda):
         saved.append((obj, name, fn))
         setattr(obj, name, timed)
     try:
-        yield seconds, cells, last
+        with prof_cells(torch, sw_cuda, tally):
+            yield seconds, cells, last
     finally:
         for obj, name, fn in reversed(saved):
             setattr(obj, name, fn)
-        sw_cuda.align_full_prof = full
         pqa.search = search
 
 
@@ -1941,6 +2180,172 @@ def report_tax_run(run, r, need):
           f"{ms:.3f} ms summed over a wall of {r['wall']:.3f} s: busy share "
           f"{busy:.4%}, idle share {1 - busy:.4%}", flush=True)
 
+
+# the host stages of the clustering and linear-search family that phase 5h
+# times, in call order: (module or class of the port, attribute, stage)
+def cluster_stage_specs():
+    from metaeuk_tpu_torch.pipeline import (alnformat, clust, dbtools,
+                                            dbtools2, dbtools3, filterdb,
+                                            rescorediagonal)
+    from metaeuk_tpu_torch.search import (align_module, driver, kmermatcher,
+                                          linsearch_lin, searchdb)
+    return ((searchdb, "_ensure_seqdb", "createdb"),
+            (kmermatcher, "linclust_exact", "linclust"),
+            (kmermatcher, "kmermatcher_db", "kmermatcher"),
+            (rescorediagonal, "rescorediagonal", "rescorediagonal"),
+            (dbtools, "createsubdb", "createsubdb"),
+            (searchdb, "prefilter_db", "prefilter"),
+            (align_module, "align_db", "align"),
+            (driver.SearchDriver, "search", "SearchDriver.search"),
+            (driver.SearchDriver, "backtraces", "backtraces"),
+            (clust, "clust_db", "clust"),
+            (clust, "mergeclusters", "mergeclusters"),
+            (linsearch_lin, "build_linindex", "createlinindex"),
+            (linsearch_lin, "kmersearch_db", "kmersearch"),
+            (filterdb, "filterdb", "filterdb"),
+            (dbtools2, "swapresults", "swapresults"),
+            (dbtools3, "result2repseq", "result2repseq"),
+            (dbtools2, "createseqfiledb", "createseqfiledb"),
+            (dbtools2, "result2flat", "result2flat"),
+            (alnformat, "write_blast_tab", "write_blast_tab"))
+
+
+def cluster_args(run, paths, out, tmp, cut=False):
+    """The port's CLI arguments of phase 5h's run (easy_cluster,
+    easy_linclust or easy_linsearch) on make_cluster_slice.cluster_slice's
+    paths (its cut with cut=True), at the commands' defaults."""
+    if run == "easy_linsearch":
+        q, t = ("cut_queries", "cut_targets") if cut else ("queries",
+                                                           "targets")
+        return ["easy-linsearch", paths[q], paths[t], f"{out}.m8", tmp]
+    tool = "easy-cluster" if run == "easy_cluster" else "easy-linclust"
+    return [tool, paths["cut" if cut else "all"], out, tmp]
+
+
+def run_cluster_cmd(cli, argv, device, probe=contextlib.nullcontext):
+    """One run of phase 5h through the port's CLI on `device`, bracketed by
+    probe() as in run_search_slice. Returns its wall, the timed_steps
+    record, the driver's phase seconds and cells, its routes (pair_routes),
+    what probe yielded and the SearchDriver.search hit arrays in call
+    order."""
+    from metaeuk_tpu_torch.ops import sw_cuda
+    from metaeuk_tpu_torch.search import driver
+    for k in driver.CELLS:
+        driver.CELLS[k] = 0
+    driver.PHASE_SECONDS.clear()
+    with probe() as rec, timed_steps(cluster_stage_specs()) as (st, hits), \
+            pair_routes(driver, sw_cuda) as routes:
+        t0 = time.perf_counter()
+        run_cli(cli, [*argv, "--device", device])
+        wall = time.perf_counter() - t0
+    return dict(wall=wall, steps=st, stages=stage_seconds(st), routes=routes,
+                probe=rec, phases=dict(driver.PHASE_SECONDS),
+                cells=dict(driver.CELLS), hits=hits,
+                pairs=sum(r["fwd"][0] for r in routes.values()
+                          if "fwd" in r))
+
+
+def cluster_digests(run, out, tmp):
+    """The digests of phase 5h's run, keyed as in
+    tests/golden/cluster_slice.json's sha256 entries."""
+    import make_cluster_slice as mcs
+    from metaeuk_tpu_torch.io.mmseqsdb import read_db
+    if run == "easy_linsearch":
+        return mcs.linsearch_summary(f"{out}.m8", tmp, read_db)
+    return mcs.cluster_summary(out, tmp, run == "easy_linclust", read_db)
+
+
+def report_cluster_run(run, r, need=PAIR_KERNELS):
+    """Prints one run of phase 5h as report_search_run does (raising unless
+    it went through `need` and every kernel the routing sent pairs to, with
+    no plain version called), then each timed step in call order (nested
+    ones indented), its SearchDriver.search calls' pairs and hits, and the
+    SW kernels' summed ms over its wall: the busy and idle shares."""
+    report_search_run(run, r, need)
+    print(f"{run}: seconds by step, in call order: " + "; ".join(
+        f"{'  ' * d}{stage} {s:.3f}" for stage, d, s in r["steps"]))
+    ms = sum(v[1] for v in event_ms(r["probe"]["events"]).values())
+    busy = ms / 1e3 / r["wall"]
+    print(f"{run}: {r['pairs']} pairs, hits by SearchDriver.search call "
+          f"{[len(h) for h in r['hits']]}; SW kernels {ms:.3f} ms summed "
+          f"over a wall of {r['wall']:.3f} s: busy share {busy:.4%}, idle "
+          f"share {1 - busy:.4%}", flush=True)
+
+
+CLUSTER_RUNS = ("easy_cluster", "easy_linclust", "easy_linsearch")
+
+
+def check_cluster_slice(np, cli, td, device, probe=contextlib.nullcontext,
+                        cfg=None):
+    """Phase 5h: make_cluster_slice.py's slice (cfg, default CLUSTER_SLICE)
+    under td on `device`. First the cut: easy-cluster, easy-linclust and
+    easy-linsearch at their defaults; then the same three on the whole
+    slice, each at the default routing and under METAEUK_QM=off, every
+    SearchDriver.search hit array equal field by field and every output
+    byte-identical. For CLUSTER_SLICE each cut's counts and digests equal
+    tests/golden/cluster_slice.json's (the JAX package's), and each whole
+    slice's where the file has the run. Each run reported by
+    report_cluster_run. Returns ({run: its record}, {run: (counts,
+    digests)}, keyed as the file's)."""
+    import make_cluster_slice as mcs
+    golden = json.loads((GOLDEN / "cluster_slice.json").read_text())
+    cfg = cfg or mcs.CLUSTER_SLICE
+    compare = cfg == mcs.CLUSTER_SLICE
+    if compare and golden["input"] != json.loads(json.dumps(cfg)):
+        raise AssertionError("cluster_slice.json was made from another "
+                             "input than make_cluster_slice.CLUSTER_SLICE")
+
+    def check(key, got, what, required=False):
+        if compare and (required or key in golden["sha256"]):
+            if got != (golden["counts"][key], golden["sha256"][key]):
+                raise AssertionError(f"{what} differs from "
+                                     "cluster_slice.json")
+            print(f"{what}: counts and digests equal cluster_slice.json",
+                  flush=True)
+    t0 = time.perf_counter()
+    paths = mcs.cluster_slice(cfg, td)
+    print(f"generated the cluster slice in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    records, got = {}, {}
+    for run in CLUSTER_RUNS:
+        out, tmp = td / f"cut_{run}", td / f"cut_{run}_tmp"
+        records[f"{run} (cut)"] = r = run_cluster_cmd(
+            cli, cluster_args(run, paths, out, tmp, cut=True), device, probe)
+        report_cluster_run(f"{run} (cut)", r)
+        key = f"{run}_cut" if run == "easy_linsearch" else run
+        got[key] = cluster_digests(run, out, tmp)
+        print(f"{run} (cut): counts {json.dumps(got[key][0])}", flush=True)
+        check(key, got[key], f"{run} on the cut", required=True)
+    for run in CLUSTER_RUNS:
+        done = {}
+        for qm in ("auto", "off"):
+            out, tmp = td / f"{run}_{qm}", td / f"{run}_{qm}_tmp"
+            if qm == "off":
+                os.environ["METAEUK_QM"] = qm
+            try:
+                records[f"{run} QM {qm}"] = r = run_cluster_cmd(
+                    cli, cluster_args(run, paths, out, tmp), device, probe)
+            finally:
+                os.environ.pop("METAEUK_QM", None)
+            report_cluster_run(f"{run} (METAEUK_QM={qm})", r)
+            done[qm] = (r["hits"], cluster_digests(run, out, tmp))
+            print(f"{run} (METAEUK_QM={qm}): counts "
+                  f"{json.dumps(done[qm][1][0])}", flush=True)
+        (h_auto, d_auto), (h_off, d_off) = done["auto"], done["off"]
+        if len(h_auto) != len(h_off):
+            raise AssertionError(f"{run}: the routings made different "
+                                 "numbers of SearchDriver.search calls")
+        for i, (a, b) in enumerate(zip(h_auto, h_off)):
+            same_hits(np, a, b, f"{run}, align step {i}")
+        if d_auto != d_off:
+            raise AssertionError(f"{run}: outputs differ between the "
+                                 "routings")
+        print(f"{run} on the whole slice: hits of every align step and "
+              "every output equal under the default routing and "
+              "METAEUK_QM=off", flush=True)
+        got[f"{run}_full"] = d_auto
+        check(f"{run}_full", d_auto, f"{run} on the whole slice")
+    return records, got
 
 def qm_edge_tiles(np, rng, Lq, Lt):
     """pair_edge_batch's pairs as query-major tiles: the pairs' queries and
@@ -3444,6 +3849,35 @@ def run_phases(stack):
                                  " did not go through K1 and the uncapped "
                                  "PSSM instances")
 
+        phase("4h the clustering and linear-search family on the fixtures "
+              "against the MMseqs2 goldens")
+        reset(torch, counters, driver, prefilter)
+        (td / "clu").mkdir()
+        t0 = time.perf_counter()
+        n, pcr = check_cluster_workflows(cli, "cuda", td / "clu")
+        run_l, run_p = counts(counters)
+        print(f"clustering and linear search: {n} outputs equal to their "
+              f"goldens, {time.perf_counter() - t0:.2f} s, launches {run_l}, "
+              f"plain {run_p}", flush=True)
+        # its profile-vs-member step (the other launches are K1/K2's, the
+        # recomputed cluster alignments)
+        for k, (m, ms) in event_ms(pcr["events"]).items():
+            if k not in PROF_NOCAP_PASS:
+                continue
+            cells = pcr["cells"][PROF_NOCAP_PASS[k]]
+            bound_ms = cells * NOCAP_SW_OPS / INT32_OPS_PER_S * 1e3
+            print(f"pickconsensusrep: {k} {m} launches, {ms:.3f} ms of "
+                  "kernel time (CUDA events around each launch), "
+                  f"{pcr['cells'][0]} profile pairs, {cells} cells, bound "
+                  f"{bound_ms:.6f} ms (operations)", flush=True)
+        if min(run_l[k] for k in PAIR_KERNELS) == 0 or any(run_p.values()):
+            raise AssertionError("the clustering and linear-search family "
+                                 "did not go through the pair kernels")
+        if min(pcr["launches"][k] for k in PROF_NOCAP_KERNELS) == 0 or \
+                any(pcr["launches"][k] for k in PROF_KERNELS):
+            raise AssertionError("pickconsensusrep did not go through the "
+                                 "uncapped PSSM instances alone")
+
         phase("5 k-mer main path: 1.6 Mbp / 3000-target slice")
         golden = json.loads((GOLDEN / "multichip_slice.json").read_text())
         t5 = t0 = time.perf_counter()
@@ -3847,6 +4281,19 @@ def run_phases(stack):
         print(f"(c) the cut ({len(cut_digests)} DBs): every digest equal to "
               f"iter_slice.json, {time.perf_counter() - t0:.2f} s",
               flush=True)
+
+        phase("5h the clustering and linear-search family at full width: "
+              "the search slice's 7,000 proteins, their cut against the JAX "
+              "package, then both routings")
+        (td / "cs").mkdir()
+        t0 = time.perf_counter()
+        records, _ = check_cluster_slice(
+            np, cli, td / "cs", "cuda", probe=lambda: probe_run(
+                torch, counters, driver, prefilter, sw_cuda))
+        print("phase 5h walls " + json.dumps(
+            {k: round(r["wall"], 3) for k, r in records.items()}))
+        print(f"phase 5h: {time.perf_counter() - t0:.2f} s, the script at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     phase("6 kernel and plain-version times")
     times, same = time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,

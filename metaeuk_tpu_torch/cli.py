@@ -16,6 +16,11 @@
         | expandaln | expand2profile | profile2consensus | profile2repseq
         | profile2neff | convertmsa | filtera3m | alignall | summarizetabs
         | result2dnamsa | enrich ...
+    metaeuk-tpu-torch cluster | easy-cluster | easy-linclust | linclust
+        | kmermatcher | clust | mergeclusters | createlinindex | kmersearch
+        | linsearch | easy-linsearch | pickconsensusrep | clusterupdate
+        | convertca3m | result2repseq | masksequence | gff2db | maskbygff
+        | result2stats | apply | diffseqdbs | result2msa ...
 
 The flags and their mapping to Params are those of metaeuk-tpu: _byte_size,
 _add_predict_flags, _params_from_args and _parse_dp_payload are copied from
@@ -30,15 +35,20 @@ cmd_summarizealis (:1492), search's iterative branch from its cmd_search
 (:773-795), and the profile tools from its cmd_msa2profile,
 cmd_result2profile (:395-433), cmd_profile2pssm (:686),
 cmd_sequence2profile, cmd_convertprofiledb (:718-732), cmd_dbtool6
-(:1171), cmd_enrich (:1287) and cmd_expandaln (:1376), with their parsers.
-Every command that aligns (easy-predict, predictexons, unitesetstofasta,
-taxtocontig, search, align, easy-search, rbh, easy-rbh, lcaalign,
-taxonomy, easy-taxonomy, alignall, enrich) takes --device (default cuda;
-cpu runs the kernels' plain versions); the others run on the host only.
-Not ported yet: search's nucleotide branch, mergepredictions
-(multi-process runs), linsearch (easy-linsearch), the clustering family
-(cluster, linclust, kmermatcher and their workflows), result2msa with the
-other DB utilities, and the rest of metaeuk-tpu's commands.
+(:1171), cmd_enrich (:1287) and cmd_expandaln (:1376), and the clustering
+and linear-search family from its cmd_kmermatcher, cmd_linclust (:135-162),
+cmd_easy_cluster, cmd_cluster (:366-393), cmd_dbtool3 (:515-546),
+cmd_clust .. cmd_linsearch (:970-1033), cmd_convertca3m (:1298),
+cmd_pickconsensusrep, cmd_clusterupdate (:1353-1368) and
+cmd_easy_linsearch (:1426), with their parsers. Every command that aligns
+(easy-predict, predictexons, unitesetstofasta, taxtocontig, search, align,
+easy-search, rbh, easy-rbh, lcaalign, taxonomy, easy-taxonomy, alignall,
+enrich, cluster, easy-cluster, easy-linclust, linclust, linsearch,
+easy-linsearch, pickconsensusrep, clusterupdate) takes --device (default
+cuda; cpu runs the kernels' plain versions); the others run on the host
+only. Not ported yet: search's nucleotide branch, mergepredictions
+(multi-process runs), and the rest of metaeuk-tpu's host-only commands
+(ROADMAP section 1, M8-M11).
 """
 
 import argparse
@@ -897,6 +907,172 @@ def cmd_expandaln(args):
     return 0
 
 
+def cmd_cluster(args):
+    """Cascaded clustering (Cluster.cpp / cascaded_clustering.sh)."""
+    import os
+    import tempfile
+    from .pipeline.clusterwf import cluster_workflow
+    from .search.searchdb import _ensure_seqdb
+
+    device = _device(args.device)
+    tmp = args.tmp or tempfile.mkdtemp(prefix="cluster")
+    os.makedirs(tmp, exist_ok=True)
+    seq_db = _ensure_seqdb(args.seqs, f"{tmp}/input")
+    cluster_workflow(seq_db, args.out_db, tmp,
+                     min_seq_id=args.min_seq_id, cov=args.cov,
+                     cov_mode=args.cov_mode, evalue=args.cluster_eval,
+                     sensitivity=args.s, steps=args.cluster_steps,
+                     device=device)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_easy_cluster(args):
+    from .pipeline.clusterwf import easy_cluster
+    easy_cluster(args.query, args.out_prefix, args.tmp,
+                 min_seq_id=args.min_seq_id, cov=args.c,
+                 cov_mode=args.cov_mode, evalue=args.e,
+                 use_linclust=args.use_linclust,
+                 linclust_min_seq_id=args.min_seq_id
+                 if args.min_seq_id else 0.9, device=_device(args.device))
+    print(f"wrote {args.out_prefix}_cluster.tsv/_rep_seq.fasta/"
+          "_all_seqs.fasta")
+    return 0
+
+
+def cmd_kmermatcher(args):
+    from .search.kmermatcher import kmermatcher_db
+    kmermatcher_db(args.seq_db, args.out_db,
+                   kmers_per_seq=args.kmer_per_seq or 20,
+                   kmer_size=args.k or None)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_linclust(args):
+    """Sequence DB -> cluster DB (full byte-parity linclust workflow)."""
+    import tempfile
+    from .search.kmermatcher import linclust_exact
+    device = _device(args.device)
+    tmp = args.tmp if args.tmp else tempfile.mkdtemp(prefix="linclust")
+    linclust_exact(args.seq_db, args.out_db, tmp,
+                   min_seq_id=args.min_seq_id, cov=args.c, device=device)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_clust(args):
+    from .pipeline.clust import clust_db
+    clust_db(args.seq_db, args.result_db, args.out_db)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_mergeclusters(args):
+    from .pipeline.clust import mergeclusters
+    mergeclusters(args.seq_db, args.out_db, args.clusterings)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_createlinindex(args):
+    from .search.linsearch_lin import build_linindex
+    out = build_linindex(args.seq_db, kmer_size=args.k or None)
+    print(f"wrote {out}")
+    return 0
+
+
+def cmd_kmersearch(args):
+    from .search.linsearch_lin import kmersearch_db
+    kmersearch_db(args.query_db, args.index_db, args.out_db,
+                  result_direction=args.result_direction)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_linsearch(args):
+    import tempfile
+    from .search.linsearch_lin import linsearch_workflow
+    device = _device(args.device)
+    tmp = args.tmp or tempfile.mkdtemp(prefix="linsearch")
+    linsearch_workflow(args.query_db, args.target_db, args.out_db, tmp,
+                       evalue=args.e, cov=args.c,
+                       cov_mode=args.cov_mode, min_seq_id=args.min_seq_id,
+                       device=device)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_easy_linsearch(args):
+    from .search.searchdb import easy_linsearch
+    easy_linsearch(args.query, args.target, args.out_m8, args.tmp,
+                   evalue=args.e, cov=args.c, cov_mode=args.cov_mode,
+                   min_seq_id=args.min_seq_id,
+                   kmers_per_seq=args.kmer_per_seq,
+                   device=_device(args.device))
+    print(f"wrote {args.out_m8}")
+    return 0
+
+
+def cmd_pickconsensusrep(args):
+    from .pipeline.clusterwf import pickconsensusrep
+    pickconsensusrep(args.seq_db, args.clu_db, args.out_db, args.tmp,
+                     device=_device(args.device))
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_clusterupdate(args):
+    from .pipeline.clusterwf import clusterupdate
+    clusterupdate(args.old_db, args.new_db, args.old_clu,
+                  args.new_map_db, args.new_clu, args.tmp,
+                  recover_deleted=args.recover_deleted,
+                  device=_device(args.device))
+    print(f"wrote {args.new_clu}")
+    return 0
+
+
+def cmd_convertca3m(args):
+    from .pipeline.ca3m import convertca3m
+    convertca3m(args.in_base, args.out_db,
+                compressed=bool(args.compressed))
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_dbtool3(args):
+    from .pipeline import dbtools3 as d3
+    a = args.args
+    t = args.tool
+    if t == "result2repseq":
+        d3.result2repseq(a[0], a[1], a[2])
+    elif t == "masksequence":
+        d3.masksequence(a[0], a[1], mask_prob=args.mask_prob)
+    elif t == "gff2db":
+        d3.gff2db(a[:-2], a[-2], a[-1], gff_type=args.gff_type)
+    elif t == "maskbygff":
+        d3.maskbygff(a[0], a[1], a[2], gff_type=args.gff_type)
+    elif t == "result2stats":
+        d3.result2stats(a[0], a[1], args.stat, tsv=args.tsv)
+    elif t == "apply":
+        d3.apply_cmd(a[0], a[1], a[2:])
+    elif t == "diffseqdbs":
+        d3.diffseqdbs(a[0], a[1], a[2], a[3], a[4],
+                      use_seq_id=args.use_seq_id)
+    elif t == "result2msa" and args.msa_format_mode in (0, 1):
+        from .pipeline.ca3m import result2msa_ca3m
+        result2msa_ca3m(a[0], a[1], a[2], a[3],
+                        consensus=args.msa_format_mode == 1)
+    elif t == "result2msa":
+        from .pipeline.result2msa import result2msa_db
+        result2msa_db(a[0], a[1], a[2], a[3],
+                      msa_format_mode=args.msa_format_mode,
+                      filter_msa=bool(args.filter_msa),
+                      skip_query=args.skip_query)
+    print(f"{t} done")
+    return 0
+
+
 def _add_device_flag(p):
     p.add_argument("--device", default="cuda",
                    help="torch device for the alignment (default cuda; "
@@ -1339,6 +1515,163 @@ def _add_profile_commands(sub):
         ex.set_defaults(fn=cmd_expandaln, profile=(tool == "expand2profile"))
 
 
+def _add_cluster_commands(sub):
+    """The parsers of the clustering and linear-search family and the
+    dbtools3 commands (metaeuk_tpu/cli.py:1567-1596, :1677-1689,
+    :1740-1760, :1910-1955, :2176-2184, :2242-2265, :2341-2349); cluster,
+    easy-cluster, easy-linclust, linclust, linsearch, easy-linsearch,
+    pickconsensusrep and clusterupdate with --device, the rest host-only."""
+    cl = sub.add_parser("cluster", help="cascaded clustering workflow")
+    cl.add_argument("seqs", help="FASTA or MMseqs DB")
+    cl.add_argument("out_db")
+    cl.add_argument("tmp", nargs="?")
+    cl.add_argument("--min-seq-id", type=float, default=0.0)
+    cl.add_argument("-c", "--cov", type=float, default=0.8)
+    cl.add_argument("--cov-mode", type=int, default=0)
+    cl.add_argument("-e", "--cluster-eval", type=float, default=1e-3)
+    cl.add_argument("-s", type=float, default=None,
+                    help="sensitivity (default: from --min-seq-id)")
+    cl.add_argument("--cluster-steps", type=int, default=None)
+    cl.add_argument("--threads", type=int, default=1)
+    cl.add_argument("-v", type=int, default=3)
+    _add_device_flag(cl)
+    cl.set_defaults(fn=cmd_cluster)
+
+    for tool in ("easy-cluster", "easy-linclust"):
+        ec = sub.add_parser(tool, help=f"{tool}: FASTA -> cluster.tsv + "
+                            "rep/all FASTAs")
+        ec.add_argument("query", help="FASTA or MMseqs DB")
+        ec.add_argument("out_prefix")
+        ec.add_argument("tmp")
+        ec.add_argument("--min-seq-id", type=float,
+                        default=0.0 if tool == "easy-cluster" else 0.9)
+        ec.add_argument("-c", type=float, default=0.8)
+        ec.add_argument("--cov-mode", type=int, default=0)
+        ec.add_argument("-e", type=float, default=1e-3)
+        ec.add_argument("--threads", type=int, default=1)
+        ec.add_argument("-v", type=int, default=3)
+        _add_device_flag(ec)
+        ec.set_defaults(fn=cmd_easy_cluster,
+                        use_linclust=(tool == "easy-linclust"))
+
+    for tool in ("result2repseq", "masksequence", "gff2db", "maskbygff",
+                 "result2stats", "apply", "diffseqdbs", "result2msa"):
+        dt = sub.add_parser(tool, help=f"{tool} DB utility")
+        dt.add_argument("args", nargs="+")
+        dt.add_argument("--mask-prob", type=float, default=0.9)
+        dt.add_argument("--gff-type", type=str, default="")
+        dt.add_argument("--stat", type=str, default="linecount")
+        dt.add_argument("--tsv", action="store_true")
+        dt.add_argument("--use-seq-id", action="store_true")
+        dt.add_argument("--msa-format-mode", type=int, default=2)
+        dt.add_argument("--filter-msa", type=int, default=0)
+        dt.add_argument("--skip-query", action="store_true")
+        dt.set_defaults(fn=cmd_dbtool3, tool=tool)
+
+    km = sub.add_parser("kmermatcher", help="hash-selected k-mer grouping")
+    km.add_argument("seq_db")
+    km.add_argument("out_db")
+    km.add_argument("--kmer-per-seq", type=int, default=0)
+    km.add_argument("-k", type=int, default=0)
+    km.set_defaults(fn=cmd_kmermatcher)
+
+    lc = sub.add_parser("linclust", help="linear-time clustering")
+    lc.add_argument("seq_db")
+    lc.add_argument("out_db")
+    lc.add_argument("tmp", nargs="?", default=None)
+    lc.add_argument("--min-seq-id", type=float, default=0.9)
+    lc.add_argument("-c", type=float, default=0.8)
+    _add_device_flag(lc)
+    lc.set_defaults(fn=cmd_linclust)
+
+    cu = sub.add_parser("clust", help="set-cover clustering of a result DB")
+    cu.add_argument("seq_db")
+    cu.add_argument("result_db")
+    cu.add_argument("out_db")
+    cu.set_defaults(fn=cmd_clust)
+
+    mc = sub.add_parser("mergeclusters",
+                        help="splice cascaded clustering steps")
+    mc.add_argument("seq_db")
+    mc.add_argument("out_db")
+    mc.add_argument("clusterings", nargs="+")
+    mc.set_defaults(fn=cmd_mergeclusters)
+
+    li = sub.add_parser("createlinindex", help="build the linear k-mer index")
+    li.add_argument("seq_db")
+    li.add_argument("tmp", nargs="?")
+    li.add_argument("-k", type=int, default=0)
+    li.set_defaults(fn=cmd_createlinindex)
+
+    ks = sub.add_parser("kmersearch",
+                        help="query DB x lin-index -> prefilter DB")
+    ks.add_argument("query_db")
+    ks.add_argument("index_db")
+    ks.add_argument("out_db")
+    ks.add_argument("--result-direction", type=int, default=1)
+    ks.set_defaults(fn=cmd_kmersearch)
+
+    ls = sub.add_parser("linsearch", help="linear-time search workflow")
+    ls.add_argument("query_db")
+    ls.add_argument("target_db")
+    ls.add_argument("out_db")
+    ls.add_argument("tmp", nargs="?")
+    ls.add_argument("-e", type=float, default=0.001)
+    ls.add_argument("-c", type=float, default=0.0)
+    ls.add_argument("--cov-mode", type=int, default=None)
+    ls.add_argument("--min-seq-id", type=float, default=0.0)
+    _add_device_flag(ls)
+    ls.set_defaults(fn=cmd_linsearch)
+
+    cc = sub.add_parser("convertca3m", help="expand a compressed-A3M "
+                        "DB to alignment results")
+    cc.add_argument("in_base")
+    cc.add_argument("out_db")
+    cc.add_argument("--compressed", type=int, default=0)
+    cc.add_argument("--threads", type=int, default=1)
+    cc.add_argument("-v", type=int, default=3)
+    cc.set_defaults(fn=cmd_convertca3m)
+
+    pcr = sub.add_parser("pickconsensusrep",
+                         help="re-pick cluster representatives by "
+                         "profile consensus score")
+    pcr.add_argument("seq_db")
+    pcr.add_argument("clu_db")
+    pcr.add_argument("out_db")
+    pcr.add_argument("tmp")
+    pcr.add_argument("-v", type=int, default=3)
+    _add_device_flag(pcr)
+    pcr.set_defaults(fn=cmd_pickconsensusrep)
+
+    cu = sub.add_parser("clusterupdate", help="update a clustering with "
+                        "a new sequence DB")
+    cu.add_argument("old_db")
+    cu.add_argument("new_db")
+    cu.add_argument("old_clu")
+    cu.add_argument("new_map_db")
+    cu.add_argument("new_clu")
+    cu.add_argument("tmp")
+    cu.add_argument("--recover-deleted", action="store_true")
+    cu.add_argument("--threads", type=int, default=1)
+    cu.add_argument("-v", type=int, default=3)
+    _add_device_flag(cu)
+    cu.set_defaults(fn=cmd_clusterupdate)
+
+    el2 = sub.add_parser("easy-linsearch",
+                         help="FASTA in, linear search, m8 out")
+    el2.add_argument("query")
+    el2.add_argument("target")
+    el2.add_argument("out_m8")
+    el2.add_argument("tmp")
+    el2.add_argument("-e", type=float, default=1e-3)
+    el2.add_argument("-c", type=float, default=0.0)
+    el2.add_argument("--cov-mode", type=int, default=0)
+    el2.add_argument("--min-seq-id", type=float, default=0.0)
+    el2.add_argument("--kmer-per-seq", type=int, default=21)
+    _add_device_flag(el2)
+    el2.set_defaults(fn=cmd_easy_linsearch)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="metaeuk-tpu-torch",
@@ -1359,6 +1692,7 @@ def main(argv=None):
     _add_search_commands(sub)
     _add_tax_commands(sub)
     _add_profile_commands(sub)
+    _add_cluster_commands(sub)
     args = ap.parse_args(argv)
     return args.fn(args)
 

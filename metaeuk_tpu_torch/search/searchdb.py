@@ -9,8 +9,8 @@ orchestration plus the text/DB plumbing around them.
 Counterpart of metaeuk_tpu/search/searchdb.py on the port's SearchDriver:
 search_db, rbh_db, easy_search and easy_rbh take a `device` keyword
 (default cuda; cpu runs the kernels' plain versions). prefilter_db, map_db
-(rescorediagonal) and result2rbh_db run on the host only, as there.
-easy_linsearch waits for linsearch_lin (ROADMAP section 1, item 4).
+(rescorediagonal) and result2rbh_db run on the host only, as there;
+easy_linsearch runs linsearch_lin's workflow on `device`.
 
 result2rbh: lib/mmseqs/src/util/result2rbh.cpp — over the merged,
 bitscore-sorted A->B + swapped B->A best-hit DB, keep the B->A lines
@@ -316,9 +316,16 @@ def easy_rbh(query, target, out_m8, tmp_dir, sensitivity=5.7, evalue=1e-3,
 
 
 def easy_linsearch(query, target, out_m8, tmp_dir, evalue=1e-3, cov=0.0,
-                   cov_mode=0, min_seq_id=0.0, kmers_per_seq=21):
-    """easy-linsearch (easysearch.sh with SEARCH_MODULE=linsearch): not
-    ported yet; it waits for search/linsearch_lin.py."""
-    raise NotImplementedError(
-        "easy-linsearch waits for search/linsearch_lin.py, which the port "
-        "does not have yet (ROADMAP section 1, item 4, M6)")
+                   cov_mode=0, min_seq_id=0.0, kmers_per_seq=21,
+                   device="cuda"):
+    """easy-linsearch (easysearch.sh with SEARCH_MODULE=linsearch +
+    createlinindex; EasySearch.cpp linsearch branch); the alignment on
+    `device`."""
+    from .linsearch_lin import linsearch_workflow
+
+    return easy_search(
+        query, target, out_m8, tmp_dir,
+        search_fn=lambda q, t, o, wt: linsearch_workflow(
+            q, t, o, wt, evalue=evalue, cov=cov, cov_mode=cov_mode or None,
+            min_seq_id=min_seq_id, kmers_per_seq=kmers_per_seq,
+            alignment_mode=3, device=device))

@@ -42,7 +42,13 @@ COPIES = ["params.py", "utils/log.py", "utils/session.py", "io/fasta.py",
           "ops/csprofile.py", "pipeline/result2profile.py",
           "pipeline/msa2profile.py", "pipeline/sequence2profile.py",
           "pipeline/profile2pssm.py", "pipeline/convertprofiledb.py",
-          "pipeline/expand.py"]
+          "pipeline/expand.py", "pipeline/clust.py", "pipeline/dbtools3.py",
+          "pipeline/result2msa.py", "pipeline/ca3m.py", "data/nucl.py",
+          "ops/sw.py", "search/linclust.py"]
+# data files the port carries byte for byte
+DATA_COPIES = ["data/resources/CovSeqidQscPercMinDiag.lib",
+               "data/resources/CovSeqidQscPercMinDiagTargetCov.lib",
+               "data/resources/README.md"]
 # copies whose one branch waits for a ROADMAP item, with the lines it drops
 WAITING = {"search/evalue.py": "gumbel", "search/prefilter_kmer.py": "jax"}
 
@@ -63,6 +69,12 @@ def _changed(rel):
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_is_its_original(rel):
     assert _changed(rel) == ([], [])
+
+
+@pytest.mark.parametrize("rel", DATA_COPIES)
+def test_data_copy_is_its_original(rel):
+    assert (ROOT / "metaeuk_tpu_torch" / rel).read_bytes() == \
+        (ROOT / "metaeuk_tpu" / rel).read_bytes()
 
 
 @pytest.mark.parametrize("rel", sorted(WAITING))

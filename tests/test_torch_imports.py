@@ -197,6 +197,49 @@ assert not loaded, loaded
 print("jax-free run ok")
 """
 
+# every module of the clustering and linear-search family; easy-cluster,
+# easy-linclust and easy-linsearch through the port's CLI on the fixtures
+# (the reference's goldens, the JAX package's digests in cluster_slice.json);
+# chip_smoke.py's phase 5h imports the cluster slice's writer,
+# tests/golden/make_cluster_slice.py (whose golden writer alone imports jax)
+_BLOCKED_CLUSTER = _BLOCK + r"""
+import importlib
+import pathlib
+for m in ("pipeline.clust", "pipeline.cluster", "pipeline.clusterwf",
+          "pipeline.dbtools3", "pipeline.result2msa", "pipeline.ca3m",
+          "data.nucl", "ops.sw", "search.kmermatcher", "search.linclust",
+          "search.linsearch_lin"):
+    importlib.import_module(f"metaeuk_tpu_torch.{m}")
+sys.path.insert(0, "tests/golden")
+import make_cluster_slice as mcs
+from metaeuk_tpu_torch.cli import main
+from metaeuk_tpu_torch.io.mmseqsdb import read_db
+
+data, golden, out, mode = sys.argv[1:5]
+cw = f"{golden}/clusterwf"
+for tool, tag in (("easy-cluster", "easycluster"),
+                  ("easy-linclust", "easylinclust")):
+    assert main([tool, f"{cw}/clusterwf_input.faa", out + tag,
+                 out + tag + "_tmp", "--device", "cpu"]) == 0
+    for f in ("_cluster.tsv", "_rep_seq.fasta", "_all_seqs.fasta"):
+        with open(out + tag + f, "rb") as a, open(f"{cw}/{tag}{f}", "rb") as b:
+            assert a.read() == b.read(), f
+assert main(["easy-linsearch", f"{data}/queries_lin.faa",
+             f"{data}/proteins.faa", out + ".m8", out + "_ls",
+             "--device", "cpu"]) == 0
+with open(f"{golden}/cluster_slice.json") as f:
+    want = json.load(f)
+got = mcs.linsearch_summary(out + ".m8", out + "_ls", read_db)
+assert list(got) == [want["counts"]["easy_linsearch_fixture"],
+                     want["sha256"]["easy_linsearch_fixture"]]
+paths = mcs.cluster_slice(mcs.CLUSTER_SLICE, pathlib.Path(out).parent)
+assert sum(1 for ln in open(paths["cut"]) if ln.startswith(">")) == 1200
+loaded = [k for k in sys.modules if sys.modules[k] is not None and (
+    k.split(".")[0].startswith("jax") or k.split(".")[0] == "metaeuk_tpu")]
+assert not loaded, loaded
+print("jax-free run ok")
+"""
+
 # the port's microbenchmarks: both entry points on the CPU, jax blocked
 _BLOCKED_TOOLS = _BLOCK + r"""
 import metaeuk_tpu_torch.ops.kbench_cuda
@@ -322,3 +365,11 @@ def test_iterative_search_runs_with_jax_blocked(tmp_path):
     reference's golden, and the iterative slice's writer that chip_smoke.py
     imports names the slice's DBs, with jax and metaeuk_tpu blocked."""
     _blocked_run(tmp_path, "kmer", _BLOCKED_ITERATIVE)
+
+
+def test_cluster_family_runs_with_jax_blocked(tmp_path):
+    """Every module of the clustering and linear-search family imports, and
+    easy-cluster, easy-linclust and easy-linsearch through the port's CLI
+    give the goldens, and the cluster slice's writer that chip_smoke.py
+    imports writes the slice, with jax and metaeuk_tpu blocked."""
+    _blocked_run(tmp_path, "kmer", _BLOCKED_CLUSTER)

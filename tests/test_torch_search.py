@@ -146,10 +146,16 @@ def test_search_backtrace_byte_parity():
 
 
 def test_waiting_branches_raise(dbs, tmp_path):
-    with pytest.raises(NotImplementedError, match="linsearch_lin"):
-        easy_linsearch(str(DATA / "queries_lin.faa"),
-                       str(DATA / "proteins.faa"), str(tmp_path / "x.m8"),
-                       str(tmp_path / "t"))
+    """Search's nucleotide branch still waits (ROADMAP section 1, M11);
+    easy_linsearch runs (tests/test_torch_linsearch.py holds it)."""
+    with pytest.raises(NotImplementedError, match="nucl_search"):
+        cli.main(["search", str(DATA / "contigs.fna"),
+                  str(DATA / "contigs.fna"), str(tmp_path / "x"),
+                  "--device", "cpu"])
+    easy_linsearch(str(DATA / "queries_lin.faa"), str(DATA / "proteins.faa"),
+                   str(tmp_path / "x.m8"), str(tmp_path / "t"),
+                   device="cpu")
+    assert (tmp_path / "x.m8").read_text().count("\n") > 0
 
 
 def _cli_case(name, d, fix):
