@@ -125,6 +125,21 @@ Phases, each fatal on failure:
      native host library loaded; K1/K2 launched, the uncapped PSSM
      instances in pickconsensusrep (and no capped PSSM entry), no plain
      version called
+  4i. the multihit family, the DB utilities over modules the port carries
+     and the resident server on the fixtures through the CLI: every case of
+     DB_CLI_CASES (multihitdb on tests/golden/util7's two set files and
+     multihitsearch: all ten DBs of tests/test_util7.py; besthitperset in
+     both modes and combinepvalperset in its four aggregation modes
+     (tests/golden/multihit); the dbtools, dbtools2 and dbtools5 commands,
+     filterdb, rescorediagonal, createindex, prefilter with and without the
+     persisted index, indexdb, kmerindexdb, nrtotaxmapping, filterresult,
+     version), each output byte-identical to its MMseqs2 golden where one
+     exists; then gpuserver (`python -m metaeuk_tpu_torch.cli gpuserver`,
+     --warmup 1) on tests/data/proteins.faa in a process of its own:
+     serverclient ping, prefilter and search -a 1 and client_request,
+     byte-equal to the direct prefilter_db and search_db, an unknown op
+     refused, shutdown with exit 0 and the socket gone; K1/K2 launched in
+     multihitsearch, no plain version called
   5. the k-mer main path at a real size: easy-predict on the 1.6 Mbp /
      3000-target synthetic metagenome of tests/golden/multichip_slice.json;
      the four sha256 digests equal the file's, the pair kernels launched and
@@ -223,6 +238,29 @@ Phases, each fatal on failure:
      swapresults and the writers), the driver's phase seconds, pairs and
      cells by route, each SW kernel's launches and summed ms (CUDA events)
      beside its bound, and the kernels' busy and idle shares of the wall
+  5i. the multihit family at full width: the k-mer slice's 245 contigs in
+     35 set files of 7 (tests/golden/make_multihit_slice.py); multihitdb
+     over them, then multihitsearch of the set DB against itself at the
+     default routing and under METAEUK_QM=off: the hit arrays and outputs
+     equal, and the counts and digests of the seven multihitdb DBs, result,
+     aggregate and the output DB equal tests/golden/multihit_slice.json
+     (the JAX package's); wall, seconds by step in call order (createdb,
+     tsv2db, extractorfs, translatenucs, orftocontig, filterdb, swapdb,
+     result2stats, prefilter, align with its SearchDriver.search,
+     besthitperset, mergeresultsbyset), pairs and cells by route, K1/K2's
+     launches and summed ms beside their bounds, the idle share; K1/K2
+     launched, K3/K4 wherever routed, no plain version called
+  5j. the resident server at full width: gpuserver on the search slice's
+     3,000 targets in a process of its own (this script's --serve mode:
+     the port's CLI, each request's kernel launches counted and timed in
+     that process), its startup seconds with --warmup 1 and with --warmup
+     0; ping, then a prefilter and a search (alignment mode 3, -e 1e-3) of
+     the 4,000 queries: the search's result equal to search_slice.json's
+     easy_search result, the prefilter equal to the search's own; the same
+     search again, then two at once to other DBs, both equal to the first;
+     each request's seconds, the first search's K1-K4 launches and summed
+     ms beside their bounds, no plain version called; shutdown, exit 0, the
+     socket gone
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
@@ -1574,6 +1612,408 @@ def check_cluster_workflows(cli, device, td):
     return n, pcr
 
 
+# phase 4i: the cases of the commands the port wires over modules it
+# carries, on tests/golden's fixtures (tests/test_torch_dbcli.py runs each
+# through the JAX CLI too): case -> dict(argv, goldens, and optionally copy,
+# pre, device). In argv, {fx} is db_cli_fixture's directory, {out} the
+# case's own and {G} tests/golden. "copy" DBs (every file of the prefix)
+# are copied into {out} and the "pre" commands run through the same CLI
+# first; the port gets --device where "device" is set. goldens: [(output
+# under {out}, golden under {G})], "stdout" for the printed text.
+def _goldens(out, golden, sufs=DB_SUFFIXES):
+    return [(f"{out}{s}", f"{golden}{s}") for s in sufs]
+
+
+RES = "{G}/utils/selfres"
+# unpackdb's files of the six fixture proteins (tests/golden/util5/unpacked)
+UNPACKED = [f"{k}.seq" for k in range(6)]
+MULTIHITDB = ("", "_member_to_set", "_set_to_member", "_set_size",
+              "_nucl_contig_to_set", "_nucl_set_to_contig",
+              "_nucl_orf_to_contig")
+DB_CLI_CASES = {
+    "reverseseq": dict(argv=["reverseseq", "{fx}/tdb", "{out}/rev"],
+                       goldens=_goldens("rev", "dbtools/refrev_seq",
+                                        ("", ".index"))),
+    "sortresult": dict(argv=["sortresult", "{G}/aln/search_a", "{out}/s"],
+                       goldens=_goldens("s", "dbtools/refsorted",
+                                        ("", ".index"))),
+    "tsv2db": dict(argv=["tsv2db", "{G}/dbtools/input.tsv", "{out}/t"],
+                   goldens=_goldens("t", "dbtools/reftsvdb")),
+    "mergedbs": dict(argv=["mergedbs", "{G}/pref/pfQ", "{out}/m",
+                           "{G}/pref/pfres_s4", "{G}/pref/pfres_s5.7",
+                           "--prefixes", "A,B"],
+                     goldens=_goldens("m", "dbtools/refmerged",
+                                      ("", ".index"))),
+    "createsubdb": dict(argv=["createsubdb", "{fx}/keys.txt", "{fx}/tdb",
+                              "{out}/sub"],
+                        goldens=_goldens("sub", "dbtools/refsubdb",
+                                         ("", ".index"))),
+    "extractframes": dict(argv=["extractframes", "{fx}/cdb", "{out}/ef"],
+                          goldens=_goldens("ef", "dbtools/refef", (
+                              "", ".index", "_h", "_h.index"))),
+    "extractframes --translate": dict(
+        argv=["extractframes", "{fx}/cdb", "{out}/eft", "--translate", "1"],
+        goldens=_goldens("eft", "dbtools/refeft",
+                         ("", ".index", "_h", "_h.index"))),
+    "splitsequence": dict(argv=["splitsequence", "{fx}/cdb", "{out}/sp",
+                                "--max-seq-len", "500"],
+                          goldens=_goldens("sp", "dbtools/refsplit", (
+                              "", ".index", "_h", "_h.index"))),
+    "convert2fasta": dict(argv=["convert2fasta", "{fx}/tdb", "{out}/o.faa"],
+                          goldens=[("o.faa", "dbtools/reffasta.faa")]),
+    "swapdb": dict(argv=["swapdb", RES, "{out}/o"],
+                   goldens=_goldens("o", "utils/swapdb_res")),
+    "swapresults": dict(argv=["swapresults", "{fx}/tdb", "{fx}/tdb", RES,
+                              "{out}/o"],
+                        goldens=_goldens("o", "utils/swapres")),
+    "prefixid": dict(argv=["prefixid", RES, "{out}/o"],
+                     goldens=_goldens("o", "utils/prefid")),
+    "suffixid": dict(argv=["suffixid", RES, "{out}/o", "--prefix", "XX"],
+                     goldens=_goldens("o", "utils/sufid")),
+    "subtractdbs": dict(argv=["subtractdbs", RES, RES, "{out}/o", "-e",
+                              "1e-5"],
+                        goldens=_goldens("o", "utils/sub_self")),
+    "summarizeresult": dict(argv=["summarizeresult", RES, "{out}/o"],
+                            goldens=_goldens("o", "utils/summ")),
+    "result2flat": dict(argv=["result2flat", "{fx}/tdb", "{fx}/tdb", RES,
+                              "{out}/o"],
+                        goldens=[("o", "utils/flat")]),
+    "createseqfiledb": dict(argv=["createseqfiledb", "{fx}/tdb", RES,
+                                  "{out}/o"],
+                            goldens=_goldens("o", "utils/seqfile")),
+    "splitdb": dict(argv=["splitdb", RES, "{out}/o", "--split", "3"],
+                    goldens=[g for i in range(3) for g in _goldens(
+                        f"o_{i}_3", f"utils/spl_{i}_3")]),
+    "orftocontig": dict(argv=["orftocontig", "{fx}/cdb", "{G}/utils/orfs",
+                              "{out}/o"],
+                        goldens=_goldens("o", "utils/orfaln")),
+    "renamedbkeys": dict(argv=["renamedbkeys", "{G}/utils/rename.tsv",
+                               "{fx}/tdb", "{out}/o"],
+                         goldens=_goldens("o", "utils/renamed") + _goldens(
+                             "o_h", "utils/renamed_h", ("", ".index"))),
+    "concatdbs": dict(argv=["concatdbs", "{fx}/tdb", "{fx}/tdb", "{out}/o"],
+                      goldens=_goldens("o", "utils/concat")),
+    "rmdb": dict(copy=[("{fx}/tdb", "x")], argv=["rmdb", "{out}/x"],
+                 goldens=[]),
+    "mvdb": dict(copy=[("{fx}/tdb", "x")], argv=["mvdb", "{out}/x",
+                                                 "{out}/m"], goldens=[]),
+    "cpdb": dict(argv=["cpdb", "{fx}/tdb", "{out}/c"], goldens=[]),
+    "lndb": dict(copy=[("{fx}/tdb", "x")], argv=["lndb", "{out}/x",
+                                                 "{out}/l"], goldens=[]),
+    "touchdb": dict(copy=[("{fx}/tdb", "x")], argv=["touchdb", "{out}/x"],
+                    goldens=[]),
+    "extractalignedregion": dict(
+        argv=["extractalignedregion", "{fx}/qdb", "{fx}/tdb", "{fx}/aln",
+              "{out}/extq", "--extract-mode", "1"],
+        goldens=_goldens("extq", "util5/extq")),
+    "extractalignedregion --extract-mode 2": dict(
+        argv=["extractalignedregion", "{fx}/qdb", "{fx}/tdb", "{fx}/aln",
+              "{out}/extt"],
+        goldens=_goldens("extt", "util5/extt")),
+    "summarizeheaders": dict(
+        copy=[("{G}/util5/hdrdb", "hdrdb"), ("{G}/util5/clu2", "clu2")],
+        argv=["summarizeheaders", "{out}/hdrdb", "{out}/hdrdb", "{out}/clu2",
+              "{out}/sum"],
+        goldens=_goldens("sum", "util5/sumhdr")),
+    "summarizeheaders --header-type 2": dict(
+        copy=[("{G}/util5/hdrdb", "hdrdb"), ("{G}/util5/clu2", "clu2")],
+        argv=["summarizeheaders", "{out}/hdrdb", "{out}/hdrdb", "{out}/clu2",
+              "{out}/summc", "--header-type", "2"],
+        goldens=_goldens("summc", "util5/sumhdr_mc")),
+    "clusthash": dict(argv=["clusthash", "{fx}/alldb", "{out}/chash"],
+                      goldens=_goldens("chash", "util5/chash")),
+    "clusthash --min-seq-id 0.9": dict(
+        argv=["clusthash", "{fx}/alldb", "{out}/chash90", "--min-seq-id",
+              "0.9"],
+        goldens=_goldens("chash90", "util5/chash90")),
+    "mergeresultsbyset": dict(argv=["mergeresultsbyset", "{fx}/sets",
+                                    "{fx}/aln", "{out}/mrbs"],
+                              goldens=_goldens("mrbs", "util5/mrbs")),
+    "makepaddedseqdb": dict(
+        argv=["makepaddedseqdb", "{fx}/tdb", "{out}/padded"],
+        goldens=_goldens("padded", "util5/padded", (
+            "", ".index", ".dbtype", "_h", "_h.index", "_h.dbtype"))),
+    "unpackdb": dict(argv=["unpackdb", "{fx}/tdb", "{out}/unpacked",
+                           "--unpack-name-mode", "0", "--unpack-suffix",
+                           ".seq"],
+                     goldens=[(f"unpacked/{n}", f"util5/unpacked/{n}")
+                              for n in UNPACKED]),
+    "countkmer": dict(argv=["countkmer", "{fx}/tdb", "-k", "2"],
+                      goldens=[("stdout", "util5/countkmer_k2.tsv")]),
+    "recoverlongestorf": dict(
+        copy=[("{G}/util5/orfres", "orfres")],
+        argv=["recoverlongestorf", "{fx}/orfs10", "{out}/orfres",
+              "{out}/lo"],
+        goldens=[("lo", "util5/longestorf")]),
+    "tar2db": dict(argv=["tar2db", "{G}/util5/src.tar", "{out}/tardb"],
+                   goldens=_goldens("tardb", "util5/tardb", (
+                       *DB_SUFFIXES, ".lookup", ".source"))),
+    "db2tar": dict(argv=["db2tar", "{G}/util5/tardb", "{out}/rt.tar"],
+                   goldens=[]),
+    "besthitperset": dict(
+        argv=["besthitperset", "{G}/multihit/mh_qsize", "{G}/multihit/mh_tmap",
+              "{G}/multihit/mh_res", "{out}/bh"],
+        goldens=[("bh", "multihit/refbh"),
+                 ("bh.index", "multihit/refbh.index")]),
+    "besthitperset --simple-best-hit 0": dict(
+        argv=["besthitperset", "{G}/multihit/mh_qsize", "{G}/multihit/mh_tmap",
+              "{G}/multihit/mh_res", "{out}/bhns", "--simple-best-hit", "0"],
+        goldens=[("bhns", "multihit/refbh_ns"),
+                 ("bhns.index", "multihit/refbh_ns.index")]),
+    **{f"combinepvalperset --aggregation-mode {m}": dict(
+        argv=["combinepvalperset", "{G}/multihit/mh_qsize",
+              "{G}/multihit/mh_tmap", "{G}/multihit/mh_logp", f"{{out}}/cp{m}",
+              "--aggregation-mode", str(m)],
+        goldens=[(f"cp{m}", f"multihit/refcp_m{m}"),
+                 (f"cp{m}.index", f"multihit/refcp_m{m}.index")])
+       for m in range(4)},
+    "filterdb --extract-lines": dict(
+        argv=["filterdb", RES, "{out}/o", "--extract-lines", "2"],
+        goldens=_goldens("o", "utils/f_lines")),
+    "filterdb --comparison-operator ge": dict(
+        argv=["filterdb", RES, "{out}/o", "--filter-column", "2",
+              "--comparison-operator", "ge", "--comparison-value", "100"],
+        goldens=_goldens("o", "utils/f_ge")),
+    "filterdb --mapping-file": dict(
+        argv=["filterdb", RES, "{out}/o", "--mapping-file",
+              "{G}/utils/f_map.tsv"],
+        goldens=_goldens("o", "utils/f_map")),
+    **{f"rescorediagonal {tag}": dict(
+        argv=["rescorediagonal", "{G}/pref/pfQ", "{G}/pref/pfT",
+              "{G}/pref/pfres_s4", "{out}/rd", *flags],
+        goldens=_goldens("rd", f"pref/refrd_{tag}", ("", ".index")))
+       for tag, flags in (("m0", []), ("m1", ["--rescore-mode", "1"]),
+                          ("m2a", ["--rescore-mode", "2", "-a", "1"]))},
+    "createindex": dict(copy=[("{G}/pref/pfT", "pfT")],
+                        argv=["createindex", "{out}/pfT"], goldens=[]),
+    "prefilter": dict(argv=["prefilter", "{G}/pref/pfQ", "{G}/pref/pfT",
+                            "{out}/pf"],
+                      goldens=_goldens("pf", "pref/pfres_s4",
+                                       ("", ".index"))),
+    "prefilter (persisted index)": dict(
+        copy=[("{G}/pref/pfT", "pfT")],
+        pre=[["createindex", "{out}/pfT"]],
+        argv=["prefilter", "{G}/pref/pfQ", "{out}/pfT", "{out}/pfi"],
+        goldens=_goldens("pfi", "pref/pfres_s4", ("", ".index"))),
+    "indexdb": dict(argv=["indexdb", "{G}/pref/pfT", "{out}/pfT.kidx"],
+                    goldens=[]),
+    "kmerindexdb": dict(argv=["kmerindexdb", "{fx}/tdb", "{out}/lin"],
+                        goldens=[]),
+    "nrtotaxmapping": dict(
+        copy=[("{G}/util8/nrdb_h", "nrdb_h")],
+        pre=[["createbintaxonomy", "{G}/util8/taxdump8/names.dmp",
+              "{G}/util8/taxdump8/nodes.dmp",
+              "{G}/util8/taxdump8/merged.dmp", "{out}/nrdb_taxonomy"]],
+        argv=["nrtotaxmapping", "{G}/util8/acc2taxid.tsv", "{out}/nrdb",
+              "{out}/nrmap"],
+        goldens=[("nrmap", "util8/nrmap")]),
+    "filterresult": dict(argv=["filterresult", "{fx}/qdb", "{fx}/tdb",
+                               "{fx}/aln", "{out}/fres"],
+                         goldens=_goldens("fres", "util5/fres")),
+    "filterresult --diff 1": dict(
+        argv=["filterresult", "{fx}/qdb", "{fx}/tdb", "{fx}/aln",
+              "{out}/fres2", "--diff", "1", "--max-seq-id", "0.95"],
+        goldens=_goldens("fres2", "util5/fres2")),
+    "multihitdb": dict(
+        argv=["multihitdb", "{G}/util7/set0.fna", "{G}/util7/set1.fna",
+              "{out}/mhdb", "{out}/mhtmp"],
+        goldens=[g for f in MULTIHITDB
+                 for g in _goldens(f"mhdb{f}", f"util7/mhdb{f}")]),
+    "multihitsearch": dict(
+        pre=[["multihitdb", "{G}/util7/set0.fna", "{G}/util7/set1.fna",
+              "{out}/mhdb", "{out}/mhtmp"]],
+        argv=["multihitsearch", "{out}/mhdb", "{out}/mhdb", "{out}/mhres",
+              "{out}/mhstmp"], device=True,
+        goldens=_goldens("mhstmp/result", "util7/mh_result")
+        + _goldens("mhstmp/aggregate", "util7/mh_aggregate")
+        + _goldens("mhres", "util7/mhres")),
+    "version": dict(argv=["version"], goldens=[]),
+}
+
+
+def db_cli_fixture(cli, device, fx):
+    """The inputs of DB_CLI_CASES under fx, made by the port on `device`:
+    createdb of tests/data's queries_lin.faa (qdb), proteins.faa (tdb),
+    contigs.fna (cdb) and of the first two together (alldb); cdb's ORFs of
+    10 codons or more (orfs10); qdb against tdb prefiltered at -s 4 and
+    aligned with backtraces (aln, tests/test_util5.py's); keys.txt (3 1 5)
+    and a two-set DB over aln's queries (sets)."""
+    from metaeuk_tpu_torch.io import mmseqsdb
+    from metaeuk_tpu_torch.search.align_module import align_db
+    from metaeuk_tpu_torch.search.searchdb import prefilter_db
+    data = ROOT / "tests" / "data"
+    fx.mkdir(parents=True, exist_ok=True)
+    (fx / "all.faa").write_bytes((data / "queries_lin.faa").read_bytes()
+                                 + (data / "proteins.faa").read_bytes())
+    for fasta, db in ((data / "queries_lin.faa", "qdb"),
+                      (data / "proteins.faa", "tdb"),
+                      (data / "contigs.fna", "cdb"), (fx / "all.faa",
+                                                      "alldb")):
+        run_cli(cli, ["createdb", fasta, fx / db])
+    run_cli(cli, ["extractorfs", fx / "cdb", fx / "orfs10", "--min-length",
+                  "10"])
+    prefilter_db(str(fx / "qdb"), str(fx / "tdb"), str(fx / "pref"),
+                 sensitivity=4.0)
+    align_db(str(fx / "qdb"), str(fx / "tdb"), str(fx / "pref"),
+             str(fx / "aln"), evalue=1e-3, add_backtrace=True, device=device)
+    (fx / "keys.txt").write_text("3 1 5\n")
+    mmseqsdb.write_db(str(fx / "sets"), [(100, b"0\n2\n"), (101, b"1\n")],
+                      5)
+    return fx
+
+
+def run_db_cli_case(main, case, fx, out, device=None):
+    """Runs one case of DB_CLI_CASES through `main` (a CLI's entry point)
+    under out, with --device `device` where the case has it; returns (exit
+    code, printed text)."""
+    import io
+    import shutil
+
+    def fmt(a):
+        return a.format(fx=fx, out=out, G=GOLDEN)
+    out.mkdir(parents=True, exist_ok=True)
+    for src, dst in case.get("copy", ()):
+        src = pathlib.Path(fmt(src))
+        for f in src.parent.iterdir():
+            if f.name == src.name or f.name.startswith(
+                    (f"{src.name}.", f"{src.name}_h")):
+                shutil.copyfile(f, out / (dst + f.name[len(src.name):]))
+    for argv in case.get("pre", ()):
+        with contextlib.redirect_stdout(io.StringIO()):
+            if main([fmt(a) for a in argv]) != 0:
+                raise AssertionError(f"{argv[0]} failed")
+    argv = [fmt(a) for a in case["argv"]]
+    if case.get("device") and device is not None:
+        argv += ["--device", str(device)]
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        rc = main(argv)
+    return rc, text.getvalue()
+
+
+def check_db_cli(cli, device, td, probe=contextlib.nullcontext):
+    """Phase 4i's first part: every case of DB_CLI_CASES through the port's
+    CLI on `device` (multihitsearch's alignment), each output equal to its
+    golden; `version` prints the port's line. probe() brackets the cases
+    that align (multihitsearch). Returns (the outputs compared, what probe
+    yielded)."""
+    fx = db_cli_fixture(cli, device, td / "fx")
+    n, rec = 0, None
+    for name, case in DB_CLI_CASES.items():
+        out = td / name.replace(" ", "_")
+        aligns = case.get("device", False)
+        with probe() if aligns else contextlib.nullcontext() as got:
+            rc, text = run_db_cli_case(cli.main, case, fx, out, device)
+        if aligns:
+            rec = got
+        if rc != 0:
+            raise AssertionError(f"{name}: exit {rc}")
+        if name == "version" and text != cli.VERSION + "\n":
+            raise AssertionError(f"version printed {text!r}")
+        for mine, golden in case["goldens"]:
+            if mine == "stdout":
+                if text != (GOLDEN / golden).read_text():
+                    raise AssertionError(f"{name}: its output differs from "
+                                         f"{golden}")
+            else:
+                same_bytes(out / mine, GOLDEN / golden)
+            n += 1
+    commands = {c["argv"][0] for c in DB_CLI_CASES.values()}
+    print(f"{len(DB_CLI_CASES)} cases of {len(commands)} commands on "
+          f"{device}: {n} outputs equal to their goldens", flush=True)
+    return n, rec
+
+
+def wait_for_socket(proc, sock, log, timeout=300.0):
+    """Seconds until a server process's socket exists; raises if the
+    process exits first (with its log) or the time runs out."""
+    t0 = time.perf_counter()
+    while not os.path.exists(sock):
+        if proc.poll() is not None:
+            raise AssertionError(f"the server exited with {proc.returncode} "
+                                 "before it listened:\n"
+                                 + pathlib.Path(log).read_text()[-3000:])
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"no socket {sock} after {timeout} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def server_process(argv, sock, log):
+    """Starts a server process (argv) with its output to log; yields (the
+    process, seconds until its socket existed); at exit kills it if it
+    still runs."""
+    with open(log, "w") as f:
+        proc = subprocess.Popen(argv, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=ROOT)
+    try:
+        yield proc, wait_for_socket(proc, sock, log)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def stop_server(proc, sock, request):
+    """Sends shutdown through request(op) and checks that the process exits
+    0 and removes its socket."""
+    request("shutdown")
+    rc = proc.wait(timeout=120)
+    if rc != 0 or os.path.exists(sock):
+        raise AssertionError(f"the server exited with {rc}, socket left: "
+                             f"{os.path.exists(sock)}")
+
+
+def check_server_fixture(cli, device, td):
+    """Phase 4i's second part: `python -m metaeuk_tpu_torch.cli gpuserver`
+    (--warmup 1, on `device`) over tests/data/proteins.faa in a process of
+    its own; serverclient (the port's CLI) ping, prefilter and search -a 1,
+    their DBs byte-equal to the direct prefilter_db and search_db; the same
+    search through client_request; an unknown op refused; shutdown: exit 0,
+    the socket gone. Returns the server's startup seconds."""
+    import io
+    from metaeuk_tpu_torch.search import searchdb
+    from metaeuk_tpu_torch.server import client_request
+    data = ROOT / "tests" / "data"
+    td.mkdir(parents=True, exist_ok=True)
+    q, t, sock = td / "qdb", td / "tdb", str(td / "srv.sock")
+    run_cli(cli, ["createdb", data / "queries_lin.faa", q])
+    run_cli(cli, ["createdb", data / "proteins.faa", t])
+    searchdb.prefilter_db(str(q), str(t), str(td / "dir_pref"))
+    searchdb.search_db(str(q), str(t), str(td / "dir_aln"),
+                       str(td / "dir_tmp"), evalue=1e-3, add_backtrace=True,
+                       device=device)
+
+    def client(*argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["serverclient", sock, *map(str, argv)])
+        if rc != 0:
+            raise AssertionError(f"serverclient {argv[0]} failed")
+    with server_process(
+            [sys.executable, "-m", "metaeuk_tpu_torch.cli", "gpuserver",
+             str(t), "--socket", sock, "--warmup", "1", "--device",
+             str(device)], sock, td / "server.log") as (proc, startup):
+        client("ping")
+        client("prefilter", q, td / "srv_pref")
+        same_db(td / "srv_pref", td / "dir_pref")
+        client("search", q, td / "srv_aln", td / "srv_tmp", "-a", "1")
+        same_db(td / "srv_aln", td / "dir_aln")
+        resp = client_request(sock, dict(
+            op="search", query_db=str(q), out_db=str(td / "srv_aln2"),
+            tmp=str(td / "srv_tmp2"), evalue=1e-3, add_backtrace=True))
+        if not resp["ok"]:
+            raise AssertionError(f"search through client_request: {resp}")
+        same_db(td / "srv_aln2", td / "dir_aln")
+        if client_request(sock, {"op": "nope"})["ok"]:
+            raise AssertionError("the server took an unknown op")
+        stop_server(proc, sock, client)
+    print(f"gpuserver on {device}: started in {startup:.2f} s (--warmup 1); "
+          "ping, prefilter and search -a 1 through serverclient and "
+          "client_request byte-equal to the direct commands, an unknown op "
+          "refused, shutdown with exit 0 and its socket gone", flush=True)
+    return startup
+
+
 @contextlib.contextmanager
 def timed_steps(specs):
     """For this script's measurement only: every call of specs' functions
@@ -2223,20 +2663,27 @@ def cluster_args(run, paths, out, tmp, cut=False):
 
 
 def run_cluster_cmd(cli, argv, device, probe=contextlib.nullcontext):
-    """One run of phase 5h through the port's CLI on `device`, bracketed by
-    probe() as in run_search_slice. Returns its wall, the timed_steps
-    record, the driver's phase seconds and cells, its routes (pair_routes),
-    what probe yielded and the SearchDriver.search hit arrays in call
-    order."""
+    """One run of phase 5h through the port's CLI on `device` (run_timed_cmd
+    with cluster_stage_specs)."""
+    return run_timed_cmd(cli, [*argv, "--device", device],
+                         cluster_stage_specs(), probe)
+
+
+def run_timed_cmd(cli, argv, specs, probe=contextlib.nullcontext):
+    """One command through the port's CLI, its calls of specs' functions
+    timed (timed_steps) and the whole bracketed by probe() as in
+    run_search_slice. Returns its wall, the timed_steps record, the
+    driver's phase seconds and cells, its routes (pair_routes), what probe
+    yielded and the SearchDriver.search hit arrays in call order."""
     from metaeuk_tpu_torch.ops import sw_cuda
     from metaeuk_tpu_torch.search import driver
     for k in driver.CELLS:
         driver.CELLS[k] = 0
     driver.PHASE_SECONDS.clear()
-    with probe() as rec, timed_steps(cluster_stage_specs()) as (st, hits), \
+    with probe() as rec, timed_steps(specs) as (st, hits), \
             pair_routes(driver, sw_cuda) as routes:
         t0 = time.perf_counter()
-        run_cli(cli, [*argv, "--device", device])
+        run_cli(cli, argv)
         wall = time.perf_counter() - t0
     return dict(wall=wall, steps=st, stages=stage_seconds(st), routes=routes,
                 probe=rec, phases=dict(driver.PHASE_SECONDS),
@@ -2346,6 +2793,232 @@ def check_cluster_slice(np, cli, td, device, probe=contextlib.nullcontext,
         got[f"{run}_full"] = d_auto
         check(f"{run}_full", d_auto, f"{run} on the whole slice")
     return records, got
+
+
+# the host stages of the multihit family that phase 5i times, in call
+# order: (module or class of the port, attribute, stage)
+def multihit_stage_specs():
+    from metaeuk_tpu_torch import cli
+    from metaeuk_tpu_torch.pipeline import (dbtools2, dbtools3, dbtools5,
+                                            filterdb, multihit)
+    from metaeuk_tpu_torch.search import align_module, driver, searchdb
+    return ((cli, "cmd_createdb", "createdb"),
+            (cli, "cmd_dbtool", "tsv2db"),
+            (cli, "cmd_extractorfs", "extractorfs"),
+            (cli, "cmd_translatenucs", "translatenucs"),
+            (cli, "cmd_dbtool2", "orftocontig"),
+            (filterdb, "filterdb", "filterdb"),
+            (dbtools2, "swapdb", "swapdb"),
+            (dbtools3, "result2stats", "result2stats"),
+            (searchdb, "prefilter_db", "prefilter"),
+            (align_module, "align_db", "align"),
+            (driver.SearchDriver, "search", "SearchDriver.search"),
+            (multihit, "besthitperset", "besthitperset"),
+            (dbtools5, "mergeresultsbyset", "mergeresultsbyset"))
+
+
+def check_multihit_slice(np, cli, td, device, probe=contextlib.nullcontext,
+                         run="whole"):
+    """Phase 5i: make_multihit_slice.py's set files (the run's sets: "whole"
+    all 35, "cut" the first 12, "rehearsal" the first 3) under td on
+    `device`: multihitdb over them, then multihitsearch of the set DB
+    against itself at the default routing and under METAEUK_QM=off; the hit
+    arrays and every output equal between the routings, and the counts and
+    digests equal tests/golden/multihit_slice.json's run. Each command
+    reported by report_cluster_run (multihitdb by its steps). Returns {run:
+    its record}."""
+    import make_multihit_slice as mms
+    from metaeuk_tpu_torch.io.mmseqsdb import read_db
+    golden = json.loads((GOLDEN / "multihit_slice.json").read_text())
+    if golden["input"] != mms.MULTIHIT_SLICE:
+        raise AssertionError("multihit_slice.json was made from another "
+                             "input than make_multihit_slice.MULTIHIT_SLICE")
+    t0 = time.perf_counter()
+    sets = mms.multihit_slice(mms.MULTIHIT_SLICE, td,
+                              mms.MULTIHIT_SLICE[mms.RUNS[run]])
+    print(f"generated {len(sets)} set files in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    db = td / "mhdb"
+    records = {"multihitdb": run_timed_cmd(
+        cli, ["multihitdb", *sets, db, td / "dbtmp"],
+        multihit_stage_specs())}
+    r = records["multihitdb"]
+    print(f"multihitdb: wall {r['wall']:.3f} s; seconds by step, in call "
+          "order: " + "; ".join(f"{'  ' * d}{stage} {s:.3f}"
+                                for stage, d, s in r["steps"]), flush=True)
+    done = {}
+    for qm in ("auto", "off"):
+        tmp, out = td / f"tmp_{qm}", td / f"res_{qm}"
+        if qm == "off":
+            os.environ["METAEUK_QM"] = qm
+        try:
+            records[f"multihitsearch QM {qm}"] = r = run_timed_cmd(
+                cli, ["multihitsearch", db, db, out, tmp, "--device",
+                      device], multihit_stage_specs(), probe)
+        finally:
+            os.environ.pop("METAEUK_QM", None)
+        report_cluster_run(f"multihitsearch (METAEUK_QM={qm})", r)
+        done[qm] = (r["hits"], mms.summary(db, tmp, out, read_db))
+        print(f"multihitsearch (METAEUK_QM={qm}): counts "
+              f"{json.dumps(done[qm][1][0])}", flush=True)
+    (h_auto, s_auto), (h_off, s_off) = done["auto"], done["off"]
+    if len(h_auto) != len(h_off):
+        raise AssertionError("multihitsearch: the routings made different "
+                             "numbers of SearchDriver.search calls")
+    for a, b in zip(h_auto, h_off):
+        same_hits(np, a, b, "multihitsearch")
+    if s_auto != s_off:
+        raise AssertionError("multihitsearch: outputs differ between the "
+                             "routings")
+    if s_auto != (golden["counts"][run], golden["sha256"][run]):
+        raise AssertionError(f"the multihit slice ({run}) differs from "
+                             "multihit_slice.json")
+    print(f"multihit slice ({run}, {len(sets)} sets): hits and outputs equal "
+          "under the default routing and METAEUK_QM=off; counts and the "
+          f"digests of {len(s_auto[1])} DBs equal multihit_slice.json",
+          flush=True)
+    return records
+
+
+# phase 5j: the search request the server answers on the search slice
+# (easy_search's alignment at its defaults)
+SERVER_SEARCH = dict(evalue=1e-3, alignment_mode=3)
+
+
+def serve_child(td, target_db, sock, warmup, device):
+    """Phase 5j's server (`python3 chip_smoke.py --serve DIR TARGET_DB
+    SOCKET WARMUP DEVICE`): the port's `gpuserver` through its CLI, with
+    each prefilter and search request bracketed (one at a time) by the
+    counts set to 0, CUDA events around each SW launch and pair_routes;
+    appends each request's record to DIR/requests.jsonl: its op, out_db,
+    seconds, launches, plain calls, kernel ms (event_ms), the driver's
+    cells and the pairs and cells by route (on the CPU the plain versions'
+    calls stand in for the launches, with no events). Returns the CLI's
+    exit code."""
+    import threading
+
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from metaeuk_tpu_torch import cli, server
+    from metaeuk_tpu_torch.ops import sw_cuda, ungapped_cuda
+    from metaeuk_tpu_torch.search import driver, prefilter
+    counters = (sw_cuda, ungapped_cuda)
+    handle, lock = server.TpuSearchServer.handle, threading.Lock()
+    on_card = device == "cuda"
+
+    def recorded(self, req):
+        if req.get("op") not in ("prefilter", "search"):
+            return handle(self, req)
+        with lock:
+            ctx = probe_run(torch, counters, driver, prefilter, sw_cuda) \
+                if on_card else contextlib.nullcontext({})
+            with ctx as rec, pair_routes(driver, sw_cuda) as routes:
+                if not on_card:
+                    for c in counters:
+                        c.reset_counts()
+                for k in driver.CELLS:
+                    driver.CELLS[k] = 0
+                t0 = time.perf_counter()
+                resp = handle(self, req)
+                seconds = time.perf_counter() - t0
+            if not on_card:
+                rec["events"] = {}
+                rec["launches"] = counts(counters)[1]
+                rec["plain"] = dict.fromkeys(rec["launches"], 0)
+            with open(pathlib.Path(td) / "requests.jsonl", "a") as f:
+                f.write(json.dumps(dict(
+                    op=req["op"], out_db=req.get("out_db"), seconds=seconds,
+                    launches=rec["launches"], plain=rec["plain"],
+                    kernel_ms=event_ms(rec["events"]),
+                    cells=dict(driver.CELLS), routes=routes)) + "\n")
+        return resp
+    server.TpuSearchServer.handle = recorded
+    return cli.main(["gpuserver", target_db, "--socket", sock, "--warmup",
+                     warmup, "--device", device])
+
+
+def check_server_slice(td, queries, targets, device, want=None):
+    """Phase 5j: the query and target FASTAs as easy_search's DBs under td;
+    serve_child over the targets with --warmup 0 (startup, ping, shutdown),
+    then with --warmup 1: ping, a prefilter and a search (SERVER_SEARCH)
+    of the queries, the search's result equal to `want` (digests; None:
+    the port's direct search_db on `device`) and its prefilter equal to the
+    search's own, the same search again, then two at once to other DBs,
+    both equal to the first; shutdown, exit 0, the socket gone. Prints the
+    startup and request seconds and reports the first search's kernels.
+    Returns {"startup": {warmup: seconds}, "requests": [records]}."""
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    from metaeuk_tpu_torch.search import searchdb
+    from metaeuk_tpu_torch.server import client_request
+    td.mkdir(parents=True, exist_ok=True)
+    q = searchdb._ensure_seqdb(str(queries), str(td / "query"))
+    t = searchdb._ensure_seqdb(str(targets), str(td / "target"))
+    sock = str(td / "srv.sock")
+
+    def request(op, **kw):
+        resp = client_request(sock, dict(op=op, **kw))
+        if not resp.get("ok"):
+            raise AssertionError(f"server {op}: {resp}")
+        return resp
+
+    def search(name):
+        return request("search", query_db=q, out_db=str(td / name),
+                       tmp=str(td / f"{name}_tmp"), **SERVER_SEARCH)
+    startup, records = {}, []
+    for warmup in ("0", "1"):
+        log = td / f"server_w{warmup}.log"
+        with server_process([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--serve", str(td), t, sock, warmup,
+                             str(device)], sock, log) as (proc, secs):
+            startup[warmup] = secs
+            print(f"gpuserver --warmup {warmup} on {device}: listening "
+                  f"after {secs:.2f} s", flush=True)
+            request("ping")
+            if warmup == "1":
+                request("prefilter", query_db=q, out_db=str(td / "pref"))
+                for name in ("first", "second"):
+                    t0 = time.perf_counter()
+                    search(name)
+                    print(f"search request {name}: "
+                          f"{time.perf_counter() - t0:.3f} s at the client",
+                          flush=True)
+                t0 = time.perf_counter()
+                with Pool(2) as ex:
+                    for f in [ex.submit(search, n) for n in ("c1", "c2")]:
+                        f.result()
+                print(f"two search requests at once: "
+                      f"{time.perf_counter() - t0:.3f} s at the client",
+                      flush=True)
+            stop_server(proc, sock, request)
+        print(log.read_text()[-2000:], flush=True)
+    records = [json.loads(ln) for ln in
+               (td / "requests.jsonl").read_text().splitlines()]
+    first = next(r for r in records if r["op"] == "search")
+    print(f"the first search request: {first['seconds']:.3f} s; cells "
+          f"{json.dumps(first['cells'])}; pairs and cells by route and "
+          "pass " + json.dumps(first["routes"]))
+    report_kernels("the first search request", first["kernel_ms"],
+                   first["routes"], first, ())
+    for r in records:
+        print(f"{r['op']} request to {pathlib.Path(r['out_db']).name}: "
+              f"{r['seconds']:.3f} s in the server", flush=True)
+    same_db(td / "pref", td / "first_tmp" / "pref_0")
+    for name in ("second", "c1", "c2"):
+        same_db(td / name, td / "first")
+    if want is None:
+        searchdb.search_db(q, t, str(td / "direct"), str(td / "direct_tmp"),
+                           device=device, **SERVER_SEARCH)
+        want = {s: sha256(f"{td / 'direct'}{s}") for s in DB_SUFFIXES}
+    if {s: sha256(f"{td / 'first'}{s}") for s in DB_SUFFIXES} != want:
+        raise AssertionError("the server's search differs from its "
+                             "reference")
+    print(f"server on {device}: the prefilter equal to the search's own, "
+          "the search equal to its reference, the second and the two "
+          "concurrent searches equal to the first; shutdown with exit 0 "
+          "and its socket gone", flush=True)
+    return {"startup": startup, "requests": records}
+
 
 def qm_edge_tiles(np, rng, Lq, Lt):
     """pair_edge_batch's pairs as query-major tiles: the pairs' queries and
@@ -2842,7 +3515,18 @@ def report_search_run(run, r, need=PAIR_KERNELS):
     print(f"{run}: driver phase seconds " + json.dumps(r["phases"]))
     print(f"{run}: cells {json.dumps(r['cells'])}; pairs and cells by "
           "route and pass " + json.dumps(routes))
-    for k, (n, ms) in event_ms(rec["events"]).items():
+    # `need` in every run, the uncapped instances in the realign run
+    report_kernels(run, event_ms(rec["events"]), routes, rec, list(need) + (
+        list(NOCAP_KERNELS) if run == "align_realign" else []))
+
+
+def report_kernels(run, ms_by, routes, rec, need):
+    """Prints each SW kernel's launches and summed ms (ms_by: event_ms's)
+    beside its bound from the cells pair_routes counted on its route, and
+    the run's launches and plain calls (rec's); raises unless the run went
+    through `need` and each kernel exactly where the routing sent pairs,
+    with no plain version called."""
+    for k, (n, ms) in ms_by.items():
         route, pas = KERNEL_ROUTES.get(k, (None, None))
         cells = routes.get(route, {}).get(pas, [0, 0])[1]
         ops = NOCAP_SW_OPS if k in NOCAP_KERNELS else SW_OPS
@@ -2853,10 +3537,7 @@ def report_search_run(run, r, need=PAIR_KERNELS):
               f"{bound_ms / max(ms, 1e-9):.1%} of it)", flush=True)
     print(f"{run}: launches {rec['launches']} plain {rec['plain']}",
           flush=True)
-    # `need` in every run, the uncapped instances in the realign run, and
-    # each kernel exactly where the routing sent pairs
-    need = list(need) + (list(NOCAP_KERNELS)
-                         if run == "align_realign" else [])
+    need = list(need)
     for k, (route, pas) in KERNEL_ROUTES.items():
         routed = routes.get(route, {}).get(pas, [0, 0])[0] > 0
         if routed:
@@ -3549,6 +4230,8 @@ def main():
         return 2
     if sys.argv[1:2] == ["--iter-slice"]:
         return iter_child(pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--serve"]:
+        return serve_child(*sys.argv[2:7])
     # every process a phase starts (phase 5g's) is stopped at exit
     with contextlib.ExitStack() as stack:
         return run_phases(stack)
@@ -3877,6 +4560,21 @@ def run_phases(stack):
                 any(pcr["launches"][k] for k in PROF_KERNELS):
             raise AssertionError("pickconsensusrep did not go through the "
                                  "uncapped PSSM instances alone")
+
+        phase("4i the multihit family, the DB utilities and the resident "
+              "server on the fixtures against the MMseqs2 goldens")
+        t0 = time.perf_counter()
+        _, mh = check_db_cli(cli, "cuda", td / "dbcli", probe=lambda: (
+            probe_run(torch, counters, driver, prefilter, sw_cuda)))
+        print(f"DB utilities and the multihit family: "
+              f"{time.perf_counter() - t0:.2f} s; multihitsearch's launches "
+              f"{mh['launches']}, plain {mh['plain']}", flush=True)
+        if min(mh["launches"][k] for k in PAIR_KERNELS) == 0 or \
+                any(mh["plain"].values()):
+            raise AssertionError("multihitsearch did not go through the pair "
+                                 "kernels")
+        check_server_fixture(cli, "cuda", td / "srv")
+        print(f"phase 4i: {time.perf_counter() - t0:.2f} s", flush=True)
 
         phase("5 k-mer main path: 1.6 Mbp / 3000-target slice")
         golden = json.loads((GOLDEN / "multichip_slice.json").read_text())
@@ -4293,6 +4991,29 @@ def run_phases(stack):
         print("phase 5h walls " + json.dumps(
             {k: round(r["wall"], 3) for k, r in records.items()}))
         print(f"phase 5h: {time.perf_counter() - t0:.2f} s, the script at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+        phase("5i the multihit family at full width: the k-mer slice's 245 "
+              "contigs in 35 sets, multihitdb and multihitsearch at both "
+              "routings")
+        (td / "mh").mkdir()
+        t0 = time.perf_counter()
+        records = check_multihit_slice(
+            np, cli, td / "mh", "cuda", probe=lambda: probe_run(
+                torch, counters, driver, prefilter, sw_cuda))
+        print("phase 5i walls " + json.dumps(
+            {k: round(r["wall"], 3) for k, r in records.items()}))
+        print(f"phase 5i: {time.perf_counter() - t0:.2f} s, the script at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+        phase("5j the resident server at full width: gpuserver on the search "
+              "slice's 3,000 targets, 4,000 queries a request")
+        t0 = time.perf_counter()
+        (td / "sv").mkdir()
+        q, t = mss.search_slice(mss.SEARCH_SLICE, td / "sv")
+        check_server_slice(td / "sv", q, t, "cuda",
+                           want=search_golden["easy_search"]["result"])
+        print(f"phase 5j: {time.perf_counter() - t0:.2f} s, the script at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     phase("6 kernel and plain-version times")

@@ -21,6 +21,12 @@
         | linsearch | easy-linsearch | pickconsensusrep | clusterupdate
         | convertca3m | result2repseq | masksequence | gff2db | maskbygff
         | result2stats | apply | diffseqdbs | result2msa ...
+    metaeuk-tpu-torch multihitdb | multihitsearch | besthitperset
+        | combinepvalperset | mergeresultsbyset | gpuserver | serverclient
+        | filterdb | rescorediagonal | createindex | prefilter | indexdb
+        | kmerindexdb | nrtotaxmapping | filterresult | version
+        | reverseseq .. convert2fasta | swapdb .. touchdb
+        | extractalignedregion .. db2tar ...
 
 The flags and their mapping to Params are those of metaeuk-tpu: _byte_size,
 _add_predict_flags, _params_from_args and _parse_dp_payload are copied from
@@ -44,17 +50,30 @@ cmd_easy_linsearch (:1426), with their parsers. Every command that aligns
 (easy-predict, predictexons, unitesetstofasta, taxtocontig, search, align,
 easy-search, rbh, easy-rbh, lcaalign, taxonomy, easy-taxonomy, alignall,
 enrich, cluster, easy-cluster, easy-linclust, linclust, linsearch,
-easy-linsearch, pickconsensusrep, clusterupdate) takes --device (default
-cuda; cpu runs the kernels' plain versions); the others run on the host
-only. Not ported yet: search's nucleotide branch, mergepredictions
-(multi-process runs), and the rest of metaeuk-tpu's host-only commands
-(ROADMAP section 1, M8-M11).
+easy-linsearch, pickconsensusrep, clusterupdate, multihitsearch, gpuserver)
+takes --device (default cuda; cpu runs the kernels' plain versions); the
+others run on the host only. The multihit family, the resident server and
+the DB utilities over modules the port carries come from its cmd_dbtool,
+cmd_dbtool2 (:436-512), cmd_besthitperset, cmd_combinepvalperset,
+cmd_rescorediagonal (:116-150), cmd_filterdb (:562), cmd_createindex,
+cmd_prefilter (:626-683), cmd_dbtool5 (:1136), cmd_gpuserver,
+cmd_serverclient (:1235-1262), cmd_index_alias (:1338),
+cmd_nrtotaxmapping (:1369), cmd_multihitdb, cmd_multihitsearch,
+cmd_filterresult (:1387-1411), with their parsers; `version` prints the
+port's own line. Not ported yet: search's nucleotide branch,
+mergepredictions (multi-process runs), bench, and the rest of
+metaeuk-tpu's host-only commands (ROADMAP section 1).
 """
 
 import argparse
 import sys
 
 from .params import Params
+
+# `version`'s line: the JAX CLI's (cli.py:1035) with the port's name and
+# back end
+VERSION = ("metaeuk-tpu-torch 1.0 (MetaEuk 7.bba0d80 capabilities, "
+           "PyTorch/CUDA)")
 
 
 def _byte_size(s):
@@ -1073,6 +1092,311 @@ def cmd_dbtool3(args):
     return 0
 
 
+def cmd_dbtool(args):
+    """reverseseq / sortresult / tsv2db / mergedbs / createsubdb."""
+    from .pipeline import dbtools
+    if args.tool == "reverseseq":
+        dbtools.reverseseq(args.args[0], args.args[1])
+    elif args.tool == "sortresult":
+        dbtools.sortresult(args.args[0], args.args[1])
+    elif args.tool == "tsv2db":
+        dbtools.tsv2db(args.args[0], args.args[1],
+                       output_dbtype=args.output_dbtype)
+    elif args.tool == "mergedbs":
+        dbtools.mergedbs(args.args[0], args.args[1], args.args[2:],
+                         prefixes=args.prefixes.split(",")
+                         if args.prefixes else ())
+    elif args.tool == "createsubdb":
+        keys = [int(x) for x in open(args.args[0]).read().split()]
+        dbtools.createsubdb(keys, args.args[1], args.args[2])
+    elif args.tool == "extractframes":
+        dbtools.extractframes(args.args[0], args.args[1],
+                              translate=bool(args.translate))
+    elif args.tool == "splitsequence":
+        dbtools.splitsequence(args.args[0], args.args[1],
+                              max_seq_len=args.max_seq_len,
+                              overlap=args.sequence_overlap)
+    elif args.tool == "convert2fasta":
+        dbtools.convert2fasta(args.args[0], args.args[1])
+    print(f"{args.tool} done")
+    return 0
+
+
+def cmd_dbtool2(args):
+    """Second util batch (pipeline/dbtools2.py)."""
+    from .pipeline import dbtools2 as d2
+    a = args.args
+    t = args.tool
+    if t == "swapdb":
+        d2.swapdb(a[0], a[1])
+    elif t == "swapresults":
+        d2.swapresults(a[0], a[1], a[2], a[3], eval_thr=args.evalue)
+    elif t == "prefixid":
+        d2.prefixid(a[0], a[1], prefix=args.prefix or None,
+                    mapping_db=args.mapping_file or None, tsv=args.tsv)
+    elif t == "suffixid":
+        d2.prefixid(a[0], a[1], prefix=args.prefix or None,
+                    mapping_db=args.mapping_file or None, tsv=args.tsv,
+                    is_prefix=False)
+    elif t == "subtractdbs":
+        d2.subtractdbs(a[0], a[1], a[2],
+                       eval_thr=min(args.evalue, args.e_profile))
+    elif t == "summarizeresult":
+        d2.summarizeresult(a[0], a[1], cov_thr=args.cov,
+                           overlap=args.overlap)
+    elif t == "result2flat":
+        d2.result2flat(a[0], a[1], a[2], a[3],
+                       use_header=args.use_fasta_header)
+    elif t == "createseqfiledb":
+        d2.createseqfiledb(a[0], a[1], a[2], hh_format=args.hh_format)
+    elif t == "splitdb":
+        d2.splitdb(a[0], a[1], args.split, split_aa=args.split_aa)
+    elif t == "orftocontig":
+        d2.orftocontig(a[0], a[1], a[2])
+    elif t == "renamedbkeys":
+        d2.renamedbkeys(a[0], a[1], a[2])
+    elif t == "concatdbs":
+        d2.concatdbs(a[0], a[1], a[2], preserve_keys_b=args.preserve_keys)
+    elif t == "rmdb":
+        d2.rmdb(a[0])
+    elif t == "mvdb":
+        d2.mvdb(a[0], a[1])
+    elif t == "cpdb":
+        d2.cpdb(a[0], a[1])
+    elif t == "lndb":
+        d2.lndb(a[0], a[1])
+    elif t == "touchdb":
+        d2.touchdb(a[0])
+    print(f"{t} done")
+    return 0
+
+
+def cmd_dbtool5(args):
+    from .pipeline import dbtools5 as d5
+    t, a = args.tool, args.args
+    if t == "extractalignedregion":
+        d5.extractalignedregion(a[0], a[1], a[2], a[3],
+                                extract_mode=args.extract_mode)
+    elif t == "summarizeheaders":
+        d5.summarizeheaders(a[0], a[1], a[2], a[3],
+                            header_type=args.header_type,
+                            summary_prefix=args.summary_prefix)
+    elif t == "clusthash":
+        d5.clusthash(a[0], a[1], min_seq_id=args.min_seq_id)
+    elif t == "mergeresultsbyset":
+        d5.mergeresultsbyset(a[0], a[1], a[2])
+    elif t == "makepaddedseqdb":
+        d5.makepaddedseqdb(a[0], a[1])
+    elif t == "unpackdb":
+        d5.unpackdb(a[0], a[1], name_mode=args.unpack_name_mode,
+                    suffix=args.unpack_suffix)
+    elif t == "countkmer":
+        sys.stdout.write(d5.countkmer(a[0], k=args.k))
+    elif t == "recoverlongestorf":
+        d5.recoverlongestorf(a[0], a[1], a[2])
+    elif t == "tar2db":
+        d5.tar2db(a[:-1], a[-1], tar_include=args.tar_include,
+                  tar_exclude=args.tar_exclude,
+                  output_dbtype=args.output_dbtype)
+    elif t == "db2tar":
+        d5.db2tar(a[0], a[1])
+    if t != "countkmer":
+        print(f"{t}: done")
+    return 0
+
+
+def cmd_besthitperset(args):
+    from .pipeline.multihit import besthitperset
+    besthitperset(args.result_db, f"{args.target_db}_member_to_set",
+                  f"{args.target_db}_set_size", args.out_db,
+                  simple_best_hit=bool(args.simple_best_hit))
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_combinepvalperset(args):
+    from .pipeline.multihit import combinepvalperset
+    combinepvalperset(args.result_db, f"{args.query_db}_set_size",
+                      f"{args.target_db}_member_to_set",
+                      f"{args.target_db}_set_size", args.out_db,
+                      alpha=args.alpha, aggregation_mode=args.aggregation_mode)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_multihitdb(args):
+    from .pipeline.multihit_wf import multihitdb
+    multihitdb(args.fasta, args.out_db, args.tmp)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_multihitsearch(args):
+    from .pipeline.multihit_wf import multihitsearch
+    multihitsearch(args.query_db, args.target_db, args.out_db, args.tmp,
+                   sensitivity=args.s, evalue=args.e,
+                   max_seqs=args.max_seqs, device=_device(args.device))
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_filterdb(args):
+    from .pipeline.filterdb import filterdb
+    filterdb(args.in_db, args.out_db, filter_column=args.filter_column,
+             filter_regex=args.filter_regex or None,
+             filter_file=args.filter_file or None,
+             positive_filter=bool(args.positive_filter),
+             mapping_file=args.mapping_file or None,
+             extract_lines=args.extract_lines,
+             comp_operator=args.comparison_operator,
+             comp_value=args.comparison_value,
+             sort_entries=args.sort_entries, beats_first=args.beats_first,
+             join_db=args.join_db or None,
+             column_to_take=args.column_to_take,
+             filter_expression=args.filter_expression or None,
+             trim_to_one_column=args.trim_to_one_column,
+             include_identity=bool(args.include_identity))
+    print("filterdb done")
+    return 0
+
+
+def cmd_rescorediagonal(args):
+    from .pipeline.rescorediagonal import rescorediagonal
+    rescorediagonal(args.query_db, args.target_db, args.result_db,
+                    args.out_db, rescore_mode=args.rescore_mode,
+                    eval_thr=args.e, add_backtrace=bool(args.a))
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_createindex(args):
+    """Build and persist the k-mer target index (createindex artifact)."""
+    import numpy as np
+    from .data.submat import AA2NUM
+    from .io import mmseqsdb
+    from .search.prefilter_kmer import KmerPrefilter
+
+    db = mmseqsdb.read_seqdb(args.target_db)
+    encs = [AA2NUM[np.asarray(db.seq(i), np.uint8)] for i in range(len(db))]
+    pf = KmerPrefilter(encs, sensitivity=args.s,
+                       mask_targets=bool(args.mask))
+    out = args.out if args.out else f"{args.target_db}.kidx"
+    pf.save_index(out)
+    print(f"wrote {out} ({len(encs)} targets)")
+    return 0
+
+
+def cmd_prefilter(args):
+    """k-mer prefilter: query DB vs target DB -> prefilter result DB."""
+    import numpy as np
+    import pathlib
+    from .data.submat import AA2NUM
+    from .io import mmseqsdb
+    from .search.prefilter_kmer import KmerPrefilter, hits_to_pref_lines
+
+    def encs(path):
+        db = mmseqsdb.read_seqdb(path)
+        return [AA2NUM[np.asarray(db.seq(i), np.uint8)]
+                for i in range(len(db))], db
+
+    same = args.query_db == args.target_db
+    idx = pathlib.Path(f"{args.target_db}.kidx")
+    if idx.exists() and args.mask:
+        pf = KmerPrefilter(None, sensitivity=args.s,
+                           max_res_list_len=args.max_seqs,
+                           min_diag_score=args.min_ungapped_score,
+                           comp_bias_correction=bool(args.comp_bias_corr),
+                           index_path=idx)
+        tdb = mmseqsdb.read_seqdb(args.target_db)
+        qencs, qdb = encs(args.query_db) if not same else (
+            [AA2NUM[np.asarray(tdb.seq(i), np.uint8)]
+             for i in range(len(tdb))], tdb)
+    else:
+        tencs, tdb = encs(args.target_db)
+        qencs, qdb = (tencs, tdb) if same else encs(args.query_db)
+        pf = KmerPrefilter(tencs, sensitivity=args.s,
+                           mask_targets=bool(args.mask),
+                           max_res_list_len=args.max_seqs,
+                           min_diag_score=args.min_ungapped_score,
+                           comp_bias_correction=bool(args.comp_bias_corr))
+    entries = []
+    for qi, q in enumerate(qencs):
+        ids, sc, dg = pf.match(q, identity_id=qi if same else None)
+        entries.append((int(qdb.keys[qi]),
+                        hits_to_pref_lines(ids, sc, dg).encode()))
+    mmseqsdb.write_db(args.out_db, entries, mmseqsdb.DBTYPE_PREFILTER_RES)
+    print(f"wrote {args.out_db} ({len(entries)} queries)")
+    return 0
+
+
+def cmd_index_alias(args):
+    """indexdb/kmerindexdb: persist the search indexes under the
+    reference command names (createindex / createlinindex artifacts)."""
+    if args.tool == "indexdb":
+        args.target_db = args.args[0]
+        args.out = args.args[1]
+        args.s = 7.5
+        args.mask = 1
+        return cmd_createindex(args)
+    from .search.linsearch_lin import build_linindex
+    build_linindex(args.args[0], f"{args.args[1]}.linidx.npz")
+    print(f"wrote {args.args[1]}.linidx.npz")
+    return 0
+
+
+def cmd_nrtotaxmapping(args):
+    from .tax.mmtax import nrtotaxmapping
+    nrtotaxmapping(args.acc2taxid, args.seq_db, args.out_file)
+    print(f"wrote {args.out_file}")
+    return 0
+
+
+def cmd_filterresult(args):
+    from .pipeline.result2profile import filterresult_db
+    filterresult_db(args.query_db, args.target_db, args.aln_db,
+                    args.out_db, include_identity=args.include_identity,
+                    cov_msa_thr=args.cov, qid=args.qid, qsc=args.qsc,
+                    filter_max_seq_id=args.max_seq_id, ndiff=args.diff,
+                    filter_min_enable=args.filter_min_enable)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_gpuserver(args):
+    """Resident search server (the reference gpuserver role)."""
+    from .server import run_server
+    sock = args.socket or f"{args.target_db}.tpuserver.sock"
+    print(f"serving {args.target_db} on {sock}", flush=True)
+    run_server(args.target_db, sock, sensitivity=args.s,
+               max_seqs=args.max_seqs,
+               mask_targets=bool(args.mask),
+               comp_bias_correction=bool(args.comp_bias_corr),
+               warmup=bool(args.warmup), device=_device(args.device))
+    return 0
+
+
+def cmd_serverclient(args):
+    from .server import client_request
+    req = dict(op=args.op, query_db=args.query_db, out_db=args.out_db)
+    if args.tmp:
+        req["tmp"] = args.tmp
+    if args.op == "search":
+        req.update(evalue=args.e, add_backtrace=bool(args.a),
+                   min_seq_id=args.min_seq_id, cov=args.c,
+                   cov_mode=args.cov_mode)
+    resp = client_request(args.socket, req)
+    if not resp.get("ok"):
+        print(f"server error: {resp.get('error')}")
+        return 1
+    print(f"wrote {args.out_db}" if args.op != "shutdown" else "stopped")
+    return 0
+
+
+def cmd_version(args):
+    print(VERSION)
+    return 0
+
+
 def _add_device_flag(p):
     p.add_argument("--device", default="cuda",
                    help="torch device for the alignment (default cuda; "
@@ -1672,6 +1996,229 @@ def _add_cluster_commands(sub):
     el2.set_defaults(fn=cmd_easy_linsearch)
 
 
+def _add_db_commands(sub):
+    """The parsers of the host-only DB utilities over modules the port
+    carries, and of the multihit family (metaeuk_tpu/cli.py:1644-1675,
+    :1691-1709, :1722-1738, :1747-1755, :1776-1792, :2018-2044, :2235-2240,
+    :2265-2273, :2290-2324, :2418); multihitsearch with --device."""
+    for tool in ("reverseseq", "sortresult", "tsv2db", "mergedbs",
+                 "createsubdb", "extractframes", "splitsequence",
+                 "convert2fasta"):
+        dt = sub.add_parser(tool, help=f"{tool} DB utility")
+        dt.add_argument("args", nargs="+")
+        dt.add_argument("--output-dbtype", type=int, default=12)
+        dt.add_argument("--prefixes", type=str, default="")
+        dt.add_argument("--translate", type=int, default=0)
+        dt.add_argument("--max-seq-len", type=int, default=10000)
+        dt.add_argument("--sequence-overlap", type=int, default=300)
+        dt.set_defaults(fn=cmd_dbtool, tool=tool)
+
+    for tool in ("swapdb", "swapresults", "prefixid", "suffixid",
+                 "subtractdbs", "summarizeresult", "result2flat",
+                 "createseqfiledb", "splitdb", "orftocontig",
+                 "renamedbkeys", "concatdbs", "rmdb", "mvdb", "cpdb",
+                 "lndb", "touchdb"):
+        dt = sub.add_parser(tool, help=f"{tool} DB utility")
+        dt.add_argument("args", nargs="+")
+        dt.add_argument("-e", "--evalue", type=float, default=0.001)
+        dt.add_argument("--e-profile", type=float, default=0.1)
+        dt.add_argument("--prefix", type=str, default="")
+        dt.add_argument("--mapping-file", type=str, default="")
+        dt.add_argument("--tsv", action="store_true")
+        dt.add_argument("-c", "--cov", type=float, default=0.0)
+        dt.add_argument("--overlap", type=float, default=0.0)
+        dt.add_argument("--use-fasta-header", action="store_true")
+        dt.add_argument("--hh-format", action="store_true")
+        dt.add_argument("--split", type=int, default=2)
+        dt.add_argument("--split-aa", action="store_true")
+        dt.add_argument("--preserve-keys", action="store_true")
+        dt.set_defaults(fn=cmd_dbtool2, tool=tool)
+
+    fd = sub.add_parser("filterdb", help="filter result-DB lines")
+    fd.add_argument("in_db")
+    fd.add_argument("out_db")
+    fd.add_argument("--filter-column", type=int, default=1)
+    fd.add_argument("--filter-regex", type=str, default="")
+    fd.add_argument("--filter-file", type=str, default="")
+    fd.add_argument("--positive-filter", type=int, default=1)
+    fd.add_argument("--mapping-file", type=str, default="")
+    fd.add_argument("--extract-lines", type=int, default=0)
+    fd.add_argument("--comparison-operator", type=str, default="")
+    fd.add_argument("--comparison-value", type=float, default=0.0)
+    fd.add_argument("--sort-entries", type=int, default=0)
+    fd.add_argument("--beats-first", action="store_true")
+    fd.add_argument("--join-db", type=str, default="")
+    fd.add_argument("--column-to-take", type=int, default=-1)
+    fd.add_argument("--filter-expression", type=str, default="")
+    fd.add_argument("--trim-to-one-column", action="store_true")
+    fd.add_argument("--include-identity", type=int, default=0)
+    fd.set_defaults(fn=cmd_filterdb)
+
+    bh = sub.add_parser("besthitperset", help="best hit per target set")
+    bh.add_argument("query_db")
+    bh.add_argument("target_db")
+    bh.add_argument("result_db")
+    bh.add_argument("out_db")
+    bh.add_argument("--simple-best-hit", type=int, default=1)
+    bh.set_defaults(fn=cmd_besthitperset)
+
+    cp = sub.add_parser("combinepvalperset",
+                        help="combined p-value per target set")
+    cp.add_argument("query_db")
+    cp.add_argument("target_db")
+    cp.add_argument("result_db")
+    cp.add_argument("out_db")
+    cp.add_argument("--alpha", type=float, default=1.0)
+    cp.add_argument("--aggregation-mode", type=int, default=0)
+    cp.set_defaults(fn=cmd_combinepvalperset)
+
+    rd = sub.add_parser("rescorediagonal", help="ungapped diagonal rescore")
+    rd.add_argument("query_db")
+    rd.add_argument("target_db")
+    rd.add_argument("result_db")
+    rd.add_argument("out_db")
+    rd.add_argument("--rescore-mode", type=int, default=0)
+    rd.add_argument("-e", type=float, default=1e-3)
+    rd.add_argument("-a", type=int, default=0)
+    rd.set_defaults(fn=cmd_rescorediagonal)
+
+    ci = sub.add_parser("createindex", help="persist the k-mer target index")
+    ci.add_argument("target_db")
+    ci.add_argument("--out", default="")
+    ci.add_argument("-s", type=float, default=4.0)
+    ci.add_argument("--mask", type=int, default=1)
+    ci.set_defaults(fn=cmd_createindex)
+
+    pr = sub.add_parser("prefilter", help="k-mer prefilter -> result DB")
+    pr.add_argument("query_db")
+    pr.add_argument("target_db")
+    pr.add_argument("out_db")
+    pr.add_argument("-s", type=float, default=4.0)
+    pr.add_argument("--mask", type=int, default=1)
+    pr.add_argument("--max-seqs", type=int, default=300)
+    pr.add_argument("--min-ungapped-score", type=int, default=15)
+    pr.add_argument("--comp-bias-corr", type=int, default=1)
+    pr.set_defaults(fn=cmd_prefilter)
+
+    d5_tools = {
+        "extractalignedregion": 4, "summarizeheaders": 4, "clusthash": 2,
+        "mergeresultsbyset": 3, "makepaddedseqdb": 2, "unpackdb": 2,
+        "countkmer": 1, "recoverlongestorf": 3, "tar2db": 2, "db2tar": 2,
+    }
+    for tool, nargs in d5_tools.items():
+        dp5 = sub.add_parser(tool, help=f"{tool} DB utility")
+        dp5.add_argument("args", nargs="+" if tool == "tar2db" else nargs)
+        if tool == "extractalignedregion":
+            dp5.add_argument("--extract-mode", type=int, default=2)
+        elif tool == "summarizeheaders":
+            dp5.add_argument("--header-type", type=int, default=1)
+            dp5.add_argument("--summary-prefix", type=str, default="cl")
+        elif tool == "clusthash":
+            dp5.add_argument("--min-seq-id", type=float, default=0.99)
+        elif tool == "unpackdb":
+            dp5.add_argument("--unpack-name-mode", type=int, default=1)
+            dp5.add_argument("--unpack-suffix", type=str, default="")
+        elif tool == "countkmer":
+            dp5.add_argument("-k", type=int, default=5)
+        elif tool == "tar2db":
+            dp5.add_argument("--tar-include", type=str, default=".*")
+            dp5.add_argument("--tar-exclude", type=str, default="^$")
+            dp5.add_argument("--output-dbtype", type=int, default=12)
+        dp5.add_argument("--threads", type=int, default=1)
+        dp5.add_argument("-v", type=int, default=3)
+        dp5.set_defaults(fn=cmd_dbtool5, tool=tool)
+
+    for tool in ("indexdb", "kmerindexdb"):
+        ia = sub.add_parser(tool, help=f"{tool}: persist the search index")
+        ia.add_argument("args", nargs=2)
+        ia.add_argument("--threads", type=int, default=1)
+        ia.add_argument("-v", type=int, default=3)
+        ia.set_defaults(fn=cmd_index_alias, tool=tool)
+
+    ntm = sub.add_parser("nrtotaxmapping", help="taxid mapping from NR "
+                         "headers + accession2taxid files")
+    ntm.add_argument("acc2taxid", nargs="+")
+    ntm.add_argument("seq_db")
+    ntm.add_argument("out_file")
+    ntm.add_argument("--threads", type=int, default=1)
+    ntm.add_argument("-v", type=int, default=3)
+    ntm.set_defaults(fn=cmd_nrtotaxmapping)
+
+    mhd = sub.add_parser("multihitdb", help="set FASTAs -> multihit DB")
+    mhd.add_argument("fasta", nargs="+")
+    mhd.add_argument("out_db")
+    mhd.add_argument("tmp")
+    mhd.add_argument("--threads", type=int, default=1)
+    mhd.add_argument("-v", type=int, default=3)
+    mhd.set_defaults(fn=cmd_multihitdb)
+
+    mhs = sub.add_parser("multihitsearch",
+                         help="multihit query vs multihit target")
+    mhs.add_argument("query_db")
+    mhs.add_argument("target_db")
+    mhs.add_argument("out_db")
+    mhs.add_argument("tmp")
+    mhs.add_argument("-s", type=float, default=5.7)
+    mhs.add_argument("-e", type=float, default=1e-3)
+    mhs.add_argument("--max-seqs", type=int, default=300)
+    mhs.add_argument("--threads", type=int, default=1)
+    mhs.add_argument("-v", type=int, default=3)
+    _add_device_flag(mhs)
+    mhs.set_defaults(fn=cmd_multihitsearch)
+
+    fr = sub.add_parser("filterresult", help="MsaFilter over a result DB")
+    fr.add_argument("query_db")
+    fr.add_argument("target_db")
+    fr.add_argument("aln_db")
+    fr.add_argument("out_db")
+    fr.add_argument("--include-identity", action="store_true")
+    fr.add_argument("--cov", type=float, default=0.0)
+    fr.add_argument("--qid", type=str, default="0.0")
+    fr.add_argument("--qsc", type=float, default=-20.0)
+    fr.add_argument("--max-seq-id", type=float, default=0.9)
+    fr.add_argument("--diff", type=int, default=1000)
+    fr.add_argument("--filter-min-enable", type=int, default=0)
+    fr.set_defaults(fn=cmd_filterresult)
+
+    vs = sub.add_parser("version", help="print version")
+    vs.set_defaults(fn=cmd_version)
+
+
+def _add_server_commands(sub):
+    """The parsers of gpuserver (with --device) and serverclient
+    (metaeuk_tpu/cli.py:2115-2143)."""
+    gs = sub.add_parser("gpuserver", help="resident search server "
+                        "(keeps the target index and the built kernels "
+                        "warm across searches)")
+    gs.add_argument("target_db")
+    gs.add_argument("--socket", type=str, default="")
+    gs.add_argument("-s", type=float, default=5.7)
+    gs.add_argument("--max-seqs", type=int, default=300)
+    gs.add_argument("--mask", type=int, default=1)
+    gs.add_argument("--comp-bias-corr", type=int, default=1)
+    gs.add_argument("--warmup", type=int, default=1)
+    gs.add_argument("--threads", type=int, default=1)
+    gs.add_argument("-v", type=int, default=3)
+    _add_device_flag(gs)
+    gs.set_defaults(fn=cmd_gpuserver)
+
+    sc = sub.add_parser("serverclient", help="send a request to a "
+                        "running gpuserver")
+    sc.add_argument("socket")
+    sc.add_argument("op", choices=["search", "prefilter", "shutdown",
+                                   "ping"])
+    sc.add_argument("query_db", nargs="?", default="")
+    sc.add_argument("out_db", nargs="?", default="")
+    sc.add_argument("tmp", nargs="?", default="")
+    sc.add_argument("-e", type=float, default=0.001)
+    sc.add_argument("-a", type=int, default=0)
+    sc.add_argument("--min-seq-id", type=float, default=0.0)
+    sc.add_argument("-c", type=float, default=0.0)
+    sc.add_argument("--cov-mode", type=int, default=0)
+    sc.add_argument("-v", type=int, default=3)
+    sc.set_defaults(fn=cmd_serverclient)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="metaeuk-tpu-torch",
@@ -1693,6 +2240,8 @@ def main(argv=None):
     _add_tax_commands(sub)
     _add_profile_commands(sub)
     _add_cluster_commands(sub)
+    _add_db_commands(sub)
+    _add_server_commands(sub)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -44,7 +44,8 @@ COPIES = ["params.py", "utils/log.py", "utils/session.py", "io/fasta.py",
           "pipeline/profile2pssm.py", "pipeline/convertprofiledb.py",
           "pipeline/expand.py", "pipeline/clust.py", "pipeline/dbtools3.py",
           "pipeline/result2msa.py", "pipeline/ca3m.py", "data/nucl.py",
-          "ops/sw.py", "search/linclust.py"]
+          "ops/sw.py", "search/linclust.py", "pipeline/dbtools5.py",
+          "pipeline/multihit.py"]
 # data files the port carries byte for byte
 DATA_COPIES = ["data/resources/CovSeqidQscPercMinDiag.lib",
                "data/resources/CovSeqidQscPercMinDiagTargetCov.lib",

@@ -240,6 +240,54 @@ assert not loaded, loaded
 print("jax-free run ok")
 """
 
+# the multihit family, the DB utilities and the resident server: every new
+# module imports; multihitdb and multihitsearch through the port's CLI on
+# tests/golden/util7 give its goldens; the server answers a ping and a search;
+# chip_smoke.py's phase 5i imports the multihit slice's writer,
+# tests/golden/make_multihit_slice.py (whose golden writer alone imports jax)
+_BLOCKED_MULTIHIT = _BLOCK + r"""
+import importlib
+import os
+import threading
+import time
+for m in ("pipeline.dbtools5", "pipeline.multihit", "pipeline.multihit_wf",
+          "server"):
+    importlib.import_module(f"metaeuk_tpu_torch.{m}")
+sys.path.insert(0, "tests/golden")
+import make_multihit_slice as mms
+from metaeuk_tpu_torch.cli import main
+from metaeuk_tpu_torch.server import TpuSearchServer, client_request
+
+data, golden, out, mode = sys.argv[1:5]
+u7 = f"{golden}/util7"
+assert main(["multihitdb", f"{u7}/set0.fna", f"{u7}/set1.fna", out + "_mh",
+             out + "_mhtmp"]) == 0
+assert main(["multihitsearch", out + "_mh", out + "_mh", out + "_mhres",
+             out + "_mhstmp", "--device", "cpu"]) == 0
+for mine, ref in (("_mh_set_to_member", "mhdb_set_to_member"),
+                  ("_mhres", "mhres"), ("_mhstmp/aggregate", "mh_aggregate")):
+    for s in ("", ".index", ".dbtype"):
+        with open(out + mine + s, "rb") as a, \
+                open(f"{u7}/{ref}{s}", "rb") as b:
+            assert a.read() == b.read(), mine + s
+sock = out + ".sock"
+srv = TpuSearchServer(out + "_mh", sock, device="cpu")
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+while not os.path.exists(sock):
+    time.sleep(0.05)
+assert client_request(sock, {"op": "ping"})["ok"]
+assert client_request(sock, {"op": "search", "query_db": out + "_mh",
+                             "out_db": out + "_srv"})["ok"]
+assert client_request(sock, {"op": "shutdown"})["ok"]
+paths = mms.multihit_slice(mms.MULTIHIT_SLICE,
+                           os.path.dirname(out), 1)
+assert len(paths) == 1 and paths[0].name == "set00.fna"
+loaded = [k for k in sys.modules if sys.modules[k] is not None and (
+    k.split(".")[0].startswith("jax") or k.split(".")[0] == "metaeuk_tpu")]
+assert not loaded, loaded
+print("jax-free run ok")
+"""
+
 # the port's microbenchmarks: both entry points on the CPU, jax blocked
 _BLOCKED_TOOLS = _BLOCK + r"""
 import metaeuk_tpu_torch.ops.kbench_cuda
@@ -373,3 +421,12 @@ def test_cluster_family_runs_with_jax_blocked(tmp_path):
     give the goldens, and the cluster slice's writer that chip_smoke.py
     imports writes the slice, with jax and metaeuk_tpu blocked."""
     _blocked_run(tmp_path, "kmer", _BLOCKED_CLUSTER)
+
+
+def test_multihit_family_and_server_run_with_jax_blocked(tmp_path):
+    """Every module of the multihit family and the server imports;
+    multihitdb and multihitsearch through the port's CLI give util7's
+    goldens, the server answers ping and search, and the multihit slice's
+    writer that chip_smoke.py imports writes a set file, with jax and
+    metaeuk_tpu blocked."""
+    _blocked_run(tmp_path, "kmer", _BLOCKED_MULTIHIT)
