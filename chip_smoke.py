@@ -140,6 +140,16 @@ Phases, each fatal on failure:
      byte-equal to the direct prefilter_db and search_db, an unknown op
      refused, shutdown with exit 0 and the socket gone; K1/K2 launched in
      multihitsearch, no plain version called
+  4j. the M11b commands on the fixtures through the CLI: every case of
+     UTIL_CLI_CASES (the dbtools4 commands on tests/golden/util4 and utils,
+     the dbtools7 and dbtools8 commands on util9 and util10, pairaln's
+     pairing modes and fwbw on util11, alignbykmer, ungappedprefilter and
+     gappedprefilter on the util5 fixture, databases --tsv 1 and its
+     --local-file chains (dbcatalog, databases), offsetalignment in both
+     search types and proteinaln2nucl on utils, and search --search-type 3
+     on tests/data's contigs against utils/nucl_search_out), each output
+     byte-identical to its MMseqs2 golden where one exists; no plain version
+     called
   5. the k-mer main path at a real size: easy-predict on the 1.6 Mbp /
      3000-target synthetic metagenome of tests/golden/multichip_slice.json;
      the four sha256 digests equal the file's, the pair kernels launched and
@@ -261,6 +271,22 @@ Phases, each fatal on failure:
      each request's seconds, the first search's K1-K4 launches and summed
      ms beside their bounds, no plain version called; shutdown, exit 0, the
      socket gone
+  5k. the runtime Gumbel fit at full size, in a process of its own started
+     after the build and joined after phase 5j: the four scoring systems of
+     tests/golden/gumbel_slice.json (BLOSUM62 at 8/2, VTML80 at 10/1, the
+     +2/-3 nucleotide matrix at 4/2 through proteinaln2nucl on the
+     offsetaln fixture, VTML80's ungapped fit at 32000/0), each fit at
+     fit_gapped's defaults (262,144 pairs of 384 letters, 64 chunks; islands
+     over 4,096 pairs of 1,024) with a fresh cache: the sha256 of
+     _simulate's arrays, the island count and proteinaln2nucl's output
+     equal the golden (the JAX package's) bit for bit, the 12 parameters
+     within GUMBEL_PARAM_RTOL (numpy's float sums differ across hosts in
+     their last bits) with their distance in ulps printed; K1/K2's
+     uncapped instances launched and no plain version called; the first
+     GUMBEL_PLAIN_CHUNKS chunks of each fit equal to the plain versions on
+     the card (torch.equal); each fit's seconds split into sampling,
+     _simulate's alignment, islands and regression, its cells, and K1/K2's
+     launches and summed ms (CUDA events) beside their bounds
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
@@ -296,6 +322,7 @@ import hashlib
 import json
 import os
 import pathlib
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1831,6 +1858,156 @@ DB_CLI_CASES = {
 }
 
 
+# phase 4j: the cases of the 24 commands of dbtools4, dbtools7, dbtools8,
+# pairaln, alignbykmer, fwbw, the exhaustive prefilters, databases,
+# offsetalignment and proteinaln2nucl, and of search's nucleotide branch, in
+# DB_CLI_CASES's form (util_cli_fixture's directory as {fx}). A golden may
+# also be the expected bytes themselves; "text_varies" marks a command whose
+# printed text depends on the machine (diskspaceavail prints the free bytes:
+# a number is required, the JAX CLI's text is not compared).
+SELFRES_DBTYPE_EXT = struct.pack("<I", 5 | (2 << 16))
+PAIRALN = {"paired": [], "paired_dummy": ["--pairing-dummy-mode", "1"],
+           "paired_cover": ["--pairing-mode", "1"],
+           "paired_prox": ["--pairing-filter", "1"],
+           "paired_prox_dummy": ["--pairing-filter", "1",
+                                 "--pairing-dummy-mode", "1"]}
+PAIRALN_INPUTS = [("{G}/util11/aln", "aln"), ("{G}/util11/alnnb", "alnnb"),
+                  ("{G}/util11/tdb_h", "tdb_h"),
+                  ("{G}/util11/qdb.lookup", "qdb.lookup"),
+                  ("{G}/util11/tdb_mapping", "tdb_mapping")]
+KB_COLUMNS = ("ID", "AC", "OS", "OX", "PE", "SEQ")
+UTIL_CLI_CASES = {
+    "translateaa": dict(argv=["translateaa", "{fx}/tdb", "{out}/nucl"],
+                        goldens=_goldens("nucl", "util4/aa2nucl")),
+    "dbtype": dict(argv=["dbtype", "{fx}/tdb"],
+                   goldens=[("stdout", b"Aminoacid\n")]),
+    "dbtype (alignment)": dict(argv=["dbtype", RES],
+                               goldens=[("stdout", b"Alignment\n")]),
+    "setextendeddbtype": dict(
+        copy=[(RES, "x")],
+        argv=["setextendeddbtype", "{out}/x", "--extended-dbtype", "2"],
+        goldens=[("x.dbtype", SELFRES_DBTYPE_EXT)]),
+    "view": dict(argv=["view", "{fx}/tdb", "--id-list", "1,3"], goldens=[]),
+    "aliasdb": dict(copy=[("{fx}/tdb", "db")],
+                    argv=["aliasdb", "{out}/db", "{out}/alias"], goldens=[]),
+    "compress": dict(argv=["compress", RES, "{out}/c"],
+                     goldens=_goldens("c", "util4/res_c",
+                                      (".index", ".dbtype"))),
+    "decompress": dict(argv=["decompress", "{G}/util4/res_c", "{out}/d"],
+                       goldens=_goldens("d", "utils/selfres")),
+    "diskspaceavail": dict(argv=["diskspaceavail", "{out}"], goldens=[],
+                           text_varies=True),
+    "tsv2exprofiledb": dict(
+        copy=[(f"{{G}}/util9/{f}", f) for f in (
+            "ex.tsv", "ex_h.tsv", "ex_seq.tsv", "ex_aln.tsv")],
+        argv=["tsv2exprofiledb", "{out}/ex", "{out}/exdb"],
+        goldens=[(f"{f}.dbtype", f"util9/{f}.dbtype")
+                 for f in ("exdb", "exdb_seq", "exdb_aln")]
+        + _goldens("exdb_seq_h", "util9/exdb_seq_h")),
+    "createclusearchdb": dict(
+        copy=[("{G}/util9/clu", "clu")],
+        argv=["createclusearchdb", "{fx}/alldb", "{out}/clu",
+              "{out}/cludb"],
+        goldens=_goldens("cludb", "util9/cludb")
+        + _goldens("cludb_clu", "util9/cludb_clu")
+        + [(f, f"util9/{f}") for f in (
+            "cludb_seq.1", "cludb_seq.index", "cludb_seq.dbtype",
+            "cludb_seq_h.1", "cludb_seq_h.index")]),
+    "transitivealign": dict(
+        copy=[("{G}/util9/selfaln_all", "selfaln_all")],
+        argv=["transitivealign", "{fx}/alldb", "{out}/selfaln_all",
+              "{out}/transaln"],
+        goldens=_goldens("transaln", "util9/transaln")),
+    "msa2result": dict(
+        pre=[["convertmsa", "{G}/util6/test.sto", "{out}/msadb"]],
+        argv=["msa2result", "{out}/msadb", "{out}/m2r_seq",
+              "{out}/m2r_prof"],
+        goldens=_goldens("m2r_seq", "util9/m2r_seq", (
+            *DB_SUFFIXES, "_h", "_h.index", "_h.dbtype"))
+        + _goldens("m2r_prof", "util9/m2r_prof")),
+    "convertkb": dict(
+        argv=["convertkb", "{G}/util10/test.dat", "{out}/kb",
+              "--kb-columns", ",".join(KB_COLUMNS)],
+        goldens=[g for c in KB_COLUMNS
+                 for g in _goldens(f"kb_{c}", f"util10/kb_{c}")]
+        + [("kb.lookup", "util10/kb.lookup")]),
+    "extractdomains": dict(
+        copy=[("{G}/util6/m8db", "m8db")],
+        pre=[["summarizetabs", "{out}/m8db", "{G}/util6/lengths.tsv",
+              "{out}/sumtabs"]],
+        argv=["extractdomains", "{out}/sumtabs", "{G}/util10/msa",
+              "{out}/domains"],
+        goldens=_goldens("domains", "util10/domains")),
+    "calculatelambda": dict(
+        argv=["calculatelambda", "{fx}/vtml80_body.out"],
+        goldens=[("stdout", "util9/lambda_vtml80.txt")]),
+    "appenddbtoindex": dict(
+        argv=["appenddbtoindex", "{fx}/extra", "{out}/idx", "--id-list",
+              "5"], goldens=[]),
+    **{f"pairaln {name}": dict(
+        copy=PAIRALN_INPUTS,
+        argv=["pairaln", "{out}/qdb", "{out}/tdb", "{out}/aln",
+              f"{{out}}/{name}", *flags],
+        goldens=_goldens(name, f"util11/{name}"))
+       for name, flags in PAIRALN.items()},
+    "pairaln (no backtrace)": dict(
+        copy=PAIRALN_INPUTS,
+        argv=["pairaln", "{out}/qdb", "{out}/tdb", "{out}/alnnb",
+              "{out}/paired_nb"],
+        goldens=_goldens("paired_nb", "util11/paired_nb")),
+    "fwbw": dict(copy=[("{G}/util11/aln", "aln")],
+                 argv=["fwbw", "{fx}/fwqdb", "{fx}/tdb", "{out}/aln",
+                       "{out}/fwbwout"],
+                 goldens=_goldens("fwbwout", "util11/fwbwout")),
+    "alignbykmer": dict(argv=["alignbykmer", "{fx}/qdb", "{fx}/tdb",
+                              "{fx}/pref", "{out}/abk"],
+                        goldens=_goldens("abk", "util10/abk")),
+    "ungappedprefilter": dict(
+        argv=["ungappedprefilter", "{fx}/qdb", "{fx}/tdb", "{out}/upref"],
+        goldens=_goldens("upref", "util5/upref")),
+    "gappedprefilter": dict(
+        argv=["gappedprefilter", "{fx}/qdb", "{fx}/tdb", "{out}/gpref"],
+        goldens=_goldens("gpref", "util5/gpref")),
+    "databases --tsv 1": dict(argv=["databases", "--tsv", "1"],
+                              goldens=[("stdout", "databases.tsv")]),
+    "databases PDB --local-file": dict(
+        argv=["databases", "PDB", "{out}/db", "{out}/tmp", "--local-file",
+              "{fx}/proteins.faa"], goldens=[]),
+    "databases Pfam-A.seed --local-file": dict(
+        argv=["databases", "Pfam-A.seed", "{out}/prof", "{out}/t",
+              "--local-file", "{G}/dbcatalog/mini.msa.gz"],
+        goldens=_goldens("prof", "dbcatalog/refprof")),
+    "databases PDB70 --local-file": dict(
+        argv=["databases", "PDB70", "{out}/prof", "{out}/t",
+              "--local-file", "{fx}/pdb70_fixture.tar.gz"],
+        goldens=_goldens("prof", "databases/pdb70_prof")),
+    "databases CDD --local-file": dict(
+        argv=["databases", "CDD", "{out}/prof", "{out}/t", "--local-file",
+              "{fx}/cdd_fixture.tar.gz"],
+        goldens=_goldens("prof", "databases/cdd_prof")
+        + [("t/msa.lookup", "databases/cdd_msa.lookup")]),
+    "offsetalignment": dict(
+        argv=["offsetalignment", "{fx}/cdb", "{G}/utils/orfs", "{fx}/tdb",
+              "{fx}/tdb", "{G}/utils/orfaa_aln", "{out}/o"],
+        goldens=_goldens("o", "utils/offaln")),
+    "offsetalignment --search-type 3": dict(
+        argv=["offsetalignment", "{fx}/cdb", "{G}/utils/nucl_qs",
+              "{fx}/cdb", "{G}/utils/nucl_ts", "{G}/utils/nucl_aln",
+              "{out}/o", "--search-type", "3"],
+        goldens=_goldens("o", "utils/nucl_offaln")),
+    "proteinaln2nucl": dict(
+        pre=[["translatenucs", "{G}/utils/orfs", "{out}/orfsaa"]],
+        argv=["proteinaln2nucl", "{G}/utils/orfs", "{G}/utils/orfs",
+              "{out}/orfsaa", "{out}/orfsaa", "{G}/utils/orfself_aln",
+              "{out}/o"],
+        goldens=_goldens("o", "utils/p2n")),
+    "search --search-type 3": dict(
+        argv=["search", "{fx}/cdb", "{fx}/cdb", "{out}/o", "{out}/tmp",
+              "--search-type", "3", "--max-seq-len", "700", "-a"],
+        device=True, goldens=_goldens("o", "utils/nucl_search_out")),
+}
+
+
 def db_cli_fixture(cli, device, fx):
     """The inputs of DB_CLI_CASES under fx, made by the port on `device`:
     createdb of tests/data's queries_lin.faa (qdb), proteins.faa (tdb),
@@ -1862,10 +2039,36 @@ def db_cli_fixture(cli, device, fx):
     return fx
 
 
+def util_cli_fixture(cli, device, fx):
+    """The inputs of UTIL_CLI_CASES under fx: db_cli_fixture's, and the
+    JAX tests' own: queries_lin.faa's first 10 proteins and the rest as two
+    source files of one DB (fwqdb, tests/test_util11.py's fwbw query), a
+    one-entry DB (extra), the comment-stripped VTML80 body of
+    util9/lambda_vtml80.txt (tests/test_util10.py) and tests/data's
+    proteins.faa and two databases archives."""
+    import shutil
+    from metaeuk_tpu_torch.io import mmseqsdb
+    data = ROOT / "tests" / "data"
+    db_cli_fixture(cli, device, fx)
+    qlin = (data / "queries_lin.faa").read_bytes().split(b"\n")
+    (fx / "q1.faa").write_bytes(b"\n".join(qlin[:20]) + b"\n")
+    (fx / "q2.faa").write_bytes(b"\n".join(qlin[20:]))
+    run_cli(cli, ["createdb", fx / "q1.faa", fx / "q2.faa", fx / "fwqdb"])
+    mmseqsdb.write_db(str(fx / "extra"), [(0, b"payload\n")],
+                      mmseqsdb.DBTYPE_GENERIC)
+    golden = (GOLDEN / "util9" / "lambda_vtml80.txt").read_text()
+    (fx / "vtml80_body.out").write_text("\n".join(
+        ln for ln in golden.splitlines() if not ln.startswith("#")) + "\n")
+    for f in ("proteins.faa", "pdb70_fixture.tar.gz", "cdd_fixture.tar.gz"):
+        shutil.copyfile(data / f, fx / f)
+    return fx
+
+
 def run_db_cli_case(main, case, fx, out, device=None):
-    """Runs one case of DB_CLI_CASES through `main` (a CLI's entry point)
-    under out, with --device `device` where the case has it; returns (exit
-    code, printed text)."""
+    """Runs one case of DB_CLI_CASES or UTIL_CLI_CASES through `main` (a
+    CLI's entry point) under out, with --device `device` where the case has
+    it; returns (exit code, printed text; what the command wrote to the
+    binary stdout, as view does, included)."""
     import io
     import shutil
 
@@ -1885,20 +2088,41 @@ def run_db_cli_case(main, case, fx, out, device=None):
     argv = [fmt(a) for a in case["argv"]]
     if case.get("device") and device is not None:
         argv += ["--device", str(device)]
-    with contextlib.redirect_stdout(io.StringIO()) as text:
+    raw = io.BytesIO()
+    text = io.TextIOWrapper(raw, encoding="utf-8", write_through=True)
+    with contextlib.redirect_stdout(text):
         rc = main(argv)
-    return rc, text.getvalue()
+    return rc, raw.getvalue().decode("utf-8")
 
 
-def check_db_cli(cli, device, td, probe=contextlib.nullcontext):
-    """Phase 4i's first part: every case of DB_CLI_CASES through the port's
-    CLI on `device` (multihitsearch's alignment), each output equal to its
-    golden; `version` prints the port's line. probe() brackets the cases
-    that align (multihitsearch). Returns (the outputs compared, what probe
+def check_golden(name, case, text, out):
+    """Compares a case's outputs under out (and its printed text) with its
+    goldens: a path under tests/golden, or the expected bytes; returns how
+    many were compared."""
+    for mine, golden in case["goldens"]:
+        want = golden if isinstance(golden, bytes) else \
+            (GOLDEN / golden).read_bytes()
+        got = text.encode() if mine == "stdout" else \
+            (out / mine).read_bytes()
+        if got != want:
+            raise AssertionError(f"{name}: {mine} differs from its golden")
+    if case.get("text_varies") and not text.strip().isdigit():
+        raise AssertionError(f"{name} printed {text!r}, not a number")
+    return len(case["goldens"])
+
+
+def check_db_cli(cli, device, td, probe=contextlib.nullcontext,
+                 cases=None, fixture=db_cli_fixture):
+    """Phase 4i's first part (and 4j's, with cases=UTIL_CLI_CASES and
+    fixture=util_cli_fixture): every case of DB_CLI_CASES through the
+    port's CLI on `device` (multihitsearch's alignment), each output equal
+    to its golden; `version` prints the port's line. probe() brackets the
+    cases that take --device. Returns (the outputs compared, what probe
     yielded)."""
-    fx = db_cli_fixture(cli, device, td / "fx")
+    cases = DB_CLI_CASES if cases is None else cases
+    fx = fixture(cli, device, td / "fx")
     n, rec = 0, None
-    for name, case in DB_CLI_CASES.items():
+    for name, case in cases.items():
         out = td / name.replace(" ", "_")
         aligns = case.get("device", False)
         with probe() if aligns else contextlib.nullcontext() as got:
@@ -1909,18 +2133,224 @@ def check_db_cli(cli, device, td, probe=contextlib.nullcontext):
             raise AssertionError(f"{name}: exit {rc}")
         if name == "version" and text != cli.VERSION + "\n":
             raise AssertionError(f"version printed {text!r}")
-        for mine, golden in case["goldens"]:
-            if mine == "stdout":
-                if text != (GOLDEN / golden).read_text():
-                    raise AssertionError(f"{name}: its output differs from "
-                                         f"{golden}")
-            else:
-                same_bytes(out / mine, GOLDEN / golden)
-            n += 1
-    commands = {c["argv"][0] for c in DB_CLI_CASES.values()}
-    print(f"{len(DB_CLI_CASES)} cases of {len(commands)} commands on "
+        n += check_golden(name, case, text, out)
+    commands = {c["argv"][0] for c in cases.values()}
+    print(f"{len(cases)} cases of {len(commands)} commands on "
           f"{device}: {n} outputs equal to their goldens", flush=True)
     return n, rec
+
+
+# chunks of _simulate a fit also aligns through the plain versions on the
+# card (sw_torch called directly, outside the wrappers and their counts)
+GUMBEL_PLAIN_CHUNKS = 2
+# The 12 parameters are float64 regressions and island counts over
+# _simulate's integer arrays, in numpy. numpy's float sums are not
+# bit-reproducible across hosts (its build and the CPU's vector units set
+# their order), so on another host a parameter may differ from the
+# golden's in its last bits while the arrays, the islands and the outputs
+# are bit-equal: each parameter is held to the golden's within this
+# relative tolerance, and its distance printed in units in the last place
+# (on the golden's own host tests/test_torch_gumbel.py holds them equal).
+GUMBEL_PARAM_RTOL = 1e-12
+
+
+def gumbel_fit(np, torch, cli, system, kw, device, td, plain_chunks=0):
+    """One runtime Gumbel fit of the port on `device`, by the path
+    tests/golden/make_gumbel_slice.py's golden took: fitted_params for the
+    two gapped protein systems, proteinaln2nucl at 4/2 on
+    tests/test_offsetaln.py's fixture for the nucleotide one,
+    EvalueComputation.for_scoring(..., gapped=False) for the ungapped one;
+    fit_gapped's keywords kw, the fit cache a fresh file under td. The
+    first plain_chunks chunks of _simulate are aligned by the plain versions
+    on the same card too (sw_torch, outside the wrappers and their counts)
+    and compared with torch.equal. Returns the fit's record: the golden's
+    fields (params as repr, simulate_sha256, islands, proteinaln2nucl's
+    digests), seconds (fit, simulate and its sampling and alignment,
+    islands and their sampling), forward and reverse cells, sw_cuda's
+    launches and plain calls over the fit (reset before it), the kernels'
+    CUDA events on a card and the chunks compared with the plain versions."""
+    import make_gumbel_slice as mgs
+    from metaeuk_tpu_torch.data import submat, vtml80
+    from metaeuk_tpu_torch.ops import sw_cuda, sw_torch
+    from metaeuk_tpu_torch.pipeline.offsetaln import proteinaln2nucl
+    from metaeuk_tpu_torch.search import evalue, gumbel
+    scores, pback, go, ge = mgs.scoring_system(system, submat, vtml80)
+    saved = gumbel._FIT_CACHE_PATH, gumbel._mem_cache
+    gumbel._FIT_CACHE_PATH = str(td / f"{system}_gumbel_cache.json")
+    gumbel._mem_cache = {}
+    rec = dict(seconds=dict.fromkeys((
+        "fit", "simulate", "simulate_sampling", "simulate_align", "islands",
+        "islands_sampling"), 0.0), cells={"fwd": 0, "rev": 0},
+        plain_chunks=0)
+    orig = {n: getattr(gumbel, n) for n in (
+        "fit_gapped", "_simulate", "_simulate_islands", "_sample_codes")}
+    align = sw_cuda.sw_align_batch
+    where = ["simulate"]
+
+    def timed(name, key, keep=None):
+        def run(*a, **k):
+            prev, where[0] = where[0], key
+            t0 = time.perf_counter()
+            try:
+                out = orig[name](*a, **(dict(k, **kw) if key == "fit"
+                                         else k))
+            finally:
+                rec["seconds"][key] += time.perf_counter() - t0
+                where[0] = prev
+            if keep:
+                keep(out)
+            return out
+        return run
+
+    def sample(*a, **k):
+        t0 = time.perf_counter()
+        out = orig["_sample_codes"](*a, **k)
+        rec["seconds"][f"{where[0]}_sampling"] += time.perf_counter() - t0
+        return out
+
+    def aligned(q, qb, ql, t, tl, **k):
+        t0 = time.perf_counter()
+        out = align(q, qb, ql, t, tl, **k)
+        rec["seconds"]["simulate_align"] += time.perf_counter() - t0
+        qe, te = (np.maximum(o.astype(np.int64), 0) for o in out[2::2])
+        rec["cells"]["fwd"] += int((ql.astype(np.int64) * tl).sum())
+        rec["cells"]["rev"] += int(((qe + 1) * (te + 1)).sum())
+        if rec["plain_chunks"] < plain_chunks:
+            dev = torch.device(k["device"])
+            put = lambda a, dt: torch.from_numpy(  # noqa: E731
+                np.ascontiguousarray(a)).to(device=dev, dtype=dt)
+            sub = np.ascontiguousarray(k["submat"], np.int32)
+            plain = sw_torch.align_full(
+                put(q, torch.uint8), put(qb, torch.int8),
+                put(ql, torch.int32), put(t, torch.uint8),
+                put(tl, torch.int32), scoring=sw_cuda._batch_scoring(
+                    sub.tobytes(), sub.shape[0], int(k["go"]), int(k["ge"]),
+                    dev), cap=None)
+            if not all(torch.equal(put(o, torch.int32), p)
+                       for o, p in zip(out, plain)):
+                raise AssertionError(f"{system}: chunk {rec['plain_chunks']}"
+                                     " of _simulate differs from the plain "
+                                     "versions")
+            rec["plain_chunks"] += 1
+        return out
+
+    def keep_sim(out):
+        rec["simulate_sha256"] = mgs.simulate_sha256(*out)
+
+    def keep_isl(out):
+        rec["islands"] = int(len(out))
+    gumbel.fit_gapped = timed("fit_gapped", "fit")
+    gumbel._simulate = timed("_simulate", "simulate", keep_sim)
+    gumbel._simulate_islands = timed("_simulate_islands", "islands",
+                                     keep_isl)
+    gumbel._sample_codes = sample
+    sw_cuda.sw_align_batch = aligned
+    sw_cuda.reset_counts()
+    on_card = torch.device(device).type == "cuda"
+    events = contextlib.nullcontext({}) if not on_card else \
+        launch_events(torch, sw_cuda)
+    try:
+        with events as ev:
+            if system == "nucl_4_2":
+                u = GOLDEN / "utils"
+                run_cli(cli, ["translatenucs", u / "orfs", td / "orfsaa"])
+                proteinaln2nucl(str(u / "orfs"), str(u / "orfs"),
+                                str(td / "orfsaa"), str(td / "orfsaa"),
+                                str(u / "orfself_aln"), str(td / "p2n"),
+                                *mgs.P2N_GAPS, device=device)
+                params = next(iter(gumbel._mem_cache.values()))
+                rec["proteinaln2nucl"] = mgs.db_sha256(td / "p2n")
+            elif system == "vtml80_ungapped":
+                params = evalue.EvalueComputation.for_scoring(
+                    1, scores, pback, 10, 1, gapped=False, device=device).p
+            else:
+                params = gumbel.fitted_params(scores, pback, go, ge,
+                                              device=device)
+            if on_card:
+                torch.cuda.synchronize()
+    finally:
+        for n, fn in orig.items():
+            setattr(gumbel, n, fn)
+        sw_cuda.sw_align_batch = align
+        gumbel._FIT_CACHE_PATH, gumbel._mem_cache = saved
+    rec["params"] = {k: repr(params[k]) for k in mgs.PARAM_KEYS}
+    rec["launches"] = dict(sw_cuda.LAUNCHES)
+    rec["plain"] = dict(sw_cuda.PLAIN_CALLS)
+    rec["events"] = ev
+    return rec
+
+
+def report_gumbel_fit(system, rec, kw):
+    """Prints a fit's seconds split into sampling, _simulate's alignment,
+    islands and regression, its cells, and each SW kernel's launches and
+    CUDA-event ms beside its bound (operations)."""
+    sec = rec["seconds"]
+    regression = sec["fit"] - sec["simulate"] - sec["islands"]
+    rest = sec["simulate"] - sec["simulate_sampling"] - sec["simulate_align"]
+    print(f"5k {system} ({kw['n_pairs']} pairs of {kw['length']}): fit "
+          f"{sec['fit']:.3f} s = sampling {sec['simulate_sampling']:.3f} s + "
+          f"_simulate's alignment {sec['simulate_align']:.3f} s (rest of "
+          f"_simulate {rest:.3f} s) + "
+          f"islands {sec['islands']:.3f} s (their sampling "
+          f"{sec['islands_sampling']:.3f} s) + regression and the rest "
+          f"{regression:.3f} s; {rec['islands']} islands; cells "
+          f"{json.dumps(rec['cells'])}", flush=True)
+    for k, (n, ms) in event_ms(rec["events"]).items():
+        cells = rec["cells"]["fwd" if "ends" in k else "rev"]
+        ops = NOCAP_SW_OPS if k.endswith("_nocap") else SW_OPS
+        bound_ms = cells * ops / INT32_OPS_PER_S * 1e3
+        print(f"5k {system}: {k} {n} launches, {ms:.3f} ms of kernel time "
+              f"(CUDA events around each launch), {cells} cells, bound "
+              f"{bound_ms:.3f} ms (operations; {bound_ms / ms:.1%} of it)",
+              flush=True)
+
+
+def check_gumbel_slice(np, torch, cli, td, device, golden, kw,
+                       plain_chunks=0):
+    """Phase 5k: the fit of each system of golden (make_gumbel_slice's
+    entries, {system: entry}) at fit_gapped's keywords kw on `device`, each
+    equal to its entry (_simulate's sha256, the island count and
+    proteinaln2nucl's output bit for bit, the 12 parameters within
+    GUMBEL_PARAM_RTOL); on a card K1/K2
+    launched and no plain version called, and the first plain_chunks
+    chunks equal to the plain versions on the card. Returns {system:
+    record}."""
+    records = {}
+    for system, want in golden.items():
+        rec = records[system] = gumbel_fit(np, torch, cli, system, kw,
+                                           device, td, plain_chunks)
+        report_gumbel_fit(system, rec, kw)
+        for key in ("simulate_sha256", "islands", "proteinaln2nucl"):
+            if rec.get(key) != want.get(key):
+                raise AssertionError(f"5k {system}: {key} {rec.get(key)} "
+                                     f"differs from the golden's "
+                                     f"{want.get(key)}")
+        got, ref = ({k: float(v) for k, v in p.items()}
+                    for p in (rec["params"], want["params"]))
+        ulps = {k: round(abs(got[k] - ref[k]) / np.spacing(abs(ref[k])))
+                for k in ref}
+        print(f"5k {system}: each parameter's distance from the golden's, "
+              f"in ulps: {json.dumps(ulps)}", flush=True)
+        if got.keys() != ref.keys() or any(
+                abs(got[k] - ref[k]) > GUMBEL_PARAM_RTOL * abs(ref[k])
+                for k in ref):
+            raise AssertionError(f"5k {system}: params {rec['params']} "
+                                 f"differ from the golden's {want['params']}")
+        kernels = [k for k in (*PAIR_KERNELS, *NOCAP_KERNELS)
+                   if rec["launches"][k]]
+        if torch.device(device).type == "cuda" and (
+                not kernels or any(rec["plain"].values())
+                or rec["plain_chunks"] != plain_chunks):
+            raise AssertionError(f"5k {system}: launches {rec['launches']}, "
+                                 f"plain calls {rec['plain']}, "
+                                 f"{rec['plain_chunks']} chunks checked")
+        p2n = " and proteinaln2nucl" if "proteinaln2nucl" in want else ""
+        print(f"5k {system}: _simulate's arrays and the islands{p2n} equal "
+              f"the golden's, the 12 parameters within {GUMBEL_PARAM_RTOL} "
+              f"of them; kernels {kernels}, "
+              f"{rec['plain_chunks']} chunks equal to the plain versions",
+              flush=True)
+    return records
 
 
 def wait_for_socket(proc, sock, log, timeout=300.0):
@@ -2420,6 +2850,35 @@ def iter_child(td):
     (td / "result.json").write_text(json.dumps({
         "wall": run["wall"], "launches": run["probe"]["launches"],
         "kernel_ms": ms_by, "counts": counts, "sample": sample}))
+    return 0
+
+
+def gumbel_child(td):
+    """Phase 5k, in a process of its own that main() starts after the build
+    and joins after phase 5j (its fits are minutes of host sampling and
+    island scans, while the other phases run): check_gumbel_slice on the
+    card over tests/golden/gumbel_slice.json's four systems at
+    fit_gapped's defaults, GUMBEL_PLAIN_CHUNKS chunks a fit against the
+    plain versions. Writes td/result.json: the phase's seconds and each
+    fit's launches. Returns 0, or raises."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(GOLDEN))
+    import make_gumbel_slice as mgs
+    from metaeuk_tpu_torch import cli
+    if not torch.cuda.is_available():
+        raise AssertionError("phase 5k needs the card")
+    golden = json.loads((GOLDEN / "gumbel_slice.json").read_text())
+    if golden["fit_defaults"] != mgs.FIT_DEFAULTS:
+        raise AssertionError("gumbel_slice.json was made at another size "
+                             "than make_gumbel_slice.FIT_DEFAULTS")
+    t0 = time.perf_counter()
+    fits = check_gumbel_slice(np, torch, cli, td, "cuda", golden["systems"],
+                              mgs.FIT_DEFAULTS, GUMBEL_PLAIN_CHUNKS)
+    (td / "result.json").write_text(json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "launches": {s: r["launches"] for s, r in fits.items()}}))
     return 0
 
 
@@ -4198,17 +4657,17 @@ def run_tools(torch, np, kb, kvar, kbench_cuda, kbench_torch,
 
 
 @contextlib.contextmanager
-def iter_child_process():
-    """Starts phase 5g's (a) and (b) (iter_child: `python3 chip_smoke.py
-    --iter-slice DIR`) in a process of its own, its output to DIR/log;
-    yields (the process, DIR); at exit stops it if it still runs and
-    removes DIR."""
+def child_process(mode):
+    """Starts phase 5g's (a) and (b) (mode --iter-slice: iter_child) or
+    phase 5k (mode --gumbel-slice: gumbel_child), `python3 chip_smoke.py
+    MODE DIR`, in a process of its own, its output to DIR/log; yields (the
+    process, DIR); at exit stops it if it still runs and removes DIR."""
     import shutil
-    td = pathlib.Path(tempfile.mkdtemp(prefix="meuk_iter"))
+    td = pathlib.Path(tempfile.mkdtemp(prefix="meuk_child"))
     with open(td / "log", "w") as log:
         proc = subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--iter-slice",
-             str(td)], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+            [sys.executable, str(ROOT / "chip_smoke.py"), mode, str(td)],
+            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
         try:
             yield proc, td
         finally:
@@ -4218,9 +4677,18 @@ def iter_child_process():
             shutil.rmtree(td, ignore_errors=True)
 
 
-# seconds after its start by which the script joins phase 5g's process (the
-# whole script must end within 1200 s)
-ITER_CHILD_DEADLINE = 1140
+# seconds after its start by which the script joins the processes of
+# phases 5g and 5k (the whole script must end within 1200 s)
+CHILD_DEADLINE = 1140
+
+
+def join_child(proc, seconds):
+    """proc's exit code once it ends, waiting at most `seconds` (at least
+    one); None if it is still running then."""
+    try:
+        return proc.wait(timeout=max(1, seconds))
+    except subprocess.TimeoutExpired:
+        return None
 
 
 def main():
@@ -4230,9 +4698,11 @@ def main():
         return 2
     if sys.argv[1:2] == ["--iter-slice"]:
         return iter_child(pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--gumbel-slice"]:
+        return gumbel_child(pathlib.Path(sys.argv[2]))
     if sys.argv[1:2] == ["--serve"]:
         return serve_child(*sys.argv[2:7])
-    # every process a phase starts (phase 5g's) is stopped at exit
+    # every process a phase starts (phases 5g's and 5k's) is stopped at exit
     with contextlib.ExitStack() as stack:
         return run_phases(stack)
 
@@ -4253,7 +4723,7 @@ def run_phases(stack):
         check=True).stdout.strip().splitlines()[0]
     print(smi)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
+          f"cuda {torch.version.cuda} numpy {np.__version__}", flush=True)
 
     sys.path.insert(0, str(ROOT))
     from metaeuk_tpu_torch import cli, native
@@ -4333,8 +4803,11 @@ def run_phases(stack):
     # phase 5g's full-slice run goes in a process of its own, started once
     # the kernels are built and joined after phase 6b: its host stages
     # (result2profile's round) outlast phases 3-6b, during which it uses
-    # the card for a few seconds only (step 0's alignment)
-    child, child_td = stack.enter_context(iter_child_process())
+    # the card for a few seconds only (step 0's alignment); so does phase
+    # 5k, whose fits are host sampling and island scans but for 0.1 s of
+    # kernels each, joined after phase 5j
+    child, child_td = stack.enter_context(child_process("--iter-slice"))
+    gumbel, gumbel_td = stack.enter_context(child_process("--gumbel-slice"))
 
     phase("3 kernels against their plain versions")
     errs = dict.fromkeys(KERNELS, 0)
@@ -4575,6 +5048,19 @@ def run_phases(stack):
                                  "kernels")
         check_server_fixture(cli, "cuda", td / "srv")
         print(f"phase 4i: {time.perf_counter() - t0:.2f} s", flush=True)
+
+        phase("4j the M11b commands and search's nucleotide branch on the "
+              "fixtures against the MMseqs2 goldens")
+        t0 = time.perf_counter()
+        reset(torch, counters, driver, prefilter)
+        n, _ = check_db_cli(cli, "cuda", td / "util", cases=UTIL_CLI_CASES,
+                            fixture=util_cli_fixture)
+        run_l, run_p = counts(counters)
+        print(f"phase 4j: {n} outputs equal to their goldens, "
+              f"{time.perf_counter() - t0:.2f} s; launches {run_l}, plain "
+              f"{run_p}", flush=True)
+        if any(run_p.values()):
+            raise AssertionError("phase 4j called a plain version")
 
         phase("5 k-mer main path: 1.6 Mbp / 3000-target slice")
         golden = json.loads((GOLDEN / "multichip_slice.json").read_text())
@@ -5016,6 +5502,25 @@ def run_phases(stack):
         print(f"phase 5j: {time.perf_counter() - t0:.2f} s, the script at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
+        phase("5k the runtime Gumbel fit at full size: four scoring systems "
+              "of gumbel_slice.json on K1/K2's uncapped instances (their "
+              "process, started after the build, joined)")
+        t0 = time.perf_counter()
+        rc = join_child(gumbel, CHILD_DEADLINE - (t0 - t_start))
+        print(f"waited {time.perf_counter() - t0:.2f} s for it; its output:",
+              flush=True)
+        print((gumbel_td / "log").read_text(), flush=True)
+        if rc != 0:
+            raise AssertionError(f"phase 5k's process failed (exit {rc})")
+        fits = json.loads((gumbel_td / "result.json").read_text())
+        for k in NOCAP_KERNELS:
+            n = sum(r[k] for r in fits["launches"].values())
+            print(f"{k}: {launches[k]} launches in phase 5e's realign run "
+                  f"and {n} in phase 5k's fits", flush=True)
+            launches[k] += n
+        print(f"phase 5k: {fits['seconds']:.2f} s in its process, the script "
+              f"at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     phase("6 kernel and plain-version times")
     times, same = time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
                                ungapped_torch, errs)
@@ -5042,11 +5547,7 @@ def run_phases(stack):
 
     phase("5g (a) and (b): the full slice's process, joined")
     t0 = time.perf_counter()
-    try:
-        rc = child.wait(timeout=max(
-            1, ITER_CHILD_DEADLINE - (time.perf_counter() - t_start)))
-    except subprocess.TimeoutExpired:
-        rc = None
+    rc = join_child(child, CHILD_DEADLINE - (t0 - t_start))
     print(f"waited {time.perf_counter() - t0:.2f} s for it; its output:",
           flush=True)
     print((child_td / "log").read_text(), flush=True)

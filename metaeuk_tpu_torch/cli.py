@@ -27,6 +27,10 @@
         | kmerindexdb | nrtotaxmapping | filterresult | version
         | reverseseq .. convert2fasta | swapdb .. touchdb
         | extractalignedregion .. db2tar ...
+    metaeuk-tpu-torch aliasdb .. view | createclusearchdb .. tsv2exprofiledb
+        | appenddbtoindex .. extractdomains | pairaln | alignbykmer | fwbw
+        | ungappedprefilter | gappedprefilter | databases | offsetalignment
+        | proteinaln2nucl ...
 
 The flags and their mapping to Params are those of metaeuk-tpu: _byte_size,
 _add_predict_flags, _params_from_args and _parse_dp_payload are copied from
@@ -60,9 +64,12 @@ cmd_prefilter (:626-683), cmd_dbtool5 (:1136), cmd_gpuserver,
 cmd_serverclient (:1235-1262), cmd_index_alias (:1338),
 cmd_nrtotaxmapping (:1369), cmd_multihitdb, cmd_multihitsearch,
 cmd_filterresult (:1387-1411), with their parsers; `version` prints the
-port's own line. Not ported yet: search's nucleotide branch,
-mergepredictions (multi-process runs), bench, and the rest of
-metaeuk-tpu's host-only commands (ROADMAP section 1).
+port's own line. Search's nucleotide branch (:799-840), _cmd_offsetaln,
+_cmd_p2n (:548-559), cmd_dbtool4 (:984), cmd_dbtool7, cmd_dbtool8
+(:1197-1232), cmd_databases (:1265), cmd_fwbw .. cmd_alignbykmer
+(:1306-1335) and cmd_exhaustiveprefilter (:1414) are copied with their
+parsers too, all host-only. Not ported yet: mergepredictions
+(multi-process runs) and bench (ROADMAP section 1).
 """
 
 import argparse
@@ -574,9 +581,35 @@ def cmd_search(args):
             _looks_nucl(query_seqs) and
             _looks_nucl([targets.seq_bytes(i)
                          for i in range(len(targets))]))):
-        raise NotImplementedError(
-            "nucleotide search waits for search/nucl_search.py, which the "
-            "port does not have yet (ROADMAP section 1, item 8, M11)")
+        # nucleotide/nucleotide: the blastn.sh path at byte parity
+        # (search/nucl_search.py)
+        import tempfile
+        from .search.nucl_search import nucl_search_workflow
+        td = tempfile.mkdtemp(prefix="nuclsearch")
+        q_db, t_db = f"{td}/queryDB", f"{td}/targetDB"
+        mmseqsdb.write_seqdb(q_db, queries, dbtype=mmseqsdb.DBTYPE_NUCL)
+        mmseqsdb.write_seqdb(t_db, targets, dbtype=mmseqsdb.DBTYPE_NUCL)
+        nucl_search_workflow(q_db, t_db, args.out_db, f"{td}/tmp",
+                             evalue=p.search_evalue_thr,
+                             max_seqs=p.max_res_list_len,
+                             max_seq_len=args.max_seq_len,
+                             add_backtrace=bool(args.backtrace)
+                             or bool(args.m8))
+        if args.m8:
+            from .pipeline.dbtools2 import parse_aln_record, _lines
+            with open(args.m8, "w") as f:
+                for key, payload in mmseqsdb.read_db(args.out_db):
+                    for ln in _lines(payload):
+                        r = parse_aln_record(ln)
+                        f.write(f"{queries.accession(key)}\t"
+                                f"{targets.accession(r['dbKey'])}\t"
+                                f"{r['seqId']:.3f}\t"
+                                f"{max(abs(r['qEnd'] - r['qStart']), abs(r['dbEnd'] - r['dbStart'])) + 1}\t0\t0\t"
+                                f"{r['qStart'] + 1}\t{r['qEnd'] + 1}\t"
+                                f"{r['dbStart'] + 1}\t{r['dbEnd'] + 1}\t"
+                                f"{'%.3E' % r['eval']}\t{r['score']}\n")
+        print(f"wrote {args.out_db} (nucleotide search)")
+        return 0
     from .io.profiledb import ProfileDB
     if isinstance(targets, ProfileDB):
         from .search.profile_search import ProfileSearchDriver
@@ -1397,6 +1430,147 @@ def cmd_version(args):
     return 0
 
 
+def _cmd_offsetaln(args):
+    from .pipeline.offsetaln import offsetalignment
+    offsetalignment(*args.args, search_type=args.search_type)
+    print("offsetalignment done")
+    return 0
+
+
+def _cmd_p2n(args):
+    from .pipeline.offsetaln import proteinaln2nucl
+    proteinaln2nucl(*args.args)
+    print("proteinaln2nucl done")
+    return 0
+
+
+def cmd_dbtool4(args):
+    from .pipeline import dbtools4 as d4
+    a = args.args
+    t = args.tool
+    if t == "translateaa":
+        d4.translateaa_db(a[0], a[1], translation_table=args.translation_table)
+    elif t == "dbtype":
+        print(d4.dbtype_name(a[0]))
+    elif t == "setextendeddbtype":
+        d4.setextendeddbtype(a[0], args.extended_dbtype)
+    elif t == "view":
+        d4.view(a[0], args.id_list.split(","))
+        return 0
+    elif t == "aliasdb":
+        d4.aliasdb(a[0], a[1])
+    elif t == "compress":
+        d4.compress_db(a[0], a[1])
+    elif t == "decompress":
+        d4.decompress_db(a[0], a[1])
+    elif t == "diskspaceavail":
+        print(d4.diskspaceavail(a[0]) if a else d4.diskspaceavail("."))
+        return 0
+    return 0
+
+
+def cmd_dbtool7(args):
+    from .pipeline import dbtools7 as d7
+    t, a = args.tool, args.args
+    if t == "tsv2exprofiledb":
+        d7.tsv2exprofiledb(a[0], a[1], compressed=bool(args.compressed))
+    elif t == "createclusearchdb":
+        d7.createclusearchdb(a[0], a[1], a[2])
+    elif t == "transitivealign":
+        d7.transitivealign(a[0], a[1], a[2], evalue=args.e, cov=args.c,
+                           cov_mode=args.cov_mode,
+                           min_seq_id=args.min_seq_id)
+    elif t == "msa2result":
+        d7.msa2result(a[0], a[1], a[2], match_ratio=args.match_ratio,
+                      filter_msa=args.filter_msa)
+    print(f"{t}: done")
+    return 0
+
+
+def cmd_dbtool8(args):
+    from .pipeline import dbtools8 as d8
+    t, a = args.tool, args.args
+    if t == "convertkb":
+        d8.convertkb(a[:-1], a[-1], kb_columns=args.kb_columns or None,
+                     mapping_lookup=args.mapping_file or None)
+    elif t == "extractdomains":
+        d8.extractdomains(a[0], a[1], a[2], cov=args.c, evalue=args.e)
+    elif t == "appenddbtoindex":
+        d8.appenddbtoindex(a[:-1], a[-1],
+                           keys=args.id_list.split(",")
+                           if args.id_list else None)
+    elif t == "calculatelambda":
+        sys.stdout.write(d8.calculatelambda(a[0]))
+        return 0
+    print(f"{t}: done")
+    return 0
+
+
+def cmd_databases(args):
+    from .pipeline.databases import download, list_table, list_tsv
+    if not args.name:
+        if args.tsv:
+            sys.stdout.write(list_tsv())
+        else:
+            sys.stdout.write(
+                "usage: metaeuk-tpu databases <name> <o:sequenceDB> "
+                "<tmpDir> [options]\n\n" + list_table())
+        return 0
+    if not args.sequence_db or not args.tmp:
+        print("databases needs <name> <o:sequenceDB> <tmpDir>")
+        return 1
+    download(args.name, args.sequence_db, args.tmp,
+             local_file=args.local_file or None,
+             taxdump_dir=args.ncbi_tax_dump or None,
+             tax_mapping=args.tax_mapping_file or None)
+    print(f"wrote {args.sequence_db}")
+    return 0
+
+
+def cmd_fwbw(args):
+    from .search.fwbw import fwbw_db
+    fwbw_db(args.query_db, args.target_db, args.aln_db, args.out_db,
+            gap_open=args.fwbw_gapopen, gap_extend=args.fwbw_gapextend,
+            temperature=args.temperature, mact=args.mact,
+            blocklen=args.blocklen, evalue=args.e, cov=args.c,
+            cov_mode=args.cov_mode, min_seq_id=args.min_seq_id)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_pairaln(args):
+    from .pipeline.pairaln import pairaln_db
+    pairaln_db(args.query_db, args.target_db, args.aln_db, args.out_db,
+               pairing_mode=args.pairing_mode,
+               pairing_filter=args.pairing_filter,
+               pairing_dummy_mode=args.pairing_dummy_mode,
+               prox_dist=args.pairing_prox_dist)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_alignbykmer(args):
+    from .search.alignbykmer import alignbykmer_db
+    alignbykmer_db(args.query_db, args.target_db, args.result_db,
+                   args.out_db, evalue=args.e, cov=args.c,
+                   cov_mode=args.cov_mode, min_seq_id=args.min_seq_id,
+                   gap_open=args.gap_open, gap_extend=args.gap_extend)
+    print(f"wrote {args.out_db}")
+    return 0
+
+
+def cmd_exhaustiveprefilter(args):
+    from .search.exhaustive import exhaustive_prefilter
+    exhaustive_prefilter(args.query_db, args.target_db, args.out_db,
+                         gapped=args.gapped, evalue=args.e,
+                         min_ungapped_score=args.min_ungapped_score,
+                         max_seqs=args.max_seqs, cov=args.c,
+                         cov_mode=args.cov_mode,
+                         comp_bias_correction=bool(args.comp_bias_corr))
+    print(f"wrote {args.out_db}")
+    return 0
+
+
 def _add_device_flag(p):
     p.add_argument("--device", default="cuda",
                    help="torch device for the alignment (default cuda; "
@@ -2184,6 +2358,148 @@ def _add_db_commands(sub):
     vs.set_defaults(fn=cmd_version)
 
 
+def _add_util_commands(sub):
+    """The parsers of the host-only DB utilities of dbtools4, dbtools7 and
+    dbtools8, databases, offsetalignment, proteinaln2nucl, fwbw, pairaln,
+    alignbykmer and the exhaustive prefilters (metaeuk_tpu/cli.py:1711-1720,
+    :1924-1931, :2079-2112, :2145-2156, :2185-2233, :2325-2339)."""
+    oa = sub.add_parser("offsetalignment",
+                        help="ORF coords -> source coords")
+    oa.add_argument("args", nargs=6)
+    oa.add_argument("--search-type", type=int, default=0)
+    oa.set_defaults(fn=_cmd_offsetaln)
+
+    pn = sub.add_parser("proteinaln2nucl",
+                        help="rescore protein alignment at nucl level")
+    pn.add_argument("args", nargs=6)
+    pn.set_defaults(fn=_cmd_p2n)
+
+    for tool in ("translateaa", "dbtype", "setextendeddbtype", "view",
+                 "aliasdb", "compress", "decompress", "diskspaceavail"):
+        dt = sub.add_parser(tool, help=f"{tool} DB utility")
+        dt.add_argument("args", nargs="*")
+        dt.add_argument("--translation-table", type=int, default=1)
+        dt.add_argument("--extended-dbtype", type=int, default=0)
+        dt.add_argument("--id-list", type=str, default="")
+        dt.set_defaults(fn=cmd_dbtool4, tool=tool)
+
+    d7_tools = {"tsv2exprofiledb": 2, "createclusearchdb": 3,
+                "transitivealign": 3, "msa2result": 3}
+    for tool, nargs in d7_tools.items():
+        dp7 = sub.add_parser(tool, help=f"{tool} utility")
+        dp7.add_argument("args", nargs=nargs)
+        if tool == "tsv2exprofiledb":
+            dp7.add_argument("--compressed", type=int, default=1)
+        elif tool == "transitivealign":
+            dp7.add_argument("-e", type=float, default=1e-3)
+            dp7.add_argument("-c", type=float, default=0.0)
+            dp7.add_argument("--cov-mode", type=int, default=0)
+            dp7.add_argument("--min-seq-id", type=float, default=0.0)
+        elif tool == "msa2result":
+            dp7.add_argument("--match-ratio", type=float, default=0.5)
+            dp7.add_argument("--filter-msa", type=int, default=1)
+        dp7.add_argument("--threads", type=int, default=1)
+        dp7.add_argument("-v", type=int, default=3)
+        dp7.set_defaults(fn=cmd_dbtool7, tool=tool)
+
+    d8_tools = {"convertkb": "+", "extractdomains": 3,
+                "appenddbtoindex": "+", "calculatelambda": 1}
+    for tool, nargs in d8_tools.items():
+        dp8 = sub.add_parser(tool, help=f"{tool} utility")
+        dp8.add_argument("args", nargs=nargs)
+        if tool == "convertkb":
+            dp8.add_argument("--kb-columns", type=str, default="")
+            dp8.add_argument("--mapping-file", type=str, default="")
+        elif tool == "extractdomains":
+            dp8.add_argument("-c", type=float, default=0.0)
+            dp8.add_argument("-e", type=float, default=0.001)
+        elif tool == "appenddbtoindex":
+            dp8.add_argument("--id-list", type=str, default="")
+        dp8.add_argument("--threads", type=int, default=1)
+        dp8.add_argument("-v", type=int, default=3)
+        dp8.set_defaults(fn=cmd_dbtool8, tool=tool)
+
+    dbp = sub.add_parser("databases",
+                         help="list/build curated reference databases")
+    dbp.add_argument("name", nargs="?", default="")
+    dbp.add_argument("sequence_db", nargs="?", default="")
+    dbp.add_argument("tmp", nargs="?", default="")
+    dbp.add_argument("--tsv", type=int, default=0)
+    dbp.add_argument("--local-file", type=str, default="",
+                     help="already-fetched FASTA (zero-egress hosts)")
+    dbp.add_argument("--ncbi-tax-dump", type=str, default="")
+    dbp.add_argument("--tax-mapping-file", type=str, default="")
+    dbp.add_argument("--threads", type=int, default=1)
+    dbp.add_argument("-v", type=int, default=3)
+    dbp.set_defaults(fn=cmd_databases)
+
+    fw = sub.add_parser("fwbw", help="forward-backward posterior "
+                        "realignment of an alignment DB")
+    fw.add_argument("query_db")
+    fw.add_argument("target_db")
+    fw.add_argument("aln_db")
+    fw.add_argument("out_db")
+    fw.add_argument("--fwbw-gapopen", type=float, default=10.0)
+    fw.add_argument("--fwbw-gapextend", type=float, default=2.0)
+    fw.add_argument("--temperature", type=float, default=1.0)
+    fw.add_argument("--mact", type=float, default=0.035)
+    fw.add_argument("--blocklen", type=int, default=16)
+    fw.add_argument("-e", type=float, default=0.001)
+    fw.add_argument("-c", type=float, default=0.0)
+    fw.add_argument("--cov-mode", type=int, default=0)
+    fw.add_argument("--min-seq-id", type=float, default=0.0)
+    fw.add_argument("--threads", type=int, default=1)
+    fw.add_argument("-v", type=int, default=3)
+    fw.set_defaults(fn=cmd_fwbw)
+
+    pa = sub.add_parser("pairaln",
+                        help="pair alignments across complex chains "
+                        "by species")
+    pa.add_argument("query_db")
+    pa.add_argument("target_db")
+    pa.add_argument("aln_db")
+    pa.add_argument("out_db")
+    pa.add_argument("--pairing-mode", type=int, default=0)
+    pa.add_argument("--pairing-filter", type=int, default=0)
+    pa.add_argument("--pairing-dummy-mode", type=int, default=0)
+    pa.add_argument("--pairing-prox-dist", type=int, default=20)
+    pa.add_argument("--threads", type=int, default=1)
+    pa.add_argument("-v", type=int, default=3)
+    pa.set_defaults(fn=cmd_pairaln)
+
+    abk = sub.add_parser("alignbykmer",
+                         help="fast k-mer-chain alignment")
+    abk.add_argument("query_db")
+    abk.add_argument("target_db")
+    abk.add_argument("result_db")
+    abk.add_argument("out_db")
+    abk.add_argument("-e", type=float, default=0.001)
+    abk.add_argument("-c", type=float, default=0.0)
+    abk.add_argument("--cov-mode", type=int, default=0)
+    abk.add_argument("--min-seq-id", type=float, default=0.0)
+    abk.add_argument("--gap-open", type=int, default=11)
+    abk.add_argument("--gap-extend", type=int, default=1)
+    abk.add_argument("--threads", type=int, default=1)
+    abk.add_argument("-v", type=int, default=3)
+    abk.set_defaults(fn=cmd_alignbykmer)
+
+    for tool in ("ungappedprefilter", "gappedprefilter"):
+        up = sub.add_parser(tool, help=f"{tool}: exhaustive prefilter")
+        up.add_argument("query_db")
+        up.add_argument("target_db")
+        up.add_argument("out_db")
+        up.add_argument("-e", type=float, default=1e-3)
+        up.add_argument("--min-ungapped-score", type=int, default=15)
+        up.add_argument("--max-seqs", type=int, default=300)
+        up.add_argument("-c", type=float, default=0.0)
+        up.add_argument("--cov-mode", type=int, default=0)
+        up.add_argument("--comp-bias-corr", type=int, default=1)
+        up.add_argument("--threads", type=int, default=1)
+        up.add_argument("-v", type=int, default=3)
+        up.set_defaults(fn=cmd_exhaustiveprefilter,
+                        gapped=(tool == "gappedprefilter"))
+
+
 def _add_server_commands(sub):
     """The parsers of gpuserver (with --device) and serverclient
     (metaeuk_tpu/cli.py:2115-2143)."""
@@ -2242,6 +2558,7 @@ def main(argv=None):
     _add_cluster_commands(sub)
     _add_db_commands(sub)
     _add_server_commands(sub)
+    _add_util_commands(sub)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -1,5 +1,6 @@
-"""ctypes bindings for the native C++ host layer (native/host_ops.cpp and
-native/prefilter.cpp at the root of the repository).
+"""ctypes bindings for the native C++ host layer (native/host_ops.cpp,
+native/prefilter.cpp, native/nucl_align.cpp and native/prefilter_nucl.cpp
+at the root of the repository).
 
 Counterpart of metaeuk_tpu/native.py, with three differences. The library
 is built with g++ into metaeuk_tpu_torch/build/ (listed in .gitignore), under
@@ -9,10 +10,13 @@ native/libmetaeuk_host.so is never loaded. Build and load hold a lock, so a
 thread that asks while another thread builds waits for the library instead
 of getting None. Only the entry points that the port's host stages call are
 bound here (comp_bias, orf_scan_strand, chain_dp, chain_dp_groups,
-banded_sw_traceback, banded_sw_traceback_prof, rcp_nr; the prefilter binds
-its own). Each entry point but rcp_nr returns None when the library is
-unavailable, and its callers then fall back to Python; rcp_nr raises, since
-its callers' fallback (an exact division) gives other bytes.
+banded_sw_traceback, banded_sw_traceback_prof, rcp_nr; the prefilters,
+the nucleotide aligner and the island scan of search/gumbel.py bind their
+own). build_library builds search/fwbw.py's library (native/fwbw.cpp,
+with its own flags) the same way. Each entry point but rcp_nr returns None
+when the library is unavailable, and its callers then fall back to Python;
+rcp_nr raises, since its callers' fallback (an exact division) gives other
+bytes.
 """
 
 import ctypes
@@ -29,26 +33,44 @@ _TRIED = False
 _LOCK = threading.Lock()
 
 _NATIVE_DIR = pathlib.Path(__file__).resolve().parent.parent / "native"
-_SRCS = [_NATIVE_DIR / "host_ops.cpp", _NATIVE_DIR / "prefilter.cpp"]
+_SRCS = [_NATIVE_DIR / "host_ops.cpp", _NATIVE_DIR / "prefilter.cpp",
+         _NATIVE_DIR / "nucl_align.cpp", _NATIVE_DIR / "prefilter_nucl.cpp"]
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
           "-fopenmp")
 
 
+def _digest_path(stem, srcs, flags):
+    """build/<stem>-<digest>.so for these sources and flags."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for s in srcs:
+        h.update(s.read_bytes())
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+
+
 def library_path():
     """build/libmetaeuk_host-<digest>.so for the current sources and flags."""
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for s in _SRCS:
-        h.update(s.read_bytes())
-    return BUILD_DIR / f"libmetaeuk_host-{h.hexdigest()[:16]}.so"
+    return _digest_path("libmetaeuk_host", _SRCS, _FLAGS)
 
 
-def _build(so):
+def _build(so, srcs=_SRCS, flags=_FLAGS):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    subprocess.run(["g++", *_FLAGS, *[str(s) for s in _SRCS], "-o",
+    subprocess.run(["g++", *flags, *[str(s) for s in srcs], "-o",
                     str(tmp)], check=True, capture_output=True)
     os.replace(tmp, so)
+
+
+def build_library(stem, names, flags):
+    """Builds native/<names> with g++ and these flags into
+    build/<stem>-<digest>.so, under the loader's lock, unless that file
+    exists; returns its path. Raises when g++ fails."""
+    srcs = [_NATIVE_DIR / n for n in names]
+    so = _digest_path(stem, srcs, flags)
+    with _LOCK:
+        if not so.exists():
+            _build(so, srcs, flags)
+    return so
 
 
 def get_lib():

@@ -289,8 +289,12 @@ def sw_align_batch(q_enc, q_bias, q_len, t_enc, t_len, submat=None,
     t_end) int32 out, with sw_jax's conventions (H not capped; no hit gives
     (0, -1, Lq - 1, -1, -1)). submat: the substitution matrix (default
     BLOSUM62), go/ge: the gap costs. On a CUDA device it runs K1/K2's
-    uncapped instances, on the CPU their plain versions."""
+    uncapped instances, on the CPU their plain versions; a CUDA device with
+    no card raises."""
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"sw_align_batch on {device}: no CUDA device is "
+                           "available")
     sub = np.ascontiguousarray(
         BLOSUM62_SCORES if submat is None else submat, np.int32)
     scoring = _batch_scoring(sub.tobytes(), sub.shape[0], int(go), int(ge),

@@ -1,5 +1,6 @@
-# Copy of metaeuk_tpu/search/evalue.py; only the imports differ, and
-# for_scoring raises where it would reach search/gumbel.py (ROADMAP M8).
+# Copy of metaeuk_tpu/search/evalue.py; it differs from its original only
+# in this note and in for_scoring's device keyword (default cuda), which
+# it passes on to gumbel.fitted_params.
 """Karlin-Altschul / ALP Gumbel E-value computation.
 
 Port of the reference's EvalueComputation
@@ -110,7 +111,7 @@ class EvalueComputation:
 
     @classmethod
     def for_scoring(cls, db_res_count, scores, pback, gap_open,
-                    gap_extend, gapped=True):
+                    gap_extend, gapped=True, device="cuda"):
         """EvalueComputation for an ARBITRARY scoring system: the
         reference's precomputed-table-then-ALP-simulation path
         (EvalueComputation.h:80-110).  The tabulated defaults are used
@@ -131,9 +132,15 @@ class EvalueComputation:
         if not gapped and scores.shape == (21, 21) \
                 and _np.array_equal(scores, BLOSUM62_SCORES):
             return cls(db_res_count, gapped=False)
-        raise NotImplementedError(
-            "E-values for a non-default matrix or gap costs (search/gumbel.py)"
-            " are not ported to metaeuk_tpu_torch yet (ROADMAP M8)")
+        if not gapped:
+            # ungapped fit: the simulation with unreachable gap costs
+            from .gumbel import fitted_params
+            p = fitted_params(scores, pback, 32000, 0, device=device)
+            return cls(db_res_count, params=p)
+        from .gumbel import fitted_params
+        p = fitted_params(scores, pback, int(gap_open), int(gap_extend),
+                          device=device)
+        return cls(db_res_count, params=p)
 
     def area(self, score, seq_len):
         """Finite-size-corrected search area

@@ -430,3 +430,50 @@ def test_multihit_family_and_server_run_with_jax_blocked(tmp_path):
     writer that chip_smoke.py imports writes a set file, with jax and
     metaeuk_tpu blocked."""
     _blocked_run(tmp_path, "kmer", _BLOCKED_MULTIHIT)
+
+
+# the M11b modules and the runtime Gumbel fit: every new module imports; the
+# nucleotide search through the port's CLI gives its golden; a small fit of
+# each scoring system of tests/golden/make_gumbel_slice.py (which
+# chip_smoke.py's phase 5k imports; its golden writer alone imports jax)
+# runs on the plain versions
+_BLOCKED_UTIL = _BLOCK + r"""
+import importlib
+for m in ("data.submat_file", "search.gumbel", "search.evalue",
+          "search.prefilter_nucl", "search.nucl_align", "search.nucl_search",
+          "pipeline.offsetaln", "pipeline.dbtools4", "pipeline.dbtools7",
+          "pipeline.dbtools8", "pipeline.pairaln", "search.alignbykmer",
+          "search.fwbw", "search.exhaustive", "pipeline.databases"):
+    importlib.import_module(f"metaeuk_tpu_torch.{m}")
+sys.path.insert(0, "tests/golden")
+import make_gumbel_slice as mgs
+from metaeuk_tpu_torch.cli import main
+from metaeuk_tpu_torch.data import submat, vtml80
+from metaeuk_tpu_torch.search import gumbel
+
+data, golden, out, mode = sys.argv[1:5]
+assert main(["createdb", f"{data}/contigs.fna", out + "_cdb"]) == 0
+assert main(["search", out + "_cdb", out + "_cdb", out, out + "_tmp",
+             "--search-type", "3", "--max-seq-len", "700", "-a",
+             "--device", "cpu"]) == 0
+for s in ("", ".index", ".dbtype"):
+    with open(out + s, "rb") as a, \
+            open(f"{golden}/utils/nucl_search_out{s}", "rb") as b:
+        assert a.read() == b.read(), s
+for name in mgs.GUMBEL_SYSTEMS:
+    sc, pb, go, ge = mgs.scoring_system(name, submat, vtml80)
+    p = gumbel.fit_gapped(sc, pb, go, ge, n_pairs=64, length=64, chunk=32,
+                          isl_pairs=32, isl_length=128, device="cpu")
+    assert p["lam"] > 0 and p["K"] > 0, (name, p)
+loaded = [k for k in sys.modules if sys.modules[k] is not None and (
+    k.split(".")[0].startswith("jax") or k.split(".")[0] == "metaeuk_tpu")]
+assert not loaded, loaded
+print("jax-free run ok")
+"""
+
+
+def test_util_modules_and_gumbel_fit_run_with_jax_blocked(tmp_path):
+    """The M11b modules import, search's nucleotide branch gives its
+    golden, and the runtime Gumbel fit runs on the plain versions, with jax
+    and metaeuk_tpu blocked."""
+    _blocked_run(tmp_path, "kmer", _BLOCKED_UTIL)

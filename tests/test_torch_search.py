@@ -146,12 +146,20 @@ def test_search_backtrace_byte_parity():
 
 
 def test_waiting_branches_raise(dbs, tmp_path):
-    """Search's nucleotide branch still waits (ROADMAP section 1, M11);
-    easy_linsearch runs (tests/test_torch_linsearch.py holds it)."""
-    with pytest.raises(NotImplementedError, match="nucl_search"):
-        cli.main(["search", str(DATA / "contigs.fna"),
-                  str(DATA / "contigs.fna"), str(tmp_path / "x"),
-                  "--device", "cpu"])
+    """The branches that once waited now run: search's nucleotide branch,
+    taken on nucleotide FASTA input, writes the JAX CLI's bytes (with --m8
+    too; tests/test_torch_dbcli.py holds its --search-type 3 run to the
+    MMseqs2 golden); easy_linsearch runs (tests/test_torch_linsearch.py
+    holds it)."""
+    for tag, main, dev in (("jax", jax_cli.main, []),
+                           ("port", cli.main, ["--device", "cpu"])):
+        assert main(["search", str(DATA / "contigs.fna"),
+                     str(DATA / "contigs.fna"), str(tmp_path / tag),
+                     "--m8", str(tmp_path / f"{tag}.m8"), *dev]) == 0
+    for s in (*DB_SUFFIXES, ".m8"):
+        assert (tmp_path / f"port{s}").read_bytes() == \
+            (tmp_path / f"jax{s}").read_bytes(), s
+    assert (tmp_path / "port.m8").read_text().count("\n") > 0
     easy_linsearch(str(DATA / "queries_lin.faa"), str(DATA / "proteins.faa"),
                    str(tmp_path / "x.m8"), str(tmp_path / "t"),
                    device="cpu")
