@@ -287,6 +287,31 @@ Phases, each fatal on failure:
      the card (torch.equal); each fit's seconds split into sampling,
      _simulate's alignment, islands and regression, its cells, and K1/K2's
      launches and summed ms (CUDA events) beside their bounds
+  5l. the multi-process easy-predict at the size of
+     tests/golden/dist_bench_slice.json (4.0 Mbp, 8,000 targets,
+     --split 2), in a process of its own started after phase 5j and
+     joined after phase 6b: metaeuk_tpu_torch/tools/dist_worker.py in one
+     process, then in two on the one card (a gloo group; each on its
+     contig half, the target splits fanned round-robin over them through
+     the shared scratch); both runs' four sha256 digests equal the file's
+     (the JAX package's single-process split-2 run), each process of the
+     second built exactly its split, every (split, query block) hit file
+     exists, every process launched K1/K2 and called no plain version;
+     each run's wall, each process's wall, stage seconds, cells, K1-K4
+     launches and summed ms (CUDA events) beside their bounds, and its
+     idle share
+  5m. the driver's device fan-out and the sharded steps: (a) the k-mer
+     slice of phase 5 through easy-predict with the driver's launches
+     fanned over ["cuda:0", "cuda:0"] (each launch chunk split into a
+     sub-chunk per entry): the four digests equal multichip_slice.json,
+     K1/K2 launched and no plain version called; wall, launches and
+     summed ms beside phase 5's; (b) parallel/dist.py's dense and top-300
+     sharded steps on a one-rank NCCL mesh at 512 x 1024 pairs of 64 x 64
+     (tools/dryrun.py SLICE_STEP): every output equal to the plain dense
+     cross product on the card (the top-k in jax.lax.top_k's tie order),
+     K1's uncapped instance launched once a step and no plain version
+     called; its ms beside its bound, the collective bytes per rank; the
+     2 x 2 mesh is checked only by tests/test_torch_dist.py on the CPU
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
@@ -2882,6 +2907,189 @@ def gumbel_child(td):
     return 0
 
 
+# the multi-process worker of phase 5l, started as a script of the checkout
+DIST_WORKER = ROOT / "metaeuk_tpu_torch" / "tools" / "dist_worker.py"
+# seconds each of phase 5l's runs (all its worker processes) may take
+DIST_RUN_TIMEOUT = 900
+# the kernels whose launches, ms and bounds phase 5l reports per process
+DIST_KERNELS = ("sw_pair_ends", "sw_pair_starts", "sw_qm_ends",
+                "sw_qm_starts")
+
+
+def run_dist_workers(n, contigs, targets, out, split, device,
+                     timeout=DIST_RUN_TIMEOUT):
+    """metaeuk_tpu_torch/tools/dist_worker.py in n processes at once on
+    `device` (a gloo group on a free localhost port), easy-predict with
+    --split `split` into `out`: (wall seconds, each process's JSON line,
+    each process's "prefilter split" log lines). Raises unless every process
+    exits 0 within `timeout` seconds; every process is stopped at exit."""
+    from metaeuk_tpu_torch.tools.dryrun import free_port
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(DIST_WORKER), str(i), str(n),
+         f"127.0.0.1:{port}", str(contigs), str(targets), str(out),
+         str(split), "--device", device], cwd=ROOT, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for i in range(n)]
+    res = []
+    try:
+        for p in procs:
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            res.append(p.communicate(timeout=left))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for i, (_, e) in enumerate(res):
+        if procs[i].returncode != 0:
+            raise AssertionError(f"worker {i} of {n} exited "
+                                 f"{procs[i].returncode}:\n{e[-3000:]}")
+    return (wall, [json.loads(o.strip().splitlines()[-1]) for o, _ in res],
+            [[ln for ln in e.splitlines() if "prefilter split" in ln]
+             for _, e in res])
+
+
+def check_dist_slice(contigs, targets, td, split, device, want=None):
+    """Phase 5l's runs: easy-predict with --split `split` through the worker
+    in one process, then in two (each on its contig half, the splits fanned
+    round-robin over them), outputs under td; the two runs' digests equal
+    (and equal `want` when given); each process of the second run built
+    exactly its splits (split si on process si % 2), and the shared scratch
+    holds the hit file of every split and query block. On the card every
+    process launched K1/K2 and called no plain version. Returns {"one" |
+    "two": {"wall", "procs", "logs", "digests"}}."""
+    import re
+    runs = {}
+    for tag, n in (("one", 1), ("two", 2)):
+        wall, procs, logs = run_dist_workers(n, contigs, targets, td / tag,
+                                             split, device)
+        runs[tag] = dict(wall=wall, procs=procs, logs=logs,
+                         digests=digests(td / tag))
+    if runs["two"]["digests"] != runs["one"]["digests"]:
+        raise AssertionError("the two-process run's digests differ from the "
+                             "one-process run's")
+    if want is not None and runs["one"]["digests"] != want:
+        raise AssertionError("the split runs' digests differ from the "
+                             "golden's")
+    for pi, logs in enumerate(runs["two"]["logs"]):
+        built = sorted(int(re.search(r"split (\d+)/", ln).group(1)) - 1
+                       for ln in logs if f"on process {pi}" in ln)
+        if built != [si for si in range(split) if si % 2 == pi]:
+            raise AssertionError(f"process {pi} built splits {built}")
+    for si in range(split):
+        for qp in range(2):
+            if not (td / "two.dist_pref" / f"hits_{si}_{qp}.npz").exists():
+                raise AssertionError(f"no hits_{si}_{qp}.npz in the shared "
+                                     "scratch")
+    if device == "cuda":
+        for tag, run in runs.items():
+            for rec in run["procs"]:
+                if min(rec["kernels"].get(k, [0])[0]
+                       for k in PAIR_KERNELS) == 0 or \
+                        any(rec["plain_calls"].values()):
+                    raise AssertionError(f"process {rec['rank']} of the "
+                                         f"{tag}-process run did not go "
+                                         "through K1/K2 alone")
+    return runs
+
+
+def report_dist_slice(runs):
+    """Prints phase 5l: each run's wall; each process's wall, stage seconds,
+    cells, K1-K4 launches and summed ms (CUDA events) beside their bounds
+    (K1 from the forward cells and K2 from the reverse ones when no pair
+    took the query-major tiles, else the forward and reverse passes'
+    bounds over both routes), and the card's idle share of its wall."""
+    for tag, run in runs.items():
+        print(f"5l {tag}-process run: wall {run['wall']:.3f} s (the "
+              "processes' start included)", flush=True)
+        for rec in run["procs"]:
+            who = f"5l {tag}-process run, process {rec['rank']}"
+            ks = rec["kernels"]
+            fwd, rev = rec["cells"]["fwd"], rec["cells"]["rev"]
+            qm = any(ks.get(k, [0])[0] for k in ("sw_qm_ends",
+                                                  "sw_qm_starts"))
+            print(f"{who}: wall {rec['wall']:.3f} s; stage seconds "
+                  + json.dumps(rec["stage_seconds"]) + f"; cells fwd {fwd} "
+                  f"rev {rev}", flush=True)
+            for k in DIST_KERNELS:
+                n, ms = ks.get(k, [0, 0.0])
+                cells = fwd if k.endswith("ends") else rev
+                bound_ms = cells * SW_OPS / INT32_OPS_PER_S * 1e3
+                what = "of both routes' pass" if qm else "operations"
+                print(f"{who}: {k} {n} launches, {ms:.3f} ms (CUDA events "
+                      f"around each launch), bound {bound_ms:.3f} ms ({what})",
+                      flush=True)
+            busy = sum(ms for _, ms in ks.values()) / 1e3
+            print(f"{who}: kernels busy {busy:.3f} s, idle share "
+                  f"{1 - busy / max(rec['wall'], 1e-9):.4%}; plain calls "
+                  f"{sum(rec['plain_calls'].values())}", flush=True)
+
+
+def dist_child(td):
+    """Phase 5l, in a process of its own that main() starts after phase 5j
+    and joins after phase 6b (while the other phases run): the 4.0 Mbp /
+    8,000-target slice of tests/golden/dist_bench_slice.json through
+    check_dist_slice on the card at its --split, the digests held to the
+    file's (the JAX package's single-process split-2 run), reported by
+    report_dist_slice. Writes td/result.json: the runs. Returns 0, or
+    raises."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from tools.make_metagenome import make_metagenome, write_fasta
+    if not torch.cuda.is_available():
+        raise AssertionError("phase 5l needs the card")
+    golden = json.loads((GOLDEN / "dist_bench_slice.json").read_text())
+    t0 = time.perf_counter()
+    contigs, proteins = make_metagenome(golden["mbp"], golden["targets"])
+    write_fasta(td / "c.fna", contigs)
+    write_fasta(td / "p.faa", proteins)
+    print(f"generated {len(contigs)} contigs, {len(proteins)} targets in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    runs = check_dist_slice(td / "c.fna", td / "p.faa", td, golden["split"],
+                            "cuda", golden["sha256"])
+    report_dist_slice(runs)
+    print("5l: both runs' digests equal dist_bench_slice.json; each process "
+          "built its round-robin split", flush=True)
+    (td / "result.json").write_text(json.dumps(runs))
+    return 0
+
+
+def check_mesh_steps(np, torch, sw_cuda, device, step):
+    """Phase 5m (b): parallel/dist.py's dense and top-k steps on a one-rank
+    mesh (tools/dryrun.py one_rank_group: NCCL on the card, gloo on the
+    CPU) at `step`'s shapes (dryrun.SLICE_STEP's keys), each output equal to
+    the plain dense cross product on the same device (the top-k in
+    jax.lax.top_k's tie order); on the card K1's uncapped instance launched
+    once a step and no plain version called. Returns (launches, plain calls,
+    the steps' seconds, collective_report())."""
+    from metaeuk_tpu_torch.parallel import dist
+    from metaeuk_tpu_torch.tools import dryrun
+    x = dryrun.mesh_inputs(step["Bq"], step["Nt"], step["Lq"], step["Lt"],
+                           step["seed"])
+    with dryrun.one_rank_group(device):
+        dist.collective_report(reset=True)
+        mesh = dist.make_mesh(torch.device(device).type)
+        sw_cuda.reset_counts()
+        t0 = time.perf_counter()
+        got = dryrun.run_steps(mesh, x, step["k"])
+        seconds = time.perf_counter() - t0
+        launches, plain = dict(sw_cuda.LAUNCHES), dict(sw_cuda.PLAIN_CALLS)
+        report = dist.collective_report()
+    want = dryrun.expected_rows(x, step["k"], slice(0, step["Bq"]),
+                                dryrun.plain_cross(x, device))
+    for n, a in want.items():
+        if not np.array_equal(got[n], a):
+            raise AssertionError(f"the mesh step's {n} differs from the "
+                                 "plain cross product")
+    if torch.device(device).type == "cuda" and (
+            launches["sw_pair_ends_nocap"] != 2 or any(plain.values())):
+        raise AssertionError("the mesh steps did not go through K1's "
+                             f"uncapped instance alone: {launches} {plain}")
+    return launches, plain, seconds, report
+
+
 def check_modular_workflows(cli, device, td):
     """Phase 4f, first part: MetaEuk's modular commands on tests/data
     through the port's CLI, on `device`: predictexons -> reduceredundancy
@@ -4658,28 +4866,34 @@ def run_tools(torch, np, kb, kvar, kbench_cuda, kbench_torch,
 
 @contextlib.contextmanager
 def child_process(mode):
-    """Starts phase 5g's (a) and (b) (mode --iter-slice: iter_child) or
-    phase 5k (mode --gumbel-slice: gumbel_child), `python3 chip_smoke.py
-    MODE DIR`, in a process of its own, its output to DIR/log; yields (the
-    process, DIR); at exit stops it if it still runs and removes DIR."""
+    """Starts phase 5g's (a) and (b) (mode --iter-slice: iter_child), phase
+    5k (mode --gumbel-slice: gumbel_child) or phase 5l (mode --dist-slice:
+    dist_child), `python3 chip_smoke.py MODE DIR`, in a process of its own
+    and a session of its own, its output to DIR/log; yields (the process,
+    DIR); at exit stops it and every process it started (its session's
+    process group) and removes DIR."""
     import shutil
+    import signal
     td = pathlib.Path(tempfile.mkdtemp(prefix="meuk_child"))
     with open(td / "log", "w") as log:
         proc = subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), mode, str(td)],
-            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+            start_new_session=True)
         try:
             yield proc, td
         finally:
-            if proc.poll() is None:
-                proc.kill()
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
             shutil.rmtree(td, ignore_errors=True)
 
 
 # seconds after its start by which the script joins the processes of
-# phases 5g and 5k (the whole script must end within 1200 s)
+# phases 5g, 5k and 5l (the whole script must end within 1200 s)
 CHILD_DEADLINE = 1140
+# phase 5m: the driver's device list on the one card
+MESH_DEVICES = ["cuda:0", "cuda:0"]
 
 
 def join_child(proc, seconds):
@@ -4700,6 +4914,8 @@ def main():
         return iter_child(pathlib.Path(sys.argv[2]))
     if sys.argv[1:2] == ["--gumbel-slice"]:
         return gumbel_child(pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--dist-slice"]:
+        return dist_child(pathlib.Path(sys.argv[2]))
     if sys.argv[1:2] == ["--serve"]:
         return serve_child(*sys.argv[2:7])
     # every process a phase starts (phases 5g's and 5k's) is stopped at exit
@@ -4738,6 +4954,7 @@ def run_phases(stack):
     from metaeuk_tpu_torch.search import driver, prefilter, profile_search
     from metaeuk_tpu_torch.tools import kbench as kb
     from metaeuk_tpu_torch.tools import kernel_variants as kvar
+    from metaeuk_tpu_torch.tools import dryrun
     counters = (sw_cuda, ungapped_cuda)
 
     phase("2 build")
@@ -5502,6 +5719,12 @@ def run_phases(stack):
         print(f"phase 5j: {time.perf_counter() - t0:.2f} s, the script at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
+        # phase 5l's worker processes start here, beside phases 5k-6b and
+        # 5g's tail: their host stages (a minute of k-mer prefilter on every
+        # core) would slow phases 3-5j, which set the script's wall
+        dist5l, dist5l_td = stack.enter_context(
+            child_process("--dist-slice"))
+
         phase("5k the runtime Gumbel fit at full size: four scoring systems "
               "of gumbel_slice.json on K1/K2's uncapped instances (their "
               "process, started after the build, joined)")
@@ -5520,6 +5743,52 @@ def run_phases(stack):
             launches[k] += n
         print(f"phase 5k: {fits['seconds']:.2f} s in its process, the script "
               f"at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+        phase("5m the driver's device fan-out and the sharded steps: the "
+              "k-mer slice over devices [cuda:0, cuda:0], then the dense "
+              "and top-k steps on a 1 x 1 NCCL mesh")
+        t0 = time.perf_counter()
+        out = td / "fanned"
+        with probe_run(torch, counters, driver, prefilter, sw_cuda) as rec:
+            EasyPredict(device="cuda", devices=MESH_DEVICES).run(
+                str(td / "c.fna"), str(td / "p.faa"), str(out))
+        wall = time.perf_counter() - t0
+        print(f"5m (a) fanned k-mer slice: wall {wall:.3f} s (phase 5's "
+              f"{slice_wall:.3f} s on one entry)", flush=True)
+        print_sw_ms(rec["events"], "5m (a) fanned k-mer slice")
+        print(f"5m (a) launches {rec['launches']} plain {rec['plain']} "
+              "(phase 5 on one entry: " + json.dumps(
+                  {k: launches[k] for k in PAIR_KERNELS}) + ")", flush=True)
+        if digests(out) != golden["sha256"]:
+            raise AssertionError("the fanned slice's digests differ from "
+                                 "multichip_slice.json")
+        if min(rec["launches"][k] for k in PAIR_KERNELS) == 0 or \
+                any(rec["plain"].values()):
+            raise AssertionError("the fanned slice did not go through the "
+                                 "pair kernels")
+        for k in sw_cuda.KERNELS:
+            launches[k] = launches.get(k, 0) + rec["launches"][k]
+        print("5m (a): 4 sha256 digests equal multichip_slice.json with the "
+              f"driver over {MESH_DEVICES}", flush=True)
+        t0 = time.perf_counter()
+        st = dryrun.SLICE_STEP
+        with launch_events(torch, sw_cuda) as mesh_ev:
+            mesh_l, _, secs, report = check_mesh_steps(np, torch, sw_cuda,
+                                                       "cuda", st)
+        ms = event_ms(mesh_ev)["sw_pair_ends_nocap"]
+        cells = 2 * st["Bq"] * st["Nt"] * st["Lq"] * st["Lt"]
+        print(f"5m (b) the dense and top-{st['k']} steps, {st['Bq']} x "
+              f"{st['Nt']} pairs at {st['Lq']} x {st['Lt']} on a 1 x 1 NCCL "
+              f"mesh: {secs:.3f} s; sw_pair_ends_nocap {ms[0]} launches, "
+              f"{ms[1]:.3f} ms (CUDA events), {cells} cells, bound "
+              f"{cells * NOCAP_SW_OPS / INT32_OPS_PER_S * 1e3:.3f} ms "
+              "(operations); every output equal to the plain cross product "
+              "on the card; collective bytes per rank "
+              + json.dumps(report) + "; the 2 x 2 mesh is checked by the "
+              "CPU tests only (tests/test_torch_dist.py)", flush=True)
+        launches["sw_pair_ends_nocap"] += mesh_l["sw_pair_ends_nocap"]
+        print(f"phase 5m: {time.perf_counter() - t0:.2f} s, the script at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     phase("6 kernel and plain-version times")
     times, same = time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
@@ -5559,6 +5828,23 @@ def run_phases(stack):
         launches[k] = full["launches"][k]
     print(f"phase 5g: the full slice's wall {full['wall']:.3f} s, the "
           f"script at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    phase("5l the multi-process easy-predict at the size of "
+          "dist_bench_slice.json: one process, then two on the card (their "
+          "process, started after phase 5j, joined)")
+    t0 = time.perf_counter()
+    rc = join_child(dist5l, CHILD_DEADLINE - (t0 - t_start))
+    print(f"waited {time.perf_counter() - t0:.2f} s for it; its output:",
+          flush=True)
+    print((dist5l_td / "log").read_text(), flush=True)
+    if rc != 0:
+        raise AssertionError(f"phase 5l's process failed (exit {rc})")
+    for run in json.loads((dist5l_td / "result.json").read_text()).values():
+        for rec in run["procs"]:
+            for k, (n, _) in rec["kernels"].items():
+                launches[k] = launches.get(k, 0) + n
+    print(f"phase 5l joined, the script at {time.perf_counter() - t_start:.1f}"
+          " s", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"{CSRC}/{src}",

@@ -1,7 +1,9 @@
 """metaeuk-tpu-torch command-line interface.
 
     metaeuk-tpu-torch easy-predict contigs.fna targets.faa out_prefix [tmp]
-        [--device cuda] [the easy-predict flags of metaeuk-tpu]
+        [--device cuda] [--contig-split I:N] [the easy-predict flags of
+        metaeuk-tpu]
+    metaeuk-tpu-torch mergepredictions out_prefix part_prefix ...
     metaeuk-tpu-torch predictexons | reduceredundancy | unitesetstofasta
         | groupstoacc | extractorfs | translatenucs | resultspercontig
         | collectoptimalset | createtsv | taxtocontig ...
@@ -68,8 +70,9 @@ port's own line. Search's nucleotide branch (:799-840), _cmd_offsetaln,
 _cmd_p2n (:548-559), cmd_dbtool4 (:984), cmd_dbtool7, cmd_dbtool8
 (:1197-1232), cmd_databases (:1265), cmd_fwbw .. cmd_alignbykmer
 (:1306-1335) and cmd_exhaustiveprefilter (:1414) are copied with their
-parsers too, all host-only. Not ported yet: mergepredictions
-(multi-process runs) and bench (ROADMAP section 1).
+parsers too, all host-only, and easy-predict's --contig-split and
+cmd_mergepredictions (:98-113, :164). Not ported yet: bench (ROADMAP
+section 1).
 """
 
 import argparse
@@ -209,9 +212,27 @@ def _device(name):
 
 def cmd_easy_predict(args):
     from .pipeline.predict import EasyPredict
+    contig_range = None
+    if args.contig_split:
+        i, n = (int(x) for x in args.contig_split.split(":"))
+        from .io.seqdb import SeqDB, DBTYPE_NUCL
+        from .parallel.multihost import contig_partition
+        total = len(SeqDB.from_fasta(args.contigs, DBTYPE_NUCL)) \
+            if not pathlib_exists(f"{args.contigs}.dbtype") else \
+            sum(1 for _ in open(f"{args.contigs}.index"))
+        contig_range = contig_partition(total, i, n)
     EasyPredict(_params_from_args(args), device=_device(args.device)).run(
-        args.contigs, args.targets, args.out_prefix, tmp_dir=args.tmp)
+        args.contigs, args.targets, args.out_prefix, tmp_dir=args.tmp,
+        contig_range=contig_range)
     print(f"wrote {args.out_prefix}.fas / .codon.fas / .headersMap.tsv / .gff")
+    return 0
+
+
+def cmd_mergepredictions(args):
+    """Concatenate contig-partitioned easy-predict outputs (cli.py:164)."""
+    from .parallel.multihost import merge_predictions
+    merge_predictions(args.out_prefix, args.parts)
+    print(f"merged {len(args.parts)} partitions -> {args.out_prefix}.*")
     return 0
 
 
@@ -2546,11 +2567,21 @@ def main(argv=None):
     ep.add_argument("contigs")
     ep.add_argument("targets")
     ep.add_argument("out_prefix")
+    ep.add_argument("--contig-split", default="",
+                    help="I:N — process contiguous contig partition I of N "
+                         "(multi-process data parallelism; merge with "
+                         "mergepredictions)")
     ep.add_argument("tmp", nargs="?", default=None,
                     help="checkpoint dir (stage artifacts, resumable)")
     _add_device_flag(ep)
     _add_predict_flags(ep)
     ep.set_defaults(fn=cmd_easy_predict)
+
+    mg = sub.add_parser("mergepredictions",
+                        help="merge contig-partitioned easy-predict outputs")
+    mg.add_argument("out_prefix")
+    mg.add_argument("parts", nargs="+")
+    mg.set_defaults(fn=cmd_mergepredictions)
     _add_modular_commands(sub)
     _add_search_commands(sub)
     _add_tax_commands(sub)

@@ -9,9 +9,9 @@ and an explicit `device`, and the profile-DB path on ProfileSearchDriver
 (search/profile_search.py). The host stages (ORF extraction, the k-mer
 prefilter, the chain DP, reduce and the writers) are the port's own copies
 of metaeuk_tpu's modules. The module-level helpers below are copied from
-metaeuk_tpu/pipeline/predict.py; each names its origin.
-
-Not in this package yet: contig partitions.
+metaeuk_tpu/pipeline/predict.py; each names its origin. contig_range runs
+one contig partition (parallel/multihost.py), and `devices` fans the
+driver's launches over a device list (search/driver.py).
 """
 
 import os
@@ -25,7 +25,7 @@ from ..io.seqdb import SeqDB, DBTYPE_AA, DBTYPE_NUCL
 from ..ops.chain import MINUS, PLUS, PotentialExon, Prediction
 from ..ops.orf import OrfExtractor
 from ..params import Params
-from ..search.driver import HIT_DTYPE, SearchDriver
+from ..search.driver import HIT_DTYPE, SearchDriver, device_list
 from ..utils import log, session
 from .output import PredictionWriter
 from .reduce import reduce_redundancy
@@ -439,24 +439,37 @@ def _pipelined_extract_search(p, extractor, contigs, lo, hi, pref_fut,
 class EasyPredict:
     """Runs the full pipeline and writes the four output files; the
     alignment runs on `device` (a CUDA device, or "cpu" for the kernels'
-    plain versions)."""
+    plain versions), its launches fanned over `devices` (default:
+    search/driver.py device_list)."""
 
-    def __init__(self, params=None, device="cuda"):
+    def __init__(self, params=None, device="cuda", devices=None):
         self.params = params or Params()
         self.device = device
+        self.devices = devices
 
-    def run(self, contigs_path, targets_path, out_prefix, tmp_dir=None):
+    def run(self, contigs_path, targets_path, out_prefix, tmp_dir=None,
+            contig_range=None):
         """Full easy-predict. With tmp_dir set, the DP-predictions stage
         artifact is checkpointed and reused on re-runs (the reference's
         notExists-guarded resumability, data/predictexons.sh:40-88).
-        The contig partitions of multi-process runs are not ported yet."""
+
+        contig_range=(lo, hi) processes only that contiguous contig block
+        (the multi-process data-parallel partition: per-contig results are
+        independent, so partition outputs concatenate byte-identically to
+        a single run -- parallel/multihost.py + mergepredictions)."""
         p = self.params
         timer = log.StageTimer()
         with timer.stage("load contigs+targets"):
             contigs = load_sequence_input(contigs_path, DBTYPE_NUCL)
             targets = load_target_input(targets_path)
-        dp_ckpt = os.path.join(tmp_dir, "dp_predictions") if tmp_dir \
-            else None
+        # checkpoint names are qualified by the contig partition so
+        # multi-process runs sharing one tmp_dir (multihost.py forwards
+        # the same tmp_dir to every rank) never clobber or cross-load
+        # each other's stage artifacts
+        _part = (f"_{contig_range[0]}_{contig_range[1]}"
+                 if contig_range else "")
+        dp_ckpt = os.path.join(tmp_dir, f"dp_predictions{_part}") \
+            if tmp_dir else None
         if dp_ckpt and os.path.exists(f"{dp_ckpt}.dbtype"):
             with timer.stage("resume dp_predictions"):
                 from ..cli import _parse_dp_payload
@@ -467,6 +480,7 @@ class EasyPredict:
         else:
             with timer.stage("predictexons"):
                 preds_per_contig = self.predict_exons(contigs, targets,
+                                                      contig_range,
                                                       tmp_dir=tmp_dir)
             if dp_ckpt:
                 os.makedirs(tmp_dir, exist_ok=True)
@@ -491,9 +505,10 @@ class EasyPredict:
         db_buffer = np.frombuffer(b"".join(chunks), dtype=np.uint8)
         log.MemoryTracker.track("contig db buffer", db_buffer.nbytes)
         n_written = 0
+        lo, hi = contig_range if contig_range else (0, len(contigs))
         with timer.stage("reduceredundancy+write"):
-            prog = log.progress(len(contigs), "write contigs", step=64)
-            for ci in range(len(contigs)):
+            prog = log.progress(hi - lo, "write contigs", step=64)
+            for ci in range(lo, hi):
                 prog.update()
                 preds = preds_per_contig.get(ci, [])
                 if not preds:
@@ -513,7 +528,8 @@ class EasyPredict:
         self.stage_seconds = timer.report()
         return out_prefix
 
-    def predict_exons(self, contigs, targets, tmp_dir=None):
+    def predict_exons(self, contigs, targets, contig_range=None,
+                      tmp_dir=None):
         """contig_idx -> list[Prediction] (collectoptimalset emission order).
 
         With tmp_dir set, the prefilter candidate pairs and the
@@ -521,13 +537,17 @@ class EasyPredict:
         notExists-guarded stage DBs, data/predictexons.sh:40-88), so a
         large interrupted run resumes at the failed stage."""
         p = self.params
-        lo, hi = 0, len(contigs)
+        lo, hi = contig_range if contig_range else (0, len(contigs))
         timer = log.StageTimer()
         extractor = OrfExtractor(p)
         is_profile = isinstance(targets, ProfileDB)
+        # partition-qualified checkpoint names (see run()): ranks sharing
+        # a tmp_dir each get their own stage artifacts
+        _part = (f"_{contig_range[0]}_{contig_range[1]}"
+                 if contig_range else "")
         _resumable = tmp_dir and any(
             os.path.exists(os.path.join(tmp_dir, f))
-            for f in ("search_hits.npy", "pref_pairs.npy"))
+            for f in (f"search_hits{_part}.npy", f"pref_pairs{_part}.npy"))
         # overlap the k-mer index build (target masking + native fill)
         # with fragment extraction+translation — the two stages share no
         # data and the reference runs them serially as processes.  The
@@ -553,11 +573,14 @@ class EasyPredict:
         def mk_driver():
             # driver staging (per-tier device-resident target matrices)
             # is likewise target-side state kept across runs; the key is
-            # the port's own, apart from the JAX package's "driver"
+            # the port's own, apart from the JAX package's "driver", and
+            # names the device list the launches fan over
+            devs = device_list(self.device, self.devices)
             return session.cached(
                 "driver_torch",
-                (session.db_fingerprint(targets), repr(p), str(self.device)),
-                lambda: SearchDriver(p, targets, self.device))
+                (session.db_fingerprint(targets), repr(p),
+                 tuple(str(d) for d in devs)),
+                lambda: SearchDriver(p, targets, self.device, devices=devs))
 
         # fused-pipeline decision happens BEFORE extraction (fragment
         # count estimated from residues) so extraction itself can join
@@ -567,7 +590,7 @@ class EasyPredict:
         if n_b == 0:
             n_b = 4 if est_frags >= 50_000 else 1
         n_b = max(1, min(n_b, hi - lo))
-        hits_ckpt = os.path.join(tmp_dir, "search_hits.npy") \
+        hits_ckpt = os.path.join(tmp_dir, f"search_hits{_part}.npy") \
             if tmp_dir else None
 
         if pref_fut is not None and n_b > 1:
@@ -614,7 +637,7 @@ class EasyPredict:
             elif p.prefilter_mode in ("ungapped", "kmer"):
                 driver = mk_driver()
                 pairs_ckpt = os.path.join(tmp_dir,
-                                          "pref_pairs.npy") \
+                                          f"pref_pairs{_part}.npy") \
                     if tmp_dir else None
                 pairs = None
                 if pairs_ckpt and os.path.exists(pairs_ckpt):

@@ -28,10 +28,20 @@ unless a query longer than QM_MAX_LQ is present. There is none of the
 TPU-link machinery (device result accumulators, prewarm, fixed launch
 shapes, uint16 result packs).
 
+Device fan-out (driver.py n_devices :263 and _dispatcher :278, which
+shard_map each launch's pairs or tiles over a 1D "pairs" mesh): the driver
+aligns on a list of devices, by default every CUDA device (capped by
+METAEUK_DEVICES) or the one device it is given. Each launch chunk is split
+into contiguous sub-chunks, one per listed device, each launched on its
+device's current stream from tiers staged once per device; the outputs come
+back in the chunks' order, so the hit array is the one-device array, field
+for field. Nothing is collective. A list may name one device twice.
+
 The jax-free host helpers of the JAX driver module are copied here, because
 that module imports jax at the top; each names its origin.
 """
 
+import contextlib
 import os
 import threading
 import time
@@ -259,12 +269,48 @@ def qm_tiles_per_launch(device_type, Lq, Lt, Lt_pad, n_tiles):
     return max(8, budget // (Lq * Lt_pad * TB))
 
 
-class SearchDriver:
-    """Aligns encoded fragments against an encoded target DB on `device`."""
+def n_devices():
+    """CUDA devices the driver fans its launches over by default:
+    torch.cuda.device_count(), capped by METAEUK_DEVICES (driver.py:263).
+    Local devices only: across processes the parallel unit is the contig
+    partition (parallel/multihost.py)."""
+    n = torch.cuda.device_count()
+    cap = os.environ.get("METAEUK_DEVICES")
+    if cap:
+        n = min(n, max(1, int(cap)))
+    return n
 
-    def __init__(self, params, target_db, device="cuda"):
+
+def device_list(device, devices=None):
+    """The devices a SearchDriver on `device` launches on: `devices` if
+    given, else cuda:0 .. cuda:n_devices()-1 for "cuda" (no index), else
+    [device]."""
+    if devices is not None:
+        devs = [torch.device(d) for d in devices]
+        if not devs:
+            raise ValueError("a SearchDriver needs at least one device")
+        return devs
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None and n_devices() > 0:
+        return [torch.device("cuda", i) for i in range(n_devices())]
+    return [device]
+
+
+def _on(dev):
+    """Makes `dev` the current CUDA device (its current stream the one the
+    kernels launch on); nothing for a CPU device."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+class SearchDriver:
+    """Aligns encoded fragments against an encoded target DB, its launches
+    fanned over `devices` (device_list(device, devices))."""
+
+    def __init__(self, params, target_db, device="cuda", devices=None):
         self.params = params
-        self.device = torch.device(device)
+        self.devices = device_list(device, devices)
+        self.device = self.devices[0]
         self.scoring = state.default_scoring(self.device)
         self.targets_enc = [encode_aa(target_db.seq_bytes(i))
                             for i in range(len(target_db))]
@@ -276,6 +322,9 @@ class SearchDriver:
         # driver's lifetime (repeated and pipelined search() calls)
         self._t_stage = {}
         self._q_cache = None
+        # tiers staged on self.device, copied to each other listed device:
+        # {(tier key, device): (source tier, copy)}
+        self._replicas = {}
         self._fine = True
         self._stage_lock = threading.Lock()
         self.phase_seconds = {}
@@ -321,31 +370,64 @@ class SearchDriver:
             self._q_cache = (orf_aa_seqs, orfs_enc, orf_lens, tiers)
         return orfs_enc, orf_lens, tiers
 
+    def _replica(self, key, st, dev):
+        """`st`, a tier staged on self.device, on `dev`: copied there once
+        (again only when the source tier changes)."""
+        if dev == self.device:
+            return st
+        with self._stage_lock:
+            got = self._replicas.get((key, dev))
+            if got is None or got[0] is not st:
+                got = (st, {k: v.to(dev) if torch.is_tensor(v) else v
+                            for k, v in st.items()})
+                self._replicas[(key, dev)] = got
+        return got[1]
+
+    def _stages(self, Lq, qt, Lt, tst):
+        """[(device, its staged query and target matrices)] for each listed
+        device, in list order."""
+        out = []
+        for dev in self.devices:
+            q = self._replica(("q", Lq), qt, dev)
+            t = self._replica(("t", Lt, self._fine), tst, dev)
+            out.append((dev, dict(
+                q_mat=q["q_mat"], qb_mat=q["qb_mat"], q_lens=q["q_lens"],
+                t_mat=t["t_mat"], t_lens=t["t_lens"],
+                scoring=state.default_scoring(dev))))
+        return out
+
     def _pairs_per_launch(self, Lq, Lt):
         budget = CELL_BUDGET.get(self.device.type, CELL_BUDGET["cpu"])
         return max(8, min(budget // (Lq * Lt), MAX_PAIRS_PER_LAUNCH))
 
     def _launch_chunks(self, ctx, rows, oi, ti, ends):
-        """Gather each chunk of `rows` on the device and launch the forward
-        kernel (ends None) or the reverse one (ends = host (qe, te)
-        arrays); yields (rows chunk, device outputs)."""
-        dev = self.device
+        """Split each chunk of `rows` into one contiguous sub-chunk per
+        listed device, gather it on its device and launch the forward
+        kernel (ends None) or the reverse one (ends = host (qe, te) arrays)
+        there; yields (rows sub-chunk, device outputs)."""
         cap = self._pairs_per_launch(ctx["Lq"], ctx["Lt"])
+        stages = ctx["stage"]
         for s in range(0, len(rows), cap):
-            r = rows[s:s + cap]
-            li = torch.from_numpy(ctx["q_remap"][oi[r]].astype(np.int64)).to(
-                dev)
-            lj = torch.from_numpy(ctx["t_remap"][ti[r]].astype(np.int64)).to(
-                dev)
-            args = (ctx["q_mat"][li], ctx["qb_mat"][li], ctx["q_lens"][li],
-                    ctx["t_mat"][lj], ctx["t_lens"][lj])
-            if ends is None:
-                outs = sw_cuda.sw_ends(*args, scoring=self.scoring)
-            else:
-                qe = torch.from_numpy(ends[0][r]).to(dev)
-                te = torch.from_numpy(ends[1][r]).to(dev)
-                outs = sw_cuda.sw_starts(*args, qe, te, scoring=self.scoring)
-            yield r, outs
+            for r, (dev, st) in zip(
+                    np.array_split(rows[s:s + cap], len(stages)), stages):
+                if not len(r):
+                    continue
+                with _on(dev):
+                    li = torch.from_numpy(
+                        ctx["q_remap"][oi[r]].astype(np.int64)).to(dev)
+                    lj = torch.from_numpy(
+                        ctx["t_remap"][ti[r]].astype(np.int64)).to(dev)
+                    args = (st["q_mat"][li], st["qb_mat"][li],
+                            st["q_lens"][li], st["t_mat"][lj],
+                            st["t_lens"][lj])
+                    if ends is None:
+                        outs = sw_cuda.sw_ends(*args, scoring=st["scoring"])
+                    else:
+                        qe = torch.from_numpy(ends[0][r]).to(dev)
+                        te = torch.from_numpy(ends[1][r]).to(dev)
+                        outs = sw_cuda.sw_starts(*args, qe, te,
+                                                 scoring=st["scoring"])
+                yield r, outs
 
     def _split_qm(self, ctx, rows, li_rows, qm_on):
         """Route each candidate pair to the query-major kernels (queries with
@@ -371,44 +453,66 @@ class SearchDriver:
         query-major forward kernel (ends None) or the reverse one (ends =
         host (qe, te) arrays), K5/K6 for queries longer than QM_MAX_LQ
         (sw_pallas.py _align_ends_qm :814, _align_starts_qm :832); yields
-        (lane -> pair row map, -1 on padding lanes; device outputs) per chunk
-        of tiles."""
+        (lane -> pair row map, -1 on padding lanes; device outputs) per
+        contiguous sub-chunk of tiles, one per listed device in each chunk."""
         if not len(rows):
             return
-        dev = self.device
         Lq, Lt = ctx["Lq"], ctx["Lt"]
         Lt_pad = Lt if Lt <= 512 else ((Lt + 511) // 512) * 512
         qidx, ljt, lane_pair = _make_qm_tiles(
             ctx["q_remap"][oi[rows]], ctx["t_remap"][ti[rows]], rows)
-        cap = qm_tiles_per_launch(dev.type, Lq, Lt, Lt_pad, len(qidx))
+        cap = qm_tiles_per_launch(self.device.type, Lq, Lt, Lt_pad,
+                                  len(qidx))
         if Lq > QM_MAX_LQ:
             fwd, rev = sw_cuda.qm_ends_rt, sw_cuda.qm_starts_rt
         else:
             fwd, rev = sw_cuda.qm_ends, sw_cuda.qm_starts
+        stages = ctx["stage"]
         for s in range(0, len(qidx), cap):
-            lanes = lane_pair[s:s + cap].reshape(-1)
-            args = (ctx["q_mat"], ctx["qb_mat"], ctx["q_lens"], ctx["t_mat"],
-                    ctx["t_lens"], torch.from_numpy(qidx[s:s + cap]).to(dev),
-                    torch.from_numpy(ljt[s:s + cap].reshape(-1)).to(dev))
-            if ends is None:
-                outs = fwd(*args, scoring=self.scoring)
-            else:
-                ok = lanes >= 0
-                qe = np.zeros(len(lanes), np.int32)
-                te = np.zeros(len(lanes), np.int32)
-                qe[ok], te[ok] = ends[0][lanes[ok]], ends[1][lanes[ok]]
-                outs = rev(*args, torch.from_numpy(qe).to(dev),
-                           torch.from_numpy(te).to(dev), scoring=self.scoring)
-            yield lanes, outs
+            tiles = np.arange(s, min(s + cap, len(qidx)))
+            for tl, (dev, st) in zip(np.array_split(tiles, len(stages)),
+                                     stages):
+                if not len(tl):
+                    continue
+                a, b = int(tl[0]), int(tl[-1]) + 1
+                lanes = lane_pair[a:b].reshape(-1)
+                with _on(dev):
+                    args = (st["q_mat"], st["qb_mat"], st["q_lens"],
+                            st["t_mat"], st["t_lens"],
+                            torch.from_numpy(qidx[a:b]).to(dev),
+                            torch.from_numpy(ljt[a:b].reshape(-1)).to(dev))
+                    if ends is None:
+                        outs = fwd(*args, scoring=st["scoring"])
+                    else:
+                        ok = lanes >= 0
+                        qe = np.zeros(len(lanes), np.int32)
+                        te = np.zeros(len(lanes), np.int32)
+                        qe[ok] = ends[0][lanes[ok]]
+                        te[ok] = ends[1][lanes[ok]]
+                        outs = rev(*args, torch.from_numpy(qe).to(dev),
+                                   torch.from_numpy(te).to(dev),
+                                   scoring=st["scoring"])
+                yield lanes, outs
 
     @staticmethod
     def _fetch(parts, which):
-        """Concatenate output `which[k]` of every part on the device and copy
-        it to the host in one transfer; drop padding lanes (row -1):
-        (rows, [np.int32 array per k])."""
+        """Concatenate output `which[k]` of every part on its device and copy
+        it to the host in one transfer per device, then put the parts back
+        in their order; drop padding lanes (row -1): (rows, [np.int32 array
+        per k])."""
         rows = np.concatenate([r for r, _ in parts])
-        outs = [torch.cat([o[k] for _, o in parts]).cpu().numpy()
-                for k in which]
+        by_dev = {}
+        for i, (_, o) in enumerate(parts):
+            by_dev.setdefault(o[0].device, []).append(i)
+        outs = []
+        for k in which:
+            got = [None] * len(parts)
+            for idx in by_dev.values():
+                flat = torch.cat([parts[i][1][k] for i in idx]).cpu().numpy()
+                ends = np.cumsum([len(parts[i][1][k]) for i in idx])[:-1]
+                for i, piece in zip(idx, np.split(flat, ends)):
+                    got[i] = piece
+            outs.append(np.concatenate(got))
         ok = rows >= 0
         return rows[ok], [o[ok] for o in outs]
 
@@ -470,10 +574,9 @@ class SearchDriver:
         for Lq, Lt in sorted(set(zip(lq_b.tolist(), lt_b.tolist()))):
             sel = np.flatnonzero((lq_b == Lq) & (lt_b == Lt))
             qt, tst = q_tiers[int(Lq)], self._target_tier(Lt)
-            ctx = dict(Lq=Lq, Lt=Lt, sel=sel, q_mat=qt["q_mat"],
-                       qb_mat=qt["qb_mat"], q_lens=qt["q_lens"],
-                       q_remap=qt["q_remap"], nq=qt["nq"], t_mat=tst["t_mat"],
-                       t_lens=tst["t_lens"], t_remap=tst["t_remap"])
+            ctx = dict(Lq=Lq, Lt=Lt, sel=sel, q_remap=qt["q_remap"],
+                       nq=qt["nq"], t_remap=tst["t_remap"],
+                       stage=self._stages(int(Lq), qt, Lt, tst))
             buckets.append(ctx)
             qm_rows, pair_rows = self._split_qm(
                 ctx, sel, qt["q_remap"][oi[sel]], qm_on)

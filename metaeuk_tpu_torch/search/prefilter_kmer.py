@@ -1,6 +1,6 @@
 # Copy of metaeuk_tpu/search/prefilter_kmer.py; only the imports differ, and
-# a METAEUK_DIST_TMP target split raises where it would reach jax and
-# parallel/dist_prefilter.py (ROADMAP M9).
+# a METAEUK_DIST_TMP target split counts the processes of the torch process
+# group (parallel/multihost.py) where the original asks jax.
 """Sensitivity-calibrated k-mer prefilter (the reference's default mode).
 
 Python driver for native/prefilter.cpp: similar-k-mer seeding over spaced
@@ -587,11 +587,18 @@ class ReferenceKmerPrefilter:
             # splits over processes (runMpiSplits role,
             # Prefiltering.cpp:575-660) — merged lists byte-identical
             dist_tmp = os.environ.get("METAEUK_DIST_TMP")
+            n_proc = 1
             if dist_tmp:
-                raise NotImplementedError(
-                    "multi-process target splits (METAEUK_DIST_TMP) are "
-                    "not ported to metaeuk_tpu_torch yet (ROADMAP M9)")
-            self.pf = SplitKmerPrefilter(tencs, n_splits=n_splits, **kw)
+                from ..parallel.multihost import process_count
+                n_proc = process_count()
+            if dist_tmp and n_proc > 1:
+                from ..parallel.dist_prefilter import \
+                    DistributedSplitKmerPrefilter
+                self.pf = DistributedSplitKmerPrefilter(
+                    tencs, dist_tmp, n_splits, **kw)
+            else:
+                self.pf = SplitKmerPrefilter(tencs, n_splits=n_splits,
+                                             **kw)
         else:
             self.pf = KmerPrefilter(tencs, **kw)
 

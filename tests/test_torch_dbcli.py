@@ -39,7 +39,7 @@ import chip_smoke  # noqa: E402
 
 GOLDEN = ROOT / "tests" / "golden"
 # the JAX CLI's subcommands the port does not have yet (ROADMAP section 1)
-QUEUED = {"bench", "mergepredictions"}
+QUEUED = {"bench"}
 # the subcommands of the last slices: the M11b commands, all host-only
 UTIL = {
     # dbtools4
@@ -168,10 +168,10 @@ def test_util_cases_cover_every_util_command():
 def test_port_subcommands_are_the_jax_clis_minus_the_queued():
     jax_cmds, port_cmds = set(subparsers(jax_cli.main)), set(
         subparsers(cli.main))
-    assert len(jax_cmds) == 150 and len(QUEUED) == 2
+    assert len(jax_cmds) == 150 and len(QUEUED) == 1
     assert QUEUED <= jax_cmds
     assert port_cmds == jax_cmds - QUEUED
-    assert len(port_cmds) == 148 and NEW | UTIL <= port_cmds
+    assert len(port_cmds) == 149 and NEW | UTIL <= port_cmds
 
 
 def test_device_flag_only_where_the_command_aligns():
@@ -194,6 +194,23 @@ def test_new_commands_take_the_jax_clis_flags():
         have = [(a.dest, tuple(a.option_strings), a.default, a.nargs)
                 for a in parsers[name]._actions if a.dest != "device"]
         assert have == want, name
+
+
+@pytest.mark.parametrize("name", ["easy-predict", "mergepredictions"])
+def test_multiprocess_commands_take_the_jax_clis_flags(name):
+    """easy-predict (with --contig-split) and mergepredictions take the JAX
+    CLI's options and positionals, plus easy-predict's --device (default
+    cuda); mergepredictions is host-only."""
+    jax_parsers, parsers = subparsers(jax_cli.main), subparsers(cli.main)
+    want = [(a.dest, tuple(a.option_strings), a.default, a.nargs)
+            for a in jax_parsers[name]._actions]
+    have = [(a.dest, tuple(a.option_strings), a.default, a.nargs)
+            for a in parsers[name]._actions if a.dest != "device"]
+    assert have == want
+    assert "contig_split" in {a.dest for a in parsers[name]._actions} or \
+        name == "mergepredictions"
+    dev = [a.default for a in parsers[name]._actions if a.dest == "device"]
+    assert dev == (["cuda"] if name == "easy-predict" else [])
 
 
 def test_aligning_commands_raise_without_a_card(tmp_path, monkeypatch):

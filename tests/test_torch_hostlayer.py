@@ -59,8 +59,12 @@ COPIES = ["params.py", "utils/log.py", "utils/session.py", "io/fasta.py",
 DATA_COPIES = ["data/resources/CovSeqidQscPercMinDiag.lib",
                "data/resources/CovSeqidQscPercMinDiagTargetCov.lib",
                "data/resources/README.md"]
-# copies whose one branch waits for a ROADMAP item, with the lines it drops
-WAITING = {"search/prefilter_kmer.py": "jax"}
+# copies whose one branch asks the torch process group where the original
+# asks jax: (the lines it drops, the lines it adds), stripped
+WAITING = {"search/prefilter_kmer.py": (
+    ["import jax", "n_proc = jax.process_count()"],
+    ["from ..parallel.multihost import process_count",
+     "n_proc = process_count()"])}
 # copies that add a device keyword (default cuda) and pass it on, with the
 # words that the other changed lines of their code may carry: gumbel's
 # _simulate aligns through ops/sw_cuda.py where the original imports
@@ -100,10 +104,8 @@ def test_data_copy_is_its_original(rel):
 @pytest.mark.parametrize("rel", sorted(WAITING))
 def test_waiting_copy_differs_only_in_its_branch(rel):
     gone, added = _changed(rel)
-    assert any(WAITING[rel] in line for line in gone)
-    assert len(gone) <= 13 and len(added) <= 5
-    assert any("NotImplementedError" in line for line in added)
-    assert not any("import" in line for line in added)
+    assert ([g.strip() for g in gone], [a.strip() for a in added]) == \
+        WAITING[rel]
 
 
 def _code(path):
@@ -238,7 +240,10 @@ def _fixture_fragments():
 
 
 def test_target_split_prefilter_matches_jax_and_dist_split_waits(
-        monkeypatch):
+        monkeypatch, tmp_path):
+    """The split prefilter's candidate pairs equal the JAX package's, also
+    with METAEUK_DIST_TMP set and no process group (one process: the
+    sequential split engine; the fanned one is tests/test_torch_dist.py's)."""
     targets = SeqDB.from_fasta(DATA / "proteins.faa", DBTYPE_AA)
     frags = _fixture_fragments()
     p = Params(split=2)
@@ -248,9 +253,15 @@ def test_target_split_prefilter_matches_jax_and_dist_split_waits(
         frags)
     assert len(ref) > 0
     np.testing.assert_array_equal(ref, got)
-    monkeypatch.setenv("METAEUK_DIST_TMP", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="M9"):
-        prefilter_kmer.ReferenceKmerPrefilter(p, targets)
+    # METAEUK_DIST_TMP with no process group: one process, the sequential
+    # split engine, the same candidate pairs
+    monkeypatch.setenv("METAEUK_DIST_TMP", str(tmp_path / "dist"))
+    ref_dist = jax_prefilter_kmer.ReferenceKmerPrefilter(
+        JaxParams(split=2), targets).candidate_pairs(frags)
+    pref = prefilter_kmer.ReferenceKmerPrefilter(p, targets)
+    assert isinstance(pref.pf, prefilter_kmer.SplitKmerPrefilter)
+    np.testing.assert_array_equal(ref_dist, pref.candidate_pairs(frags))
+    np.testing.assert_array_equal(ref, ref_dist)
 
 
 _LOADER_RUN = r"""

@@ -477,3 +477,35 @@ def test_util_modules_and_gumbel_fit_run_with_jax_blocked(tmp_path):
     golden, and the runtime Gumbel fit runs on the plain versions, with jax
     and metaeuk_tpu blocked."""
     _blocked_run(tmp_path, "kmer", _BLOCKED_UTIL)
+
+
+# the multi-process and multi-GPU layers: every new module imports; the dry
+# run's kernel steps on a one-rank gloo mesh, its fanned prefilter at one
+# process and its fixture easy-predict over ["cpu", "cpu"]
+_BLOCKED_PARALLEL = _BLOCK + r"""
+import importlib
+for m in ("parallel.multihost", "parallel.dist_prefilter", "parallel.dist",
+          "tools.dist_worker", "tools.dryrun"):
+    importlib.import_module(f"metaeuk_tpu_torch.{m}")
+from metaeuk_tpu_torch.tools import dryrun
+
+with dryrun.one_rank_group("cpu"):
+    dryrun.check_kernel_steps("cpu")
+    dryrun.check_dist_prefilter()
+dryrun.check_fixture("cpu", ["cpu", "cpu"])
+loaded = [k for k in sys.modules if sys.modules[k] is not None and (
+    k.split(".")[0].startswith("jax") or k.split(".")[0] in (
+        "metaeuk_tpu", "tools"))]
+assert not loaded, loaded
+print("jax-free run ok")
+"""
+
+
+def test_parallel_layers_run_with_jax_blocked(tmp_path):
+    """parallel/{multihost,dist_prefilter,dist}.py and tools/{dist_worker,
+    dryrun}.py import, and the dry run's one-rank mesh steps, fanned
+    prefilter and fanned fixture run pass, with jax, metaeuk_tpu and the
+    repository's tools/ blocked."""
+    _blocked_run(tmp_path, "kmer", _BLOCKED_PARALLEL.replace(
+        'sys.modules["metaeuk_tpu"] = None',
+        'sys.modules["metaeuk_tpu"] = None\nsys.modules["tools"] = None'))
