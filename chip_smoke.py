@@ -40,6 +40,11 @@ Phases, each fatal on failure:
      20 targets (under a block's 32 columns) and the shape's 100-3000, on
      planted pairs: the first and last diagonals' single cells and runs
      that end at q_len - 1 or t_len - 1 with padding that would extend them;
+     gapless_pair at the short-row widths 32, 64, 128 and 512 on the same
+     plants plus runs on each lane of a band of four diagonals, through
+     pair lists in order, shuffled with repeats, with indices of -1 and past
+     nq and nt, and with a query of one pair beside one of more pairs than
+     a block's 128 threads, at the wrapper's layout and a thread a pair;
      K1/K2's PSSM entries (sw_pair_ends_prof, sw_pair_starts_prof) on
      seeded staged PSSMs in [-32, 31] at the pair kernels' shapes (profiles
      up to 4,608 rows, one over 4096) read in a shuffled order, and on
@@ -213,10 +218,13 @@ Phases, each fatal on failure:
      at the default routing,
      K1/K2 and no K3 under METAEUK_QM=off, no plain version called
   5g. the iterative search at full width: (a) search --num-iterations
-     ITER_FULL_ITERATIONS -a on the search slice's 4,000 queries against
-     its 3,000 targets (tests/golden/make_iter_slice.py), in a process of
-     its own started after the build and joined after phase 6b (its host
-     stages take minutes); wall, stage seconds by step (k-mer prefilter, align,
+     ITER_FULL_ITERATIONS -a on every ITER_FULL_EVERY-th of the search
+     slice's 4,000 queries (2,000: a depth cut that keeps the slice's widths
+     and its mix of 90/60/40% copies and decoys) against its 3,000 targets
+     (tests/golden/make_iter_slice.py); (a), (b) and (c) one after the
+     other in a process of its own started after the build and joined
+     after phase 6b (their host stages take minutes); wall, stage seconds
+     by step (k-mer prefilter, align,
      realign, result2profile, profile prefilter, subtractdbs,
      ProfileQueryAligner.search, backtraces, mergedbs and the prefilter
      and alignment DB io), the driver's phase seconds, pairs and cells by
@@ -312,6 +320,21 @@ Phases, each fatal on failure:
      K1's uncapped instance launched once a step and no plain version
      called; its ms beside its bound, the collective bytes per rank; the
      2 x 2 mesh is checked only by tests/test_torch_dist.py on the CPU
+  5n. the k-mer-index prefilter at full width, in a process of its own
+     started before phase 5h and joined after 5m: (a) the k-mer slice's
+     61,457 fragments against its 3,000 targets through
+     search/kmer_prefilter.py's KmerPrefilter.candidate_pairs on the card:
+     the counts and the sha256 of the candidates, their scores and the kept
+     pairs equal tests/golden/kmerpf_slice.json's (the JAX package's),
+     gapless_pair launched for each short bucket (no candidate of the
+     slice lies in a long one), no plain version called; every candidate
+     scored again through gapless_long and the plain version on the card,
+     equal to the path's scores; (b) make_kmerpf_slice.PLANTED_CUT (a
+     1,024-aa fragment among the 0.01 Mbp cut's) on the card, gapless_pair
+     and gapless_long launched, equal to the plain version's run on the
+     CPU; wall, stage seconds (index, screen, rescore, select), pairs,
+     cells and each kernel's launches and summed ms (CUDA events) by staged
+     width beside its bound
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
@@ -325,12 +348,13 @@ Phases, each fatal on failure:
      one launch of the ungapped slices' largest query-major bucket (1,008
      tiles, Lq 256 x Lt 1024, live lanes and lengths drawn from its
      percentiles); K5/K6 also against the Lt
-     1024 tier (targets of 513-600 aa); gapless_long at one launch of the
-     long-frame slice (2 query rows of Lq 32768 x 1,687 targets of Lt
-     512), with gapless_pair's time on the same launch; gapless_rows,
-     gapless_pair and gapless_long on the same cross launches at Lq 128 x
-     Lt 512 and at Lq 32 x Lt 64 (the prefilter's launch of 349,525 rows x
-     12 targets)
+     1024 tier (targets of 513-600 aa); gapless_pair at GAPLESS_TIME_SHAPE
+     in pair-list order and shuffled (the wrapper's time and the kernel's
+     alone, beside the thread-per-pair design's); gapless_long at one
+     launch of the long-frame slice (2 query rows of Lq 32768 x 1,687
+     targets of Lt 512); gapless_rows, gapless_pair and gapless_long on
+     the same cross launches at Lq 128 x Lt 512 and at Lq 32 x Lt 64 (the
+     prefilter's launch of 349,525 rows x 12 targets)
   6b. the microbenchmark entry points (python -m metaeuk_tpu_torch.tools.
      kbench, .kernel_variants) over all their cases, the kernels launched
      and no plain version called; each new kernel's time beside its bound
@@ -487,6 +511,9 @@ PROF_CAP_RUNS = ((1152, 1152, 1100), (4096, 4096, 3500))
 # loop, takes minutes a round at 4,000 queries), and the seeded sample of
 # its last profile step's pairs that the plain versions realign on the card
 ITER_FULL_ITERATIONS = 2
+# the full run's depth cut: every ITER_FULL_EVERY-th query of the slice (its
+# widths and its mix of 90/60/40% copies and decoys kept)
+ITER_FULL_EVERY = 2
 ITER_SAMPLE = 20000
 ITER_SAMPLE_SEED = 20261017
 # K5/K6 (Lq tier, Lt, tiles), query lengths 8192..16384, timed with the
@@ -495,6 +522,14 @@ ITER_SAMPLE_SEED = 20261017
 QM_RT_TIME_SHAPE = (16384, 512, 64)
 QM_RT_WIDE_SHAPE = (16384, 1024, 64, 513, 600)
 GAPLESS_TIME_SHAPE = (128, 512, 1 << 18)
+# gapless_pair's time at GAPLESS_TIME_SHAPE in its first design, a thread
+# per pair walking its cells one diagonal at a time (PERF.md §6)
+GAPLESS_PAIR_THREAD_MS = 16.38
+# gapless_pair's planted pair lists (check_gapless_pairs): (Lq, Lt, query
+# rows, targets) at the short-row widths, each with more targets than a
+# block's 128 threads
+GAPLESS_PAIR_SHAPES = ((32, 64, 16, 300), (64, 128, 16, 300),
+                       (128, 512, 16, 300), (512, 1024, 16, 300))
 # gapless_rows, gapless_pair and gapless_long on one cross launch each: the
 # query rows of GAPLESS_TIME_SHAPE against its 3,000 targets, then the
 # prefilter's launch at Lq 32 x Lt 64 (12 targets of 60-64 aa, as in the
@@ -2834,14 +2869,16 @@ def check_iter_sample(np, torch, sw_cuda, sw_torch, last, n, seed):
 
 
 def iter_child(td):
-    """Phase 5g (a) and (b), in a process of its own that main() starts
-    after the build and joins before phase 6 (its host stages take minutes,
-    while the other phases run): the search slice's 4,000 queries against
-    its 3,000 targets through `search --num-iterations
-    ITER_FULL_ITERATIONS -a` on the card (run_iter_slice), reported by
-    report_iter_run, then check_iter_sample on its last profile step.
-    Writes td/result.json: the run's wall, launches and summed kernel ms,
-    the sample's counts. Returns 0, or raises."""
+    """Phase 5g, in a process of its own that main() starts after the build
+    and joins after phase 6b (its host stages take minutes, while the other
+    phases run): (a) and (b), every ITER_FULL_EVERY-th of the search
+    slice's 4,000 queries (a depth cut: the slice's widths and its mix of
+    90/60/40% copies and decoys stay) against its 3,000 targets through
+    `search --num-iterations ITER_FULL_ITERATIONS -a` on the card
+    (run_iter_slice), reported by report_iter_run, then check_iter_sample
+    on its last profile step; then (c), check_iter_cut. Writes
+    td/result.json: (a)'s wall, launches and summed kernel ms, the sample's
+    counts. Returns 0, or raises."""
     import numpy as np
     import torch
     sys.path.insert(0, str(ROOT))
@@ -2854,12 +2891,17 @@ def iter_child(td):
     if not torch.cuda.is_available():
         raise AssertionError("phase 5g needs the card")
     counters = (sw_cuda, ungapped_cuda)
+    from metaeuk_tpu_torch.io.fasta import read_fasta
+    from tools.make_metagenome import write_fasta
     t0 = time.perf_counter()
     paths = mis.iter_slice(mis.ITER_SLICE, td)
-    print(f"generated the search slice in {time.perf_counter() - t0:.2f} s",
+    queries = list(read_fasta(paths["queries"]))[::ITER_FULL_EVERY]
+    write_fasta(td / "q_full.faa", queries)
+    print(f"generated the search slice in {time.perf_counter() - t0:.2f} s; "
+          f"its every {ITER_FULL_EVERY}nd query: {len(queries)} queries",
           flush=True)
     cfg = dict(mis.ITER_SLICE, num_iterations=ITER_FULL_ITERATIONS)
-    argv = mis.search_args(cfg, paths["queries"], paths["targets"],
+    argv = mis.search_args(cfg, td / "q_full.faa", paths["targets"],
                            td / "res", td / "tmp") + ["--device", "cuda"]
     run, last = run_iter_slice(torch, cli, argv, probe=lambda: probe_run(
         torch, counters, driver, prefilter, sw_cuda))
@@ -2872,9 +2914,204 @@ def iter_child(td):
           f"aligned, {sample[2]} hits): raw outputs and hits equal to the "
           f"plain versions' on the card and to the step's hits, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    check_iter_cut(torch, cli, mis, read_db, td / "cut", counters, driver,
+                   prefilter, sw_cuda)
     (td / "result.json").write_text(json.dumps({
         "wall": run["wall"], "launches": run["probe"]["launches"],
         "kernel_ms": ms_by, "counts": counts, "sample": sample}))
+    return 0
+
+
+def check_iter_cut(torch, cli, mis, read_db, td, counters, driver, prefilter,
+                   sw_cuda):
+    """Phase 5g (c): make_iter_slice.ITER_SLICE's three iterations on the
+    search slice's cut (every 10th query) on the card, in td, reported by
+    report_iter_run; the counts and every digest equal
+    tests/golden/iter_slice.json's (the JAX package's), or raises."""
+    iter_golden = json.loads((GOLDEN / "iter_slice.json").read_text())
+    if iter_golden["input"] != json.loads(json.dumps(mis.ITER_SLICE)):
+        raise AssertionError("iter_slice.json was made from another "
+                             "input than make_iter_slice.ITER_SLICE")
+    t0 = time.perf_counter()
+    td.mkdir()
+    paths = mis.iter_slice(mis.ITER_SLICE, td)
+    cut_run, _ = run_iter_slice(torch, cli, mis.search_args(
+        mis.ITER_SLICE, paths["cut"], paths["targets"], td / "res",
+        td / "tmp") + ["--device", "cuda"],
+        probe=lambda: probe_run(torch, counters, driver, prefilter, sw_cuda))
+    cut_counts, cut_digests = mis.summary(mis.ITER_SLICE, td / "res",
+                                          td / "tmp", read_db)
+    report_iter_run("(c) the cut", cut_run, cut_counts)
+    if cut_counts != iter_golden["counts"] or \
+            cut_digests != iter_golden["sha256"]:
+        raise AssertionError("the cut's iterative search differs from "
+                             "iter_slice.json")
+    print(f"(c) the cut ({len(cut_digests)} DBs): every digest equal to "
+          f"iter_slice.json, {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def check_kmerpf_slice(np, torch, device):
+    """Phase 5n: (a) the k-mer slice's 61,457 fragments
+    (tests/golden/make_kmerpf_slice.py) against its 3,000 targets through
+    search/kmer_prefilter.py's KmerPrefilter.candidate_pairs on `device`,
+    the counts set to 0 before it and read after it: the counts and the
+    sha256 of the candidates, their scores and the kept pairs equal
+    kmerpf_slice.json's (the JAX package's); the kernel of each staged
+    width of the candidates' fragments launched (gapless_pair for the short
+    buckets; the slice's seven fragments over 512 aa have no candidate, in
+    the JAX package's run too, so gapless_long has no pair there), no other
+    kernel and no plain version called; then every candidate scored again
+    through launch("gapless_long") at one width and through the plain
+    version on the card, both equal to the path's scores. (b) The planted
+    cut (make_kmerpf_slice.PLANTED_CUT: a 1,024-aa fragment) through
+    candidate_pairs on `device`, gapless_pair and gapless_long launched
+    and no plain version called, its candidates, scores and kept pairs
+    equal to the plain version's run on the CPU. Prints the wall, the stage
+    seconds (index, screen, rescore, select), the pairs and cells, and each
+    gapless kernel's launches and summed ms (CUDA events around each
+    launch, after one uncounted launch of each kernel), by staged width and
+    in all, beside its bound. Returns the launches of (a) and (b) by
+    kernel."""
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(GOLDEN))
+    import make_kmerpf_slice as mks
+    from metaeuk_tpu_torch.io.seqdb import DBTYPE_AA, SeqDB
+    from metaeuk_tpu_torch.ops import ungapped_cuda, ungapped_torch
+    from metaeuk_tpu_torch.ops.orf import OrfExtractor
+    from metaeuk_tpu_torch.params import Params
+    from metaeuk_tpu_torch.search.driver import pad_rows
+    from metaeuk_tpu_torch.search.kmer_prefilter import KmerPrefilter
+    from metaeuk_tpu_torch.search.prefilter import _bucket
+    golden = json.loads((GOLDEN / "kmerpf_slice.json").read_text())
+    if golden["input"] != mks.KMERPF_SLICE:
+        raise AssertionError("kmerpf_slice.json was made from another input "
+                             "than make_kmerpf_slice.KMERPF_SLICE")
+    kw = mks.prefilter_kwargs(mks.KMERPF_SLICE)
+
+    def run(frags, targets, dev):
+        """(prefilter, kept, launches, plain, events, wall) of one
+        candidate_pairs call on dev, its counts set to 0 before it."""
+        ungapped_cuda.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with launch_events(torch, ungapped_cuda, by_lq=True) as events:
+            pf = KmerPrefilter(Params(), targets, device=dev, **kw)
+            kept = pf.candidate_pairs(frags)
+            torch.cuda.synchronize()
+        return (pf, kept, dict(ungapped_cuda.LAUNCHES),
+                dict(ungapped_cuda.PLAIN_CALLS), events,
+                time.perf_counter() - t0)
+
+    def report(what, pf, frags, targets, events, wall):
+        """{staged width: cells} of pf's last candidates, printed with the
+        run's seconds and each kernel's events beside its bound."""
+        cand = pf.last_candidates[0]
+        f_lens = np.array([len(f) for f in frags], np.int64)[cand[:, 0]]
+        cells = f_lens * targets.lengths[cand[:, 1]]
+        widths = np.array([_bucket(max(1, int(n))) for n in f_lens])
+        by_lq = {int(w): int(cells[widths == w].sum())
+                 for w in np.unique(widths)}
+        print(f"5n {what}: wall {wall:.3f} s; stage seconds "
+              + json.dumps(pf.stage_seconds) + f"; {len(cand)} candidate "
+              f"pairs, {int(cells.sum())} cells by staged width "
+              + json.dumps(by_lq), flush=True)
+        print_k7_by_lq(events, by_lq)
+        for k, (n, ms) in event_ms(events).items():
+            if " Lq " in k:
+                continue
+            c = sum(v for w, v in by_lq.items()
+                    if ungapped_cuda.kernel_for(w) == k)
+            bound_ms = c * GAPLESS_OPS / INT32_OPS_PER_S * 1e3
+            print(f"5n {what}: {k} {n} launches, {ms:.3f} ms (CUDA events "
+                  f"around each launch), {c} cells, bound {bound_ms:.4f} ms "
+                  f"(operations; {bound_ms / max(ms, 1e-9):.1%} of it)",
+                  flush=True)
+        return by_lq
+
+    # one launch of each kernel first, uncounted: a process's first launch
+    # of a kernel loads its module, which is not kernel time
+    warm = staged_batch(torch, np.random.default_rng(0), 32, 64, 4, 4, device)
+    for k in ("gapless_pair", "gapless_long"):
+        ungapped_cuda.launch(k, *warm, *[torch.arange(4, device=device)] * 2)
+    t0 = time.perf_counter()
+    frags, targets = mks.kmerpf_slice(mks.KMERPF_SLICE, OrfExtractor, Params,
+                                      SeqDB, DBTYPE_AA)
+    print(f"5n (a): generated {len(frags)} fragments and {len(targets)} "
+          f"targets in {time.perf_counter() - t0:.2f} s", flush=True)
+    pf, kept, launches, plain, events, wall = run(frags, targets, device)
+    by_lq = report("(a) the k-mer slice", pf, frags, targets, events, wall)
+    cand, scores = pf.last_candidates
+    counts, digs = mks.summary(frags, targets, cand, scores, kept)
+    print(f"5n (a): counts {counts}; launches {launches} plain {plain}",
+          flush=True)
+    if counts != golden["counts"] or digs != golden["sha256"]:
+        raise AssertionError(f"5n differs from kmerpf_slice.json: digests "
+                             f"{digs}")
+    want = {ungapped_cuda.kernel_for(w) for w in by_lq}
+    if "gapless_pair" not in want or any(
+            (launches[k] > 0) != (k in want) for k in launches) or \
+            any(plain.values()):
+        raise AssertionError(f"5n (a) did not go through {sorted(want)} "
+                             "alone")
+    total = {k: launches[k] for k in ("gapless_pair", "gapless_long")}
+    # every candidate again, on gapless_long and on the plain version
+    t0 = time.perf_counter()
+    frag_ids, li = np.unique(cand[:, 0], return_inverse=True)
+    enc, bias = pf.encode([frags[i] for i in frag_ids])
+    width = _bucket(max(len(e) for e in enc))
+    mk = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(
+        device=device, dtype=dt)
+    args = (mk(pad_rows(enc, width, np.uint8), torch.uint8),
+            mk(pad_rows(bias, width, np.int8), torch.int8),
+            mk([len(e) for e in enc], torch.int32), *pf.staged_targets(),
+            mk(li.reshape(-1), torch.int32), mk(cand[:, 1], torch.int32))
+    again = ungapped_cuda.launch("gapless_long", *args)
+    ref = ungapped_torch.gapless_gathered(*args)
+    if not (torch.equal(again, ref) and torch.equal(
+            torch.from_numpy(scores).to(device), ref)):
+        raise AssertionError("5n: the path's scores, gapless_long's and the "
+                             "plain version's differ")
+    print(f"5n (a): {len(cand)} candidates at width {width}: gapless_long "
+          "and the plain version equal the path's scores "
+          f"({time.perf_counter() - t0:.2f} s); counts and the 3 digests "
+          "equal kmerpf_slice.json", flush=True)
+
+    frags, targets = mks.planted_cut(mks.PLANTED_CUT, OrfExtractor, Params,
+                                     SeqDB, DBTYPE_AA)
+    pf, kept, launches, plain, events, wall = run(frags, targets, device)
+    report("(b) the planted cut", pf, frags, targets, events, wall)
+    ref_pf = KmerPrefilter(Params(), targets, device="cpu", **kw)
+    ref_kept = ref_pf.candidate_pairs(frags)
+    same = np.array_equal(kept, ref_kept) and all(
+        np.array_equal(a, b) for a, b in zip(pf.last_candidates,
+                                             ref_pf.last_candidates))
+    print(f"5n (b): {len(kept)} kept pairs; launches {launches} plain "
+          f"{plain}", flush=True)
+    if not same:
+        raise AssertionError("5n (b): the card's candidates, scores or kept "
+                             "pairs differ from the plain version's")
+    if min(launches["gapless_pair"], launches["gapless_long"]) == 0 or \
+            launches["gapless_rows"] or any(plain.values()):
+        raise AssertionError("5n (b) did not go through gapless_pair and "
+                             "gapless_long alone")
+    print("5n (b): candidates, scores and kept pairs equal the plain "
+          "version's on the CPU", flush=True)
+    return {k: total[k] + launches[k] for k in total}
+
+
+def kmerpf_child(td):
+    """Phase 5n, in a process of its own that main() starts before phase 5h
+    and joins after phase 5m (its screen is seconds of host numpy a
+    thousand fragments, while phases 5h-5j, whose kernels keep the card
+    idle above 99.9% of the time, run; its CUDA events may include their
+    kernels): check_kmerpf_slice on the card. Writes td/result.json: the
+    path's gapless launches. Returns 0, or raises."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise AssertionError("phase 5n needs the card")
+    launches = check_kmerpf_slice(np, torch, "cuda")
+    (td / "result.json").write_text(json.dumps({"launches": launches}))
     return 0
 
 
@@ -3886,6 +4123,103 @@ def check_gapless_kernel(torch, ungapped_cuda, ungapped_torch, errs):
             errs[name] = max(errs[name], max_err(torch, (got,), (ref,)))
         print(f"gapless Lq={Lq} Lt={Lt} pairs={nq * nt}: {name} equal "
               f"(best {int(ref.max())})", flush=True)
+    check_gapless_pairs(torch, ungapped_cuda, ungapped_torch, errs)
+
+
+def plant_band_runs(np, rng, q, qb, ql, t, tl, plants):
+    """Plants in place, on query rows nq - 8 .. nq - 5 against targets nt -
+    8 .. nt - 5 of staged numpy matrices (row k against target k, on
+    cross_gapless_rows's quiet background: residues other than W and C,
+    bias -9), a run of 24 residues (Lq 32: 16) on a diagonal d with d & 3
+    == k, k = 0 .. 3 (each lane of gapless_pair's band of four diagonals),
+    from a row i0 with i0 & 3 == (k + 1) & 3, so that it crosses groups of
+    four rows out of step; adds {(row, target): its self-score} to plants.
+    Needs Lq >= 32, Lt >= 64 and nq, nt >= 8."""
+    from metaeuk_tpu_torch.data.submat import BLOSUM62_SCORES, encode_aa
+    W, C = (int(encode_aa(r)[0]) for r in (b"W", b"C"))
+    quiet = np.array([a for a in range(20) if a not in (W, C)])
+    (nq, Lq), (nt, Lt) = q.shape, t.shape
+    L = min(24, Lq // 2)
+    for k in range(4):
+        r, c = nq - 8 + k, nt - 8 + k
+        q[r], qb[r], t[c] = rng.choice(quiet, Lq), -9, rng.choice(quiet, Lt)
+        ql[r], tl[c] = Lq, Lt
+        i0 = 4 + ((k + 1) & 3)
+        j0 = i0 + 12 + k
+        seg = rng.integers(0, 20, L)
+        q[r, i0:i0 + L], qb[r, i0:i0 + L] = seg, 0
+        t[c, j0:j0 + L] = seg
+        plants[(r, c)] = int(sum(BLOSUM62_SCORES[a, a] for a in seg))
+
+
+def gapless_pair_lists(np, rng, nq, nt):
+    """{name: (li, lj)} int32 pair lists over nq query rows and nt (over
+    128) targets: the cross product query by query ("cross"); the same with
+    every fifth pair repeated, shuffled ("shuffled"); seeded indices from
+    -1 to nq + 1 and nt + 1 ("out_of_range"); query 0's one pair beside
+    query 3 against every target and 40 repeats, more pairs than a block's
+    128 threads, shuffled ("one_and_many")."""
+    flat = np.arange(nq * nt)
+    li, lj = flat // nt, flat % nt
+    at = rng.permutation(np.r_[flat, flat[::5]])
+    many = np.r_[np.arange(nt), rng.integers(0, nt, 40)]
+    one_li = np.r_[0, np.full(len(many), 3)]
+    one_lj = np.r_[rng.integers(0, nt), many]
+    sh = rng.permutation(len(one_li))
+    lists = {"cross": (li, lj), "shuffled": (li[at], lj[at]),
+             "out_of_range": (rng.integers(-1, nq + 2, 4096),
+                              rng.integers(-1, nt + 2, 4096)),
+             "one_and_many": (one_li[sh], one_lj[sh])}
+    return {k: (a.astype(np.int32), b.astype(np.int32))
+            for k, (a, b) in lists.items()}
+
+
+def check_gapless_pairs(torch, ungapped_cuda, ungapped_torch, errs):
+    """gapless_pair against the plain version at GAPLESS_PAIR_SHAPES (the
+    short-row widths 32, 64, 128 and 512) on cross_gapless_rows's planted
+    matrices (zero-length row 1 and target 2, repeated targets, the first
+    and last diagonals' single cells, runs ending at q_len - 1 and t_len -
+    1 with padding that would extend them) plus plant_band_runs' runs on
+    each lane of a band of four diagonals, through every list of
+    gapless_pair_lists, at the wrapper's layout (these launches are small:
+    each pair's bands dealt over 8-32 threads) and with a thread a pair
+    (ungapped_cuda.PAIR_LAUNCH_THREADS 0); each call must go to
+    gapless_pair, and the cross list's planted pairs must score their
+    plants."""
+    import numpy as np
+    rng = np.random.default_rng(20261018)
+    mk = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(
+        device="cuda", dtype=dt)
+    for Lq, Lt, nq, nt in GAPLESS_PAIR_SHAPES:
+        q, qb, ql, t, tl, plants = cross_gapless_rows(np, rng, Lq, Lt, nq, nt)
+        plant_band_runs(np, rng, q, qb, ql, t, tl, plants)
+        args = (mk(q, torch.uint8), mk(qb, torch.int8), mk(ql, torch.int32),
+                mk(t, torch.uint8), mk(tl, torch.int32))
+        sizes, threads = {}, ungapped_cuda.PAIR_LAUNCH_THREADS
+        for name, (li, lj) in gapless_pair_lists(np, rng, nq, nt).items():
+            li, lj = mk(li, torch.int32), mk(lj, torch.int32)
+            ref = ungapped_torch.gapless_gathered(*args, li, lj)
+            for launch_threads in (threads, 0):
+                ungapped_cuda.PAIR_LAUNCH_THREADS = launch_threads
+                before = ungapped_cuda.LAUNCHES["gapless_pair"]
+                try:
+                    got = ungapped_cuda.gapless_scores_gathered(*args, li, lj)
+                finally:
+                    ungapped_cuda.PAIR_LAUNCH_THREADS = threads
+                torch.cuda.synchronize()
+                if ungapped_cuda.LAUNCHES["gapless_pair"] != before + 1:
+                    raise AssertionError(f"Lq={Lq} did not go to "
+                                         "gapless_pair")
+                errs["gapless_pair"] = max(errs["gapless_pair"],
+                                           max_err(torch, (got,), (ref,)))
+            sizes[name] = len(li)
+            if name == "cross":
+                scores = {k: int(ref[k[0] * nt + k[1]]) for k in plants}
+        if scores != plants:
+            raise AssertionError(f"planted scores {scores}, expected "
+                                 f"{plants}")
+        print(f"gapless_pair Lq={Lq} Lt={Lt} rows={nq} targets={nt}: equal "
+              f"on every list {sizes} (planted {scores})", flush=True)
 
 
 def long_gapless_pairs(np, rng, Lq, Lt, q_lo, q_hi):
@@ -4266,25 +4600,56 @@ def time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
             out.update(rows)
             same = pair_ms
 
-    # gapless kernel: the prefilter's cross product of one bucket pair
+    out["gapless_pair"] = time_gapless_pair(torch, rng, nt, ungapped_cuda,
+                                            ungapped_torch, errs)
+    return out, same
+
+
+def time_gapless_pair(torch, rng, nt, ungapped_cuda, ungapped_torch, errs):
+    """(ms, plain_ms, bound_ms, bound_by) of gapless_pair at
+    GAPLESS_TIME_SHAPE: the prefilter's cross product of one bucket pair
+    (nt targets) as a pair list, query by query (its callers' order); prints
+    its ms there and on the same pairs shuffled (the wrapper's sort and
+    work list inside the time), both outputs equal to the plain version's,
+    beside the bound and the thread-per-pair design's ms."""
+    dev = "cuda"
     Lq, Lt, B = GAPLESS_TIME_SHAPE
     nq = B // nt + 1
     staged = staged_batch(torch, rng, Lq, Lt, nq, nt, dev, lo=Lq // 2)
     flat = torch.arange(B, device=dev)
     li, lj = (flat // nt).int(), (flat % nt).int()
+    shuffle = torch.from_numpy(rng.permutation(B)).to(dev)
     cells = int((staged[2][li.long()].long()
                  * staged[4][lj.long()].long()).sum())
+    ref = ungapped_torch.gapless_gathered(*staged, li, lj)
     best = ungapped_cuda.gapless_scores_gathered(*staged, li, lj)
+    shuffled = ungapped_cuda.gapless_scores_gathered(
+        *staged, li[shuffle], lj[shuffle])
     errs["gapless_pair"] = max(errs["gapless_pair"], max_err(
-        torch, (best,), (ungapped_torch.gapless_gathered(*staged, li, lj),)))
-    out["gapless_pair"] = (
-        time_ms(torch, lambda: ungapped_cuda.gapless_scores_gathered(
-            *staged, li, lj), 10),
-        time_ms(torch, lambda: ungapped_torch.gapless_gathered(
-            *staged, li, lj), 2),
-        *bound(cells, GAPLESS_OPS, (*staged, li, lj, best)))
-    print(f"gapless pairs={B} Lq={Lq} Lt={Lt}: {cells} cells", flush=True)
-    return out, same
+        torch, (best, shuffled), (ref, ref[shuffle])))
+    ms, kernel_ms = {}, {}
+    for k, (a, b) in (("in pair-list order", (li, lj)),
+                      ("shuffled", (li[shuffle], lj[shuffle]))):
+        call = lambda a=a, b=b: ungapped_cuda.gapless_scores_gathered(
+            *staged, a, b)
+        ms[k] = time_ms(torch, call, 10)
+        with launch_events(torch, ungapped_cuda) as events:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        kernel_ms[k] = event_ms(events)["gapless_pair"][1] / 10
+    row = (ms["in pair-list order"],
+           time_ms(torch, lambda: ungapped_torch.gapless_gathered(
+               *staged, li, lj), 2),
+           *bound(cells, GAPLESS_OPS, (*staged, li, lj, best)))
+    print(f"gapless_pair pairs={B} Lq={Lq} Lt={Lt}, {cells} cells: "
+          + ", ".join(f"{k} {v:.4f} ms ({cells / v * 1e3:.4e} cells/s; the "
+                      f"kernel alone {kernel_ms[k]:.4f} ms)"
+                      for k, v in ms.items())
+          + f"; bound {row[2]:.4f} ms ({row[3]}); the thread-per-pair "
+          f"design {GAPLESS_PAIR_THREAD_MS} ms; both outputs equal the "
+          "plain version's", flush=True)
+    return row
 
 
 def qm_time_cases(torch, np, rng, nt):
@@ -4465,7 +4830,8 @@ def time_gapless_long(torch, np, ungapped_cuda, ungapped_torch, errs):
     """(ms, plain_ms, bound_ms, bound_by) of gapless_long at
     GAPLESS_LONG_TIME_SHAPE (the prefilter's cross product of the query
     rows and the targets), its output there equal to the plain version's
-    and gapless_pair's; prints gapless_pair's ms on the same launch."""
+    (gapless_pair stages a query's profile in shared memory and takes no
+    such width)."""
     Lq, Lt, nq, (q_lo, q_hi), nt, (t_lo, t_hi) = GAPLESS_LONG_TIME_SHAPE
     rng = np.random.default_rng(12)
     q, qb, _, t, _ = staged_batch(torch, rng, Lq, Lt, nq, nt, "cuda")
@@ -4479,18 +4845,14 @@ def time_gapless_long(torch, np, ungapped_cuda, ungapped_torch, errs):
     ref = ungapped_torch.gapless_gathered(*args)
     errs["gapless_long"] = max(errs["gapless_long"],
                                max_err(torch, (best,), (ref,)))
-    max_err(torch, (ungapped_cuda.launch("gapless_pair", *args),), (ref,))
     row = (time_ms(torch, lambda: ungapped_cuda.launch("gapless_long", *args),
                    10),
            time_ms(torch, lambda: ungapped_torch.gapless_gathered(*args), 1),
            *bound(cells, GAPLESS_OPS, (*args, best)))
-    pair_ms = time_ms(
-        torch, lambda: ungapped_cuda.launch("gapless_pair", *args), 1)
     print(f"gapless_long: {nq} query rows of {q_lo}-{q_hi} aa (Lq {Lq}) x "
           f"{nt} targets of {t_lo}-{t_hi} aa (Lt {Lt}), {cells} cells: "
           f"kernel {row[0]:.4f} ms ({cells / row[0] * 1e3:.4e} cells/s), "
-          f"bound {row[2]:.4f} ms ({row[3]}), plain {row[1]:.4f} ms, "
-          f"gapless_pair {pair_ms:.4f} ms on the same launch; all three "
+          f"bound {row[2]:.4f} ms ({row[3]}), plain {row[1]:.4f} ms; "
           "outputs equal", flush=True)
     return row
 
@@ -4914,6 +5276,8 @@ def main():
         return iter_child(pathlib.Path(sys.argv[2]))
     if sys.argv[1:2] == ["--gumbel-slice"]:
         return gumbel_child(pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--kmerpf-slice"]:
+        return kmerpf_child(pathlib.Path(sys.argv[2]))
     if sys.argv[1:2] == ["--dist-slice"]:
         return dist_child(pathlib.Path(sys.argv[2]))
     if sys.argv[1:2] == ["--serve"]:
@@ -5655,33 +6019,10 @@ def run_phases(stack):
               "tax_slice.json", flush=True)
         print(f"phases 5-5f: {time.perf_counter() - t5:.2f} s", flush=True)
 
-        phase("5g the iterative search at full width: search "
-              "--num-iterations on the search slice's 4,000 queries (its "
-              "own process since the build), then 3 iterations on its cut")
-        import make_iter_slice as mis
-        from metaeuk_tpu_torch.io.mmseqsdb import read_db
-        iter_golden = json.loads((GOLDEN / "iter_slice.json").read_text())
-        if iter_golden["input"] != json.loads(json.dumps(mis.ITER_SLICE)):
-            raise AssertionError("iter_slice.json was made from another "
-                                 "input than make_iter_slice.ITER_SLICE")
-        t0 = time.perf_counter()
-        (td / "ig").mkdir()
-        paths = mis.iter_slice(mis.ITER_SLICE, td / "ig")
-        cut_run, _ = run_iter_slice(torch, cli, mis.search_args(
-            mis.ITER_SLICE, paths["cut"], paths["targets"],
-            td / "ig" / "res", td / "ig" / "tmp") + ["--device", "cuda"],
-            probe=lambda: probe_run(torch, counters, driver, prefilter,
-                                    sw_cuda))
-        cut_counts, cut_digests = mis.summary(
-            mis.ITER_SLICE, td / "ig" / "res", td / "ig" / "tmp", read_db)
-        report_iter_run("(c) the cut", cut_run, cut_counts)
-        if cut_counts != iter_golden["counts"] or \
-                cut_digests != iter_golden["sha256"]:
-            raise AssertionError("the cut's iterative search differs from "
-                                 "iter_slice.json")
-        print(f"(c) the cut ({len(cut_digests)} DBs): every digest equal to "
-              f"iter_slice.json, {time.perf_counter() - t0:.2f} s",
-              flush=True)
+        # phase 5n's process starts here, beside phases 5h-5j, whose host
+        # stages leave the card idle: its screen would slow phases 3-5g
+        kmerpf, kmerpf_td = stack.enter_context(
+            child_process("--kmerpf-slice"))
 
         phase("5h the clustering and linear-search family at full width: "
               "the search slice's 7,000 proteins, their cut against the JAX "
@@ -5790,6 +6131,22 @@ def run_phases(stack):
         print(f"phase 5m: {time.perf_counter() - t0:.2f} s, the script at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
+        phase("5n the k-mer-index prefilter at full width: the k-mer "
+              "slice's 61,457 fragments against its 3,000 targets, then the "
+              "planted cut (its process, started before phase 5h, joined)")
+        t0 = time.perf_counter()
+        rc = join_child(kmerpf, CHILD_DEADLINE - (t0 - t_start))
+        print(f"waited {time.perf_counter() - t0:.2f} s for it; its output:",
+              flush=True)
+        print((kmerpf_td / "log").read_text(), flush=True)
+        if rc != 0:
+            raise AssertionError(f"phase 5n's process failed (exit {rc})")
+        for k, n in json.loads((kmerpf_td / "result.json").read_text())[
+                "launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        print(f"phase 5n joined, the script at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     phase("6 kernel and plain-version times")
     times, same = time_kernels(torch, np, sw_cuda, sw_torch, ungapped_cuda,
                                ungapped_torch, errs)
@@ -5814,7 +6171,10 @@ def run_phases(stack):
     launches.update(tool_launches)
     print(f"phase 6b: {time.perf_counter() - t0:.2f} s", flush=True)
 
-    phase("5g (a) and (b): the full slice's process, joined")
+    phase("5g the iterative search at full width: search "
+          "--num-iterations on every second of the search slice's 4,000 "
+          "queries, then 3 iterations on its cut (their process, started "
+          "after the build, joined)")
     t0 = time.perf_counter()
     rc = join_child(child, CHILD_DEADLINE - (t0 - t_start))
     print(f"waited {time.perf_counter() - t0:.2f} s for it; its output:",

@@ -1,34 +1,22 @@
 // Ungapped (gapless) diagonal scoring for NVIDIA Hopper (sm_90a).
 //
-// gapless_pair replaces metaeuk_tpu/ops/ungapped.py::_gapless_kernel (K7), and
-// with it ungapped.py::_build_S: for each (query, target) pair, the best
-// local run over all diagonals,
+// The three entry points replace metaeuk_tpu/ops/ungapped.py::_gapless_kernel
+// (K7), and with it ungapped.py::_build_S: for each (query, target) pair,
+// the best local run over all diagonals,
 //   D(i,j) = max(0, D(i-1,j-1) + S(i,j)),   score = max D (floored at 0),
 // over rows i < q_len and columns j < t_len, with
-// S(i,j) = submat[q_i][t_j] + bias_i looked up in a shared-memory copy of the
-// substitution matrix, in int32, instead of read from an int8 (Lt, Lq, B)
-// score tensor.
-//
-// Design: one thread per pair. D(i,j) depends only on D(i-1,j-1), so the
-// recurrence splits by diagonal: the thread walks the diagonals one after the
-// other (Kadane's scan) with one register of state and needs no column
+// S(i,j) = submat[q_i][t_j] + bias_i taken from a query profile in shared
+// memory instead of read from an int8 (Lt, Lq, B) score tensor. D(i,j)
+// depends only on D(i-1,j-1), so the recurrence splits by diagonal: a
+// thread walks diagonals with its runs in registers and needs no column
 // scratch at all; the TPU kernel keeps a (Lq, 128) column of D in VMEM only
-// because it streams columns. Rows >= q_len (the TPU's NEG mask) and columns
-// >= t_len end a diagonal, which is exact: D past them never reaches the best.
-// Queries and targets are read from transposed staged matrices, qT (Lq, nq)
-// and tT (Lt, nt), through the pair's row indices li and lj. The prefilter
-// launches the cross product of a query block and a target block query-major
-// (consecutive pairs share li and walk consecutive lj), so at each step the
-// threads of a warp read one query byte (a broadcast) and neighbouring target
-// bytes (one coalesced load).
+// because it streams columns.
 //
-// What bounds it on an H100: about five integer operations per cell (the
-// score add, the bias add, the run add, two max) and three byte loads per
-// cell served from L1; device memory traffic is small (the staged matrices
-// are read from cache). The least is two instructions per cell: with the bias
-// folded into a query profile, run = __viaddmax_s32_relu(run, s, 0) and one
-// max. gapless_rows (below) does that for the prefilter's cross products;
-// gapless_pair stays the kernel for pairs that are not one.
+// gapless_long takes long query rows (a block per pair and 256 diagonals),
+// gapless_rows the ungapped prefilter's cross products of short rows, and
+// gapless_pair arbitrary pair lists of short rows (the k-mer-index
+// prefilter's candidates) on gapless_rows's thread loop. All three compute
+// the same function; ops/ungapped_cuda.py picks one.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -36,73 +24,10 @@
 namespace {
 
 constexpr int kAlphPad = 32;
-constexpr int kThreads = 128;
-
-__global__ void __launch_bounds__(kThreads) gapless_pair_kernel(
-    const int32_t* __restrict__ submat, int alph,
-    const uint8_t* __restrict__ qT, const int8_t* __restrict__ qbT,
-    const int32_t* __restrict__ q_lens, int nq, int Lq,
-    const uint8_t* __restrict__ tT, const int32_t* __restrict__ t_lens,
-    int nt, int Lt, const int32_t* __restrict__ li,
-    const int32_t* __restrict__ lj, long long B,
-    int32_t* __restrict__ best_out) {
-  __shared__ int sm[kAlphPad * kAlphPad];
-  for (int k = threadIdx.x; k < kAlphPad * kAlphPad; k += blockDim.x) {
-    const int r = k / kAlphPad, c = k % kAlphPad;
-    sm[k] = (r < alph && c < alph) ? submat[r * alph + c] : 0;
-  }
-  __syncthreads();
-  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (b >= B) return;
-  const int qi = li[b], tj = lj[b];
-  if (qi < 0 || qi >= nq || tj < 0 || tj >= nt) {
-    best_out[b] = 0;
-    return;
-  }
-  const int m = max(0, min(q_lens[qi], Lq));
-  const int n = max(0, min(t_lens[tj], Lt));
-  const size_t qs = static_cast<size_t>(nq), ts = static_cast<size_t>(nt);
-  int best = 0;
-  // diagonal d = j - i, from the bottom-left corner to the top-right one
-  for (int d = 1 - m; d < n; ++d) {
-    int i = max(0, -d);
-    const int i_end = min(m, n - d);
-    int run = 0;
-    for (; i < i_end; ++i) {
-      const int s = sm[qT[i * qs + qi] * kAlphPad + tT[(i + d) * ts + tj]] +
-                    qbT[i * qs + qi];
-      run = max(run + s, 0);
-      best = max(best, run);
-    }
-  }
-  best_out[b] = best;
-}
 
 }  // namespace
 
-// qT, qbT: (Lq, nq) transposed staged query codes and biases; tT: (Lt, nt)
-// transposed staged target codes; li, lj: (B,) row indices of each pair (a
-// pair with an index out of range scores 0). Every pointer is on the device;
-// the launch goes on `stream` and does not synchronise. Returns
-// cudaGetLastError().
-extern "C" int gapless_pair(const int32_t* submat, int alph,
-                            const uint8_t* qT, const int8_t* qbT,
-                            const int32_t* q_lens, int nq, int Lq,
-                            const uint8_t* tT, const int32_t* t_lens, int nt,
-                            int Lt, const int32_t* li, const int32_t* lj,
-                            long long B, int32_t* best, void* stream) {
-  if (B > 0) {
-    const long long blocks = (B + kThreads - 1) / kThreads;
-    gapless_pair_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        submat, alph, qT, qbT, q_lens, nq, Lq, tT, t_lens, nt, Lt, li, lj, B,
-        best);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// gapless_long computes gapless_pair's function for long query rows (the
+// gapless_long computes K7's function for long query rows (the
 // prefilter's buckets from ops/ungapped_cuda.py LONG_ROWS up). At the
 // longest (fragments over 4096 aa) a launch holds a few thousand pairs (the
 // prefilter sizes it to 2^36 cells), so a thread per pair leaves most SMs
@@ -227,12 +152,13 @@ __global__ void __launch_bounds__(kLongThreads) gapless_long_kernel(
 
 }  // namespace
 
-// The arguments of gapless_pair, but q_mat, qb_mat: (nq, Lq) staged query
-// codes and biases and t_mat: (nt, Lt) staged target codes, row-major (not
-// transposed). Zeroes best on `stream`, then launches B * ceil((Lq + Lt -
-// 1) / kLongThreads) blocks there; does not synchronise. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue when the grid would pass 2^31
-// - 1 blocks.
+// q_mat, qb_mat: (nq, Lq) staged query codes and biases and t_mat: (nt, Lt)
+// staged target codes, row-major; q_lens, t_lens: their lengths; li, lj: (B,)
+// row indices of each pair (a pair with an index out of range scores 0).
+// Every pointer is on the device. Zeroes best on `stream`, then launches
+// B * ceil((Lq + Lt - 1) / kLongThreads) blocks there; does not
+// synchronise. Returns cudaGetLastError(), or cudaErrorInvalidValue when
+// the grid would pass 2^31 - 1 blocks.
 extern "C" int gapless_long(const int32_t* submat, int alph,
                             const uint8_t* q_mat, const int8_t* qb_mat,
                             const int32_t* q_lens, int nq, int Lq,
@@ -261,12 +187,12 @@ extern "C" int gapless_long(const int32_t* submat, int alph,
   return static_cast<int>(cudaGetLastError());
 }
 
-// gapless_rows computes gapless_pair's function on the ungapped prefilter's
-// launches, which are cross products: staged query rows r0 .. r0 + rows - 1
-// against every staged target of a bucket (12 to 1,687 targets on the
-// slices of PERF.md), for query widths below ops/ungapped_cuda.py LONG_ROWS
-// (fragments up to 512 aa). A thread per pair reads three bytes from
-// device memory a cell; a block per pair (gapless_long) restages a
+// gapless_rows computes K7's function on the ungapped prefilter's launches,
+// which are cross products: staged query rows r0 .. r0 + rows - 1 against
+// every staged target of a bucket (12 to 1,687 targets on the slices of
+// PERF.md), for query widths below ops/ungapped_cuda.py LONG_ROWS (fragments
+// up to 512 aa). A thread per pair that reads its codes from device memory
+// pays three byte loads a cell; a block per pair (gapless_long) restages a
 // 21-row query profile for pairs of only 32 x 64 cells.
 //
 // Design: a block per (group of R query rows, tile of T targets), a thread
@@ -281,23 +207,23 @@ extern "C" int gapless_long(const int32_t* submat, int alph,
 // thread scores its own pair and writes its score: no atomics, no scratch.
 //
 // A thread walks its pair in bands of kBand = 4 consecutive diagonals d0 ..
-// d0 + 3 (d0 a multiple of 4), row by row: at row i the band's cells are
-// columns i + d0 .. i + d0 + 3, so four rows of a band take seven target
-// columns, one new 32-bit word of four codes, and the four runs are
-// independent chains. The target codes come packed four to a word,
-// transposed and sorted by length by the wrapper: word (c, s) holds columns
-// 4c - 8 .. 4c - 5 of the s-th longest target, so the lanes of a row (the
-// same i and d0, consecutive s) read one 128-byte line, and their loops end
-// at nearly the same row. Columns < 0 and >= t_len hold the code alph, whose
-// profile entry is 0, and so do the profile rows from q_len to q_len + 3,
-// so every band starts on a word and runs whole groups of four rows with
-// no bounds inside: a score of 0 (or less) is exact there, because such
-// cells lie before a diagonal's first cell, where the run is 0 and stays
-// 0, or after its last, where the run can only stay or fall and so never
-// passes the best it already counted; no run restarts after them. A group
-// of four rows is a word load, seven byte extracts and address adds, 16
-// shared loads, 16 __viaddmax_s32_relu and eight __vimax3_s32: under four
-// instructions a cell.
+// d0 + 3 (d0 a multiple of 4), row by row (gapless_bands): at row i the
+// band's cells are columns i + d0 .. i + d0 + 3, so four rows of a band
+// take seven target columns, one new 32-bit word of four codes, and the
+// four runs are independent chains. The target codes come packed four to a
+// word, transposed and sorted by length by the wrapper: word (c, s) holds
+// columns 4c - 8 .. 4c - 5 of the s-th longest target, so the lanes of a
+// row (the same i and d0, consecutive s) read one 128-byte line, and their
+// loops end at nearly the same row. Columns < 0 and >= t_len hold the code
+// alph, whose profile entry is 0, and so do the profile rows from q_len to
+// q_len + 3, so every band starts on a word and runs whole groups of four
+// rows with no bounds inside: a score of 0 (or less) is exact there,
+// because such cells lie before a diagonal's first cell, where the run is 0
+// and stays 0, or after its last, where the run can only stay or fall and
+// so never passes the best it already counted; no run restarts after them.
+// A group of four rows is a word load, seven byte extracts and address
+// adds, 16 shared loads, 16 __viaddmax_s32_relu and eight __vimax3_s32:
+// under four instructions a cell.
 //
 // What bounds it on an H100: the dispatch of those instructions, two to
 // three a cell on the int32 pipe; device memory traffic is a quarter byte
@@ -311,54 +237,46 @@ constexpr int kBand = 4;                   // diagonals a thread walks at once
 constexpr int kLeadCols = 8;               // sentinel columns before column 0
 constexpr int kPadRows = 4;                // zero profile rows past Lq
 
-template <int SA>
-__global__ void __launch_bounds__(kRowsThreads) gapless_rows_kernel(
-    const int32_t* __restrict__ submat, int alph,
-    const uint8_t* __restrict__ q_mat, const int8_t* __restrict__ qb_mat,
-    const int32_t* __restrict__ q_lens, int Lq,
-    const uint32_t* __restrict__ t_words, const int32_t* __restrict__ t_lens,
-    const int32_t* __restrict__ order, int nt, int Lt, int r0, int rows,
-    int T, int R, int tiles, int32_t* __restrict__ best_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int sub_s[kAlphPad * kAlphPad];
-  int16_t* prof = reinterpret_cast<int16_t*>(smem);  // [R][Lq + 4][SA]
-  const int PR = Lq + kPadRows;
-  const int group = blockIdx.x / tiles, tile = blockIdx.x % tiles;
-  const int t = threadIdx.x, nthr = blockDim.x;
-  for (int k = t; k < kAlphPad * kAlphPad; k += nthr) {
+__device__ __forceinline__ void fill_sub(int* sub_s, const int32_t* submat,
+                                         int alph) {
+  for (int k = threadIdx.x; k < kAlphPad * kAlphPad; k += blockDim.x) {
     const int r = k / kAlphPad, c = k % kAlphPad;
     sub_s[k] = (r < alph && c < alph) ? submat[r * alph + c] : 0;
   }
-  __syncthreads();
-  for (int e = t; e < R * PR; e += nthr) {
-    const int rr = e / PR, i = e - rr * PR, row = group * R + rr;
-    if (row >= rows) continue;
-    int16_t* p = prof + static_cast<size_t>(e) * SA;
-    if (i < min(q_lens[r0 + row], Lq)) {
-      const size_t at = static_cast<size_t>(r0 + row) * Lq + i;
-      const int* s = sub_s + q_mat[at] * kAlphPad;
-      const int bias = qb_mat[at];
-      for (int a = 0; a < alph; ++a) p[a] = static_cast<int16_t>(s[a] + bias);
-      p[alph] = 0;
-    } else {
-      for (int a = 0; a <= alph; ++a) p[a] = 0;
-    }
-  }
-  __syncthreads();
+}
 
-  const int rr = t / T, slot = tile * T + (t - rr * T);
-  const int row = group * R + rr;
-  if (row >= rows || slot >= nt) return;
-  const int tj = order[slot];
-  const int m = max(0, min(q_lens[r0 + row], Lq));
-  const int n = max(0, min(t_lens[tj], Lt));
-  const int16_t* P = prof + static_cast<size_t>(rr) * PR * SA;
-  const uint32_t* W = t_words + slot;
-  const size_t ws = static_cast<size_t>(nt);
+// Row i of a query profile: p[a] = submat[q_i][a] + bias_i for a < alph and
+// p[alph] = 0 (the code of no column) while i < m, all zero from m on.
+__device__ __forceinline__ void profile_row(int16_t* p, const int* sub_s,
+                                            const uint8_t* q_row,
+                                            const int8_t* b_row, int m, int i,
+                                            int alph) {
+  if (i < m) {
+    const int* s = sub_s + q_row[i] * kAlphPad;
+    const int bias = b_row[i];
+    for (int a = 0; a < alph; ++a) p[a] = static_cast<int16_t>(s[a] + bias);
+    p[alph] = 0;
+  } else {
+    for (int a = 0; a <= alph; ++a) p[a] = 0;
+  }
+}
+
+// The best gapless run of a query of m rows, whose profile P has SA entries
+// a row and at least m + kPadRows rows (zero from m on), against the target
+// of n columns whose packed words start at W with stride ws (column c of
+// word row c of the words' matrix; sentinel code alph left of column 0 and
+// from n on), over the bands part, part + split, part + 2 * split, ... of
+// its bands of kBand diagonals (all of them with the defaults).
+template <int SA>
+__device__ __forceinline__ int gapless_bands(const int16_t* P,
+                                             const uint32_t* W, size_t ws,
+                                             int m, int n, int part = 0,
+                                             int split = 1) {
   int best = 0;
   // bands of diagonals d = j - i from the bottom-left corner; d0 = 1 - m
   // rounded down to a multiple of 4 (diagonals below 1 - m hold no cell)
-  for (int d0 = m > 0 ? (1 - m) & ~(kBand - 1) : n; d0 < n; d0 += kBand) {
+  for (int d0 = m > 0 ? ((1 - m) & ~(kBand - 1)) + kBand * part : n; d0 < n;
+       d0 += kBand * split) {
     // the first row whose word starts at column i + d0 (one row early when
     // d0 < 0: its cells lie left of column 0), and the row past which
     // every column of the band is >= n
@@ -407,19 +325,55 @@ __global__ void __launch_bounds__(kRowsThreads) gapless_rows_kernel(
       A = B;
     }
   }
-  best_out[static_cast<size_t>(row) * nt + tj] = best;
+  return best;
+}
+
+template <int SA>
+__global__ void __launch_bounds__(kRowsThreads) gapless_rows_kernel(
+    const int32_t* __restrict__ submat, int alph,
+    const uint8_t* __restrict__ q_mat, const int8_t* __restrict__ qb_mat,
+    const int32_t* __restrict__ q_lens, int Lq,
+    const uint32_t* __restrict__ t_words, const int32_t* __restrict__ t_lens,
+    const int32_t* __restrict__ order, int nt, int Lt, int r0, int rows,
+    int T, int R, int tiles, int32_t* __restrict__ best_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int sub_s[kAlphPad * kAlphPad];
+  int16_t* prof = reinterpret_cast<int16_t*>(smem);  // [R][Lq + 4][SA]
+  const int PR = Lq + kPadRows;
+  const int group = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int t = threadIdx.x, nthr = blockDim.x;
+  fill_sub(sub_s, submat, alph);
+  __syncthreads();
+  for (int e = t; e < R * PR; e += nthr) {
+    const int rr = e / PR, i = e - rr * PR, row = group * R + rr;
+    if (row >= rows) continue;
+    const size_t at = static_cast<size_t>(r0 + row) * Lq;
+    profile_row(prof + static_cast<size_t>(e) * SA, sub_s, q_mat + at,
+                qb_mat + at, min(q_lens[r0 + row], Lq), i, alph);
+  }
+  __syncthreads();
+
+  const int rr = t / T, slot = tile * T + (t - rr * T);
+  const int row = group * R + rr;
+  if (row >= rows || slot >= nt) return;
+  const int tj = order[slot];
+  const int m = max(0, min(q_lens[r0 + row], Lq));
+  const int n = max(0, min(t_lens[tj], Lt));
+  best_out[static_cast<size_t>(row) * nt + tj] = gapless_bands<SA>(
+      prof + static_cast<size_t>(rr) * PR * SA, t_words + slot,
+      static_cast<size_t>(nt), m, n);
 }
 
 }  // namespace
 
 // q_mat, qb_mat: (nq, Lq) staged query codes and biases, row-major;
-// t_words: (ceil(Lt / 4) + 4, nt) words, word (c, s) = the codes of columns 4c - 8 .. 4c - 5 of target order[s]
-// (little-endian), alph for a column < 0 or >= its length; t_lens: (nt,)
-// target lengths; order: (nt,) target indices, longest first. Writes best
-// (rows, nt), best[r][k] = the score of query row r0 + r against target k,
-// on `stream`; does not synchronise. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for rows outside [0, nq), more than 31 classes or a
-// grid past 2^31 - 1 blocks.
+// t_words: (ceil(Lt / 4) + 4, nt) words, word (c, s) = the codes of columns
+// 4c - 8 .. 4c - 5 of target order[s] (little-endian), alph for a column
+// < 0 or >= its length; t_lens: (nt,) target lengths; order: (nt,) target
+// indices, longest first. Writes best (rows, nt), best[r][k] = the score of
+// query row r0 + r against target k, on `stream`; does not synchronise.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for rows outside
+// [0, nq), more than 31 classes or a grid past 2^31 - 1 blocks.
 extern "C" int gapless_rows(const int32_t* submat, int alph,
                             const uint8_t* q_mat, const int8_t* qb_mat,
                             const int32_t* q_lens, int nq, int Lq,
@@ -456,5 +410,147 @@ extern "C" int gapless_rows(const int32_t* submat, int alph,
   kernel<<<static_cast<unsigned int>(blocks), R * T, shmem, st>>>(
       submat, alph, q_mat, qb_mat, q_lens, Lq, t_words, t_lens, order, nt,
       Lt, r0, rows, T, R, tiles, best);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gapless_pair computes K7's function on arbitrary pair lists (li, lj): in
+// any order, with repeats, and with indices out of range, which score 0.
+// Its caller is the k-mer-index prefilter (search/kmer_prefilter.py), whose
+// candidates come grouped by query, a few targets each. A thread per pair
+// that walks its cells one diagonal at a time pays about five int32
+// operations and three byte loads a cell (the query code, the bias, the
+// target code) and rebuilds S(i,j) at every cell.
+//
+// Design: gapless_rows's thread loop on a work list. The wrapper
+// (ops/ungapped_cuda.py pair_plan) sorts the pairs stably by query and,
+// within a query, by the rank of the target in the packed words (longest
+// first), on the device and with no host sync, and cuts each query's run
+// into groups of at most c pairs. Each pair takes `split` consecutive
+// threads and a group g = c * split; group k of a block of kPairThreads
+// threads is threads k * g .. k * g + g - 1, so a block holds Q =
+// kPairThreads / g groups, from one query with many pairs or from Q
+// queries with a few each (ungapped_cuda.pair_layout: c follows the pairs
+// a query has, g is large enough that Q profiles fit the block's budget).
+// Each group stages its query's profile once in shared memory, as
+// gapless_rows does, and each pair is walked with gapless_bands over the
+// words of every staged target: the threads of a group stand at the same
+// rows of targets of similar length, and for a query's run over
+// consecutive targets they read consecutive words. A launch of many pairs
+// (split 1) gives a thread a pair, as gapless_rows does; a launch of a
+// few hundred pairs, the k-mer prefilter's buckets, would leave the card
+// to a few warps that walk 10^5 cells each one after the other, so its
+// pairs' bands are dealt round-robin over up to 32 threads (split, a power
+// of two), whose bests meet in a warp shuffle. The first thread of a pair
+// writes its score to the pair's place in the input order (best[perm[pos]]):
+// the pairs a block takes are distinct positions of the sort, so no atomics
+// are needed; the wrapper zeroes best, which leaves 0 for the pairs out of
+// range.
+//
+// What bounds it on an H100: as gapless_rows, the dispatch of under four
+// instructions a cell, two to three of them on the int32 pipe, when a
+// launch fills the card; the sort and the plan are a few passes over the
+// (B,) pair list. A small launch waits on the latency of its threads'
+// band loops.
+
+namespace {
+
+constexpr int kPairThreads = 128;  // threads a block
+
+template <int SA>
+__global__ void __launch_bounds__(kPairThreads) gapless_pair_kernel(
+    const int32_t* __restrict__ submat, int alph,
+    const uint8_t* __restrict__ q_mat, const int8_t* __restrict__ qb_mat,
+    const int32_t* __restrict__ q_lens, int Lq,
+    const uint32_t* __restrict__ t_words, const int32_t* __restrict__ t_lens,
+    const int32_t* __restrict__ rank, int nt, int Lt,
+    const int32_t* __restrict__ lj, const int64_t* __restrict__ perm,
+    const int32_t* __restrict__ grp_q, const int64_t* __restrict__ grp_p0,
+    const int32_t* __restrict__ grp_n, int n_groups, int c, int split,
+    int32_t* __restrict__ best_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int sub_s[kAlphPad * kAlphPad];
+  int16_t* prof = reinterpret_cast<int16_t*>(smem);  // [Q][Lq + 4][SA]
+  const int g = c * split, PR = Lq + kPadRows, Q = kPairThreads / g;
+  const long long g0 = static_cast<long long>(blockIdx.x) * Q;
+  const int t = threadIdx.x;
+  fill_sub(sub_s, submat, alph);
+  __syncthreads();
+  for (int e = t; e < Q * PR; e += kPairThreads) {
+    const int k = e / PR, i = e - k * PR;
+    const long long G = g0 + k;
+    if (G >= n_groups || grp_n[G] == 0) continue;
+    const int qi = grp_q[G];
+    const size_t at = static_cast<size_t>(qi) * Lq;
+    profile_row(prof + static_cast<size_t>(e) * SA, sub_s, q_mat + at,
+                qb_mat + at, min(q_lens[qi], Lq), i, alph);
+  }
+  __syncthreads();
+
+  // thread t: group k, its pair `slot`, and `part` of that pair's bands;
+  // every thread reaches the shuffles (a split pair's threads share a warp)
+  const int k = t / g, lane = t - k * g, slot = lane / split;
+  const int part = lane - slot * split;
+  const long long G = g0 + k;
+  const bool live = G < n_groups && slot < grp_n[G];
+  long long b = 0;
+  int best = 0;
+  if (live) {
+    b = perm[grp_p0[G] + slot];
+    const int qi = grp_q[G], tj = lj[b];
+    const int m = max(0, min(q_lens[qi], Lq));
+    const int n = max(0, min(t_lens[tj], Lt));
+    best = gapless_bands<SA>(prof + static_cast<size_t>(k) * PR * SA,
+                             t_words + rank[tj], static_cast<size_t>(nt), m,
+                             n, part, split);
+  }
+  for (int off = split / 2; off > 0; off /= 2)
+    best = max(best, __shfl_xor_sync(0xffffffffu, best, off));
+  if (live && part == 0) best_out[b] = best;
+}
+
+}  // namespace
+
+// q_mat, qb_mat: (nq, Lq) staged query codes and biases, row-major; t_words
+// and t_lens as gapless_rows's, over all nt staged targets; rank: (nt,) the
+// word column of each target; lj: (B,) the pairs' target indices; perm:
+// the sort's pair indices, query by query; group G (of n_groups) holds the
+// grp_n[G] <= c pairs perm[grp_p0[G] ..] of query grp_q[G] (grp_n 0: an
+// empty group), each pair on `split` threads. Indices are in range; best
+// must hold zeros. Launches ceil(n_groups / (kPairThreads / (c * split)))
+// blocks on `stream`; does not synchronise. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a split that is not a power of two up to 32, a
+// c * split that does not divide kPairThreads, more than 31 classes,
+// profiles past kPairProfBytesMax or a grid past 2^31 - 1 blocks.
+extern "C" int gapless_pair(const int32_t* submat, int alph,
+                            const uint8_t* q_mat, const int8_t* qb_mat,
+                            const int32_t* q_lens, int nq, int Lq,
+                            const uint32_t* t_words, const int32_t* t_lens,
+                            const int32_t* rank, int nt, int Lt,
+                            const int32_t* lj, const int64_t* perm,
+                            const int32_t* grp_q, const int64_t* grp_p0,
+                            const int32_t* grp_n, int n_groups, int c,
+                            int split, int32_t* best, void* stream) {
+  constexpr size_t kPairProfBytesMax = 200 * 1024;
+  if (n_groups <= 0 || nq <= 0 || nt <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const int g = c * split;
+  if (split <= 0 || split > 32 || (split & (split - 1)) != 0 || c <= 0 ||
+      g > kPairThreads || kPairThreads % g != 0 || alph >= kAlphPad || Lq < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Q = kPairThreads / g;
+  const int sa = alph < 22 ? 22 : kAlphPad;  // alph + 1 entries a row
+  const size_t shmem = static_cast<size_t>(Q) * (Lq + kPadRows) * sa *
+                       sizeof(int16_t);
+  const long long blocks = (static_cast<long long>(n_groups) + Q - 1) / Q;
+  if (shmem > kPairProfBytesMax || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = sa == 22 ? gapless_pair_kernel<22>
+                         : gapless_pair_kernel<kAlphPad>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(shmem));
+  kernel<<<static_cast<unsigned int>(blocks), kPairThreads, shmem, st>>>(
+      submat, alph, q_mat, qb_mat, q_lens, Lq, t_words, t_lens, rank, nt, Lt,
+      lj, perm, grp_q, grp_p0, grp_n, n_groups, c, split, best);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,9 +9,13 @@ csrc/gapless.cu, dispatched by the device of the tensors given.
   (query rows, tile of targets) with the rows' profiles in shared memory,
   below LONG_ROWS; gapless_long, a block per (pair, chunk of 256
   diagonals), from LONG_ROWS up.
-- gapless_scores_gathered scores arbitrary pairs (li, lj): gapless_pair, a
-  thread per pair, below LONG_ROWS; gapless_long from LONG_ROWS up. All
-  three kernels compute the same function.
+- gapless_scores_gathered scores arbitrary pairs (li, lj): gapless_pair
+  below LONG_ROWS, gapless_rows's thread loop on a work list (pair_plan:
+  the pairs sorted by query on the device and cut into groups of a query,
+  each group's profile staged once in shared memory; pair_layout: a small
+  launch deals each pair's bands over several threads);
+  gapless_long from LONG_ROWS up. All three kernels compute the same
+  function.
 
 Counterparts in the JAX package (metaeuk_tpu/ops/ungapped.py):
 gapless_scores_gathered is gapless_scores_gathered / gapless_gathered_jit
@@ -44,14 +48,28 @@ PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# submat, alph, q, qb, q_lens, nq, Lq, t, t_lens, nt, Lt, li, lj, B, out,
-# stream (q, qb, t transposed for gapless_pair, row-major for gapless_long)
-_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
-             ctypes.c_longlong, _P, _P]
+# gapless_long: submat, alph, q, qb, q_lens, nq, Lq, t, t_lens, nt, Lt, li,
+# lj, B, out, stream
+_LONG_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
+                  ctypes.c_longlong, _P, _P]
 # gapless_rows: submat, alph, q, qb, q_lens, nq, Lq, t_words, t_lens, nt,
 # Lt, order, r0, rows, out, stream
 _ROWS_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I,
                   _P, _P]
+# gapless_pair: submat, alph, q, qb, q_lens, nq, Lq, t_words, t_lens, rank,
+# nt, Lt, lj, perm, grp_q, grp_p0, grp_n, n_groups, c, split, out, stream
+_PAIR_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P,
+                  _P, _P, _P, _I, _I, _I, _P, _P]
+_ARGTYPES = {"gapless_long": _LONG_ARGTYPES, "gapless_rows": _ROWS_ARGTYPES,
+             "gapless_pair": _PAIR_ARGTYPES}
+# gapless_pair's blocks (csrc/gapless.cu kPairThreads): threads, the profile
+# bytes a block aims at, and the most its profiles may take (shared memory);
+# the threads a launch aims at (about 132 SMs x 2048), which its pairs'
+# bands are dealt over when it has fewer pairs
+PAIR_THREADS = 128
+PAIR_PROF_BYTES = 48 * 1024
+PAIR_PROF_BYTES_MAX = 200 * 1024
+PAIR_LAUNCH_THREADS = 1 << 18
 
 
 def reset_counts():
@@ -63,7 +81,7 @@ def reset_counts():
 @functools.lru_cache(maxsize=None)
 def _kernel(name):
     fn = getattr(_build.load("gapless"), name)
-    fn.argtypes = _ROWS_ARGTYPES if name == "gapless_rows" else _ARGTYPES
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -170,14 +188,14 @@ def _checked(name, q_mat, qb_mat, q_lens, t_mat, t_lens, scoring, *idx):
         raise ValueError("gapless kernel: shapes do not match staged "
                          "(nq, Lq) x (nt, Lt) matrices and (B,) indices")
     alph = scoring.submat.shape[0]
-    # gapless_rows keeps one more profile entry, the code of no column
-    most = 31 if name == "gapless_rows" else 32
+    # gapless_rows and gapless_pair keep one more profile entry, the code of
+    # no column
+    most = 32 if name == "gapless_long" else 31
     if scoring.submat.shape != (alph, alph) or alph > most:
         raise ValueError(f"{name} takes a square substitution matrix of at "
                          f"most {most} classes")
-    if name != "gapless_pair":
-        # the query profile holds submat + bias (an int8) as int16
-        check_scores_fit(scoring.submat, -32640, 32639, name)
+    # the query profile holds submat + bias (an int8) as int16
+    check_scores_fit(scoring.submat, -32640, 32639, name)
     return scoring.submat.to(torch.int32).contiguous(), alph
 
 
@@ -205,30 +223,99 @@ def launch(name, q_mat, qb_mat, q_lens, t_mat, t_lens, li, lj,
         raise ValueError(f"{name} does not take gathered pairs")
     sub, alph = _checked(name, q_mat, qb_mat, q_lens, t_mat, t_lens,
                          scoring, li, lj)
-    dev = q_mat.device
     (nq, Lq), (nt, Lt), B = q_mat.shape, t_mat.shape, li.shape[0]
-    if name == "gapless_long":
-        q = q_mat.to(torch.uint8).contiguous()
-        qb = qb_mat.to(torch.int8).contiguous()
-        t = t_mat.to(torch.uint8).contiguous()
-    else:
-        q = q_mat.to(torch.uint8).t().contiguous()
-        qb = qb_mat.to(torch.int8).t().contiguous()
-        t = t_mat.to(torch.uint8).t().contiguous()
+    q = q_mat.to(torch.uint8).contiguous()
+    qb = qb_mat.to(torch.int8).contiguous()
     ql = q_lens.to(torch.int32).contiguous()
     tl = t_lens.to(torch.int32).contiguous()
-    li32 = li.to(torch.int32).contiguous()
     lj32 = lj.to(torch.int32).contiguous()
-    best = torch.empty(B, dtype=torch.int32, device=dev)
-    rc = _kernel(name)(sub.data_ptr(), alph, q.data_ptr(), qb.data_ptr(),
-                       ql.data_ptr(), nq, Lq, t.data_ptr(), tl.data_ptr(), nt,
-                       Lt, li32.data_ptr(), lj32.data_ptr(), B,
-                       best.data_ptr(),
-                       torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    if name == "gapless_pair":
+        c, split = pair_layout(B, nq, Lq, alph)
+        best = torch.zeros(B, dtype=torch.int32, device=q.device)
+        if B == 0 or nq == 0 or nt == 0:
+            return best
+        words, order = target_words(t_mat, tl, alph)
+        rank = torch.empty_like(order)
+        rank[order.long()] = torch.arange(nt, dtype=torch.int32,
+                                          device=q.device)
+        perm, grp_q, grp_p0, grp_n = pair_plan(li, lj, rank, nq, nt, c)
+        rc = _kernel(name)(sub.data_ptr(), alph, q.data_ptr(), qb.data_ptr(),
+                           ql.data_ptr(), nq, Lq, words.data_ptr(),
+                           tl.data_ptr(), rank.data_ptr(), nt, Lt,
+                           lj32.data_ptr(), perm.data_ptr(),
+                           grp_q.data_ptr(), grp_p0.data_ptr(),
+                           grp_n.data_ptr(), grp_q.shape[0], c, split,
+                           best.data_ptr(), stream)
+    else:
+        t = t_mat.to(torch.uint8).contiguous()
+        li32 = li.to(torch.int32).contiguous()
+        best = torch.empty(B, dtype=torch.int32, device=q.device)
+        rc = _kernel(name)(sub.data_ptr(), alph, q.data_ptr(), qb.data_ptr(),
+                           ql.data_ptr(), nq, Lq, t.data_ptr(), tl.data_ptr(),
+                           nt, Lt, li32.data_ptr(), lj32.data_ptr(), B,
+                           best.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
     return best
+
+
+def pair_layout(B, nq, Lq, alph):
+    """gapless_pair's layout of a launch of B pairs over nq staged queries:
+    (c, split), c pairs of one query a group, each on `split` threads, a
+    group c * split threads and a block PAIR_THREADS // (c * split) groups.
+    split, a power of two up to 32, deals each pair's bands over threads
+    while B * split is at most PAIR_LAUNCH_THREADS / 2; c, a power of two,
+    is at least B / nq (the pairs a staged query has on average) unless a
+    group would pass a block, and large enough that a block's profiles fit
+    PAIR_PROF_BYTES. Raises if one profile passes PAIR_PROF_BYTES_MAX."""
+    row = (Lq + 4) * (22 if alph < 22 else 32) * 2
+    if row > PAIR_PROF_BYTES_MAX:
+        raise ValueError(f"gapless_pair stages a query profile of {row} "
+                         f"bytes at Lq {Lq}, over its {PAIR_PROF_BYTES_MAX}; "
+                         "gapless_long takes such widths")
+    fit = max(1, PAIR_PROF_BYTES // row)
+    split = 1
+    while split < 32 and B * split * 2 <= PAIR_LAUNCH_THREADS:
+        split *= 2
+    avg = -(-B // max(1, nq))
+    c = 1
+    while c * split < PAIR_THREADS and (
+            c < avg or PAIR_THREADS // (c * split) > fit):
+        c *= 2
+    return c, split
+
+
+def pair_plan(li, lj, rank, nq, nt, g):
+    """gapless_pair's work list, on the pairs' device with no host sync:
+    (perm, grp_q, grp_p0, grp_n). perm (B,) int64: the pair indices sorted
+    stably by (li, rank[lj]), the pairs with an index out of range last;
+    group G holds the grp_n[G] <= g pairs perm[grp_p0[G] ..] of query
+    grp_q[G] (g: pair_layout's c), each query's run cut into groups of g
+    from its first pair; groups past the last pair are empty (grp_n 0,
+    grp_q 0). Every pair in range is in exactly one group. rank: (nt,)
+    int32 word column of each target (target_words's order inverted)."""
+    dev, B = li.device, li.shape[0]
+    li, lj = li.long(), lj.long()
+    valid = (li >= 0) & (li < nq) & (lj >= 0) & (lj < nt)
+    li, lj = torch.where(valid, li, 0), torch.where(valid, lj, 0)
+    key = torch.where(valid, li * nt + rank[lj], nq * nt)
+    perm = torch.sort(key, stable=True).indices
+    counts = torch.zeros(nq, dtype=torch.long, device=dev).index_add_(
+        0, li, valid.long())
+    n_grp = (counts + g - 1) // g
+    g_end = torch.cumsum(n_grp, 0)
+    # each query's last group may be partial: at most B / g full groups and
+    # one partial group a query
+    G = torch.arange(-(-B // g) + min(nq, B), device=dev)
+    q = torch.searchsorted(g_end, G, right=True)
+    qc = q.clamp(max=nq - 1)
+    k = G - (g_end[qc] - n_grp[qc])
+    p0 = torch.cumsum(counts, 0)[qc] - counts[qc] + k * g
+    n = torch.where(q < nq, (counts[qc] - k * g).clamp(0, g), 0)
+    return (perm, torch.where(q < nq, q, 0).to(torch.int32), p0,
+            n.to(torch.int32))
 
 
 def gapless_scores(q_enc, q_bias, q_len, t_enc, t_len, scoring=None):

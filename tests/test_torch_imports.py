@@ -509,3 +509,38 @@ def test_parallel_layers_run_with_jax_blocked(tmp_path):
     _blocked_run(tmp_path, "kmer", _BLOCKED_PARALLEL.replace(
         'sys.modules["metaeuk_tpu"] = None',
         'sys.modules["metaeuk_tpu"] = None\nsys.modules["tools"] = None'))
+
+
+# the k-mer-index prefilter: the module imports, and candidate_pairs on the
+# CPU scores the planted cut of tests/golden/make_kmerpf_slice.py (which
+# chip_smoke.py's phase 5n imports; its golden writer alone imports jax) in
+# its short and long buckets
+_BLOCKED_KMERPF = _BLOCK + r"""
+sys.path.insert(0, "tests/golden")
+import make_kmerpf_slice as mks
+from metaeuk_tpu_torch.io.seqdb import DBTYPE_AA, SeqDB
+from metaeuk_tpu_torch.ops import ungapped_cuda
+from metaeuk_tpu_torch.ops.orf import OrfExtractor
+from metaeuk_tpu_torch.params import Params
+from metaeuk_tpu_torch.search.kmer_prefilter import KmerPrefilter
+
+frags, targets = mks.planted_cut(mks.PLANTED_CUT, OrfExtractor, Params,
+                                 SeqDB, DBTYPE_AA)
+pf = KmerPrefilter(Params(), targets, device="cpu",
+                   **mks.prefilter_kwargs(mks.KMERPF_SLICE))
+kept = pf.candidate_pairs(frags)
+assert {0, 1} <= set(kept[kept[:, 0] == mks.PLANTED_CUT["at"], 1].tolist())
+assert min(ungapped_cuda.PLAIN_CALLS[k]
+           for k in ("gapless_pair", "gapless_long")) > 0
+loaded = [k for k in sys.modules if sys.modules[k] is not None and (
+    k.split(".")[0].startswith("jax") or k.split(".")[0] == "metaeuk_tpu")]
+assert not loaded, loaded
+print("jax-free run ok")
+"""
+
+
+def test_kmer_index_prefilter_runs_with_jax_blocked(tmp_path):
+    """search/kmer_prefilter.py imports, and candidate_pairs on the planted
+    cut that chip_smoke.py's phase 5n builds runs its short and long
+    buckets on the plain versions, with jax and metaeuk_tpu blocked."""
+    _blocked_run(tmp_path, "kmer", _BLOCKED_KMERPF)

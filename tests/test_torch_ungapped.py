@@ -7,7 +7,10 @@ interpret mode, also at the widths of gapless_long (staged Lq >= LONG_ROWS)
 on chip_smoke.py's planted runs, and through the cross entry (the
 prefilter's launches, gapless_rows below LONG_ROWS) on chip_smoke.py's
 planted cross products; the port's UngappedPrefilter to the JAX package's,
-pair array for pair array. Every output is an integer: the
+pair array for pair array. gapless_pair's work list and layout
+(ungapped_cuda.pair_plan, pair_layout) are torch code that runs here as on
+the card, and chip_smoke.py's planted pair lists for it are checked on the
+plain version. Every output is an integer: the
 tolerance is exact equality. The CUDA kernels are held to the plain version
 on the card (marker gpu).
 """
@@ -148,6 +151,128 @@ def test_gathered_pairs_and_out_of_range_indices():
     ref = np.asarray(gapless_scores_xla(q[lic], qb[lic], ql[lic], t[ljc], Lq,
                                         Lt, t_len=tl[ljc]))
     np.testing.assert_array_equal(np.where(ok, ref, 0), got)
+
+
+def _plan_case(case):
+    """(li, lj, nq, nt, t_lens) of a pair list for gapless_pair's plan: a
+    cross product in order, the same shuffled with repeats, indices of -1
+    and past nq and nt, a query with one pair beside one with more pairs
+    than a block's 128 threads, and zero-length targets."""
+    rng = np.random.default_rng(31)
+    nq, nt = 9, 300
+    tl = rng.integers(0, 513, nt)
+    tl[::50] = 0
+    flat = np.arange(nq * nt)
+    li, lj = flat // nt, flat % nt
+    if case == "shuffled":
+        at = rng.permutation(np.concatenate([flat, flat[::7]]))
+        li, lj = li[at], lj[at]
+    elif case == "out_of_range":
+        li = rng.integers(-1, nq + 2, 900)
+        lj = rng.integers(-1, nt + 2, 900)
+    elif case == "one_and_many":
+        li = np.r_[np.full(1, 3), np.full(300, 7), np.full(5, 0)]
+        lj = rng.integers(0, nt, len(li))
+        li, lj = li[::-1].copy(), lj[::-1].copy()
+    return li, lj, nq, nt, tl
+
+
+@pytest.mark.parametrize("case", ["cross", "shuffled", "out_of_range",
+                                  "one_and_many"])
+@pytest.mark.parametrize("g", [8, 32, 128])
+def test_pair_plan_covers_every_pair_once(case, g):
+    """gapless_pair's work list (ungapped_cuda.pair_plan, run here as it runs
+    on the card): every pair in range lies in exactly one group, of its own
+    query, within a query in the order of the target words (longest target
+    first, repeats in input order); pairs out of range in none. Scoring the
+    groups' pairs and writing each score to perm's place restores the input
+    order: the plain version's scores, 0 out of range."""
+    li, lj, nq, nt, tl = _plan_case(case)
+    t_lens = torch.from_numpy(tl.astype(np.int32))
+    _, order = ungapped_cuda.target_words(
+        torch.zeros((nt, 8), dtype=torch.uint8), t_lens, 21)
+    rank = torch.empty_like(order)
+    rank[order.long()] = torch.arange(nt, dtype=torch.int32)
+    perm, grp_q, grp_p0, grp_n = ungapped_cuda.pair_plan(
+        torch.from_numpy(li), torch.from_numpy(lj), rank, nq, nt, g)
+    assert grp_n.max() <= g and len(grp_q) == -(-len(li) // g) + min(nq,
+                                                                     len(li))
+    lane = torch.arange(g)
+    live = lane[None, :] < grp_n[:, None]
+    pos = (grp_p0[:, None] + lane[None, :])[live]
+    b = perm[pos].numpy()
+    ok = (li >= 0) & (li < nq) & (lj >= 0) & (lj < nt)
+    assert sorted(b.tolist()) == np.flatnonzero(ok).tolist()
+    np.testing.assert_array_equal(
+        li[b], grp_q[:, None].expand(-1, g)[live].numpy())
+    # query by query, targets in word order, repeats in input order
+    key = np.stack([li[b], rank.numpy()[lj[b]], b])
+    assert (np.diff(key[0]) >= 0).all()
+    assert (np.lexsort(key[::-1]) == np.arange(len(b))).all()
+    # the kernel's store: each group's scores to perm's places
+    nqL, Lq, Lt = nq, 48, 520
+    q, qb, ql, _, _ = _pairs(g, nqL, Lq, Lt)
+    t = np.random.default_rng(5).integers(0, 20, (nt, Lt))
+    args = _torch(q, qb, ql, t, tl.astype(np.int32))
+    out = torch.zeros(len(li), dtype=torch.int32)
+    if len(b):
+        out[torch.from_numpy(b)] = ungapped_torch.gapless_gathered(
+            *args, torch.from_numpy(li[b]), torch.from_numpy(lj[b]))
+    ref = ungapped_torch.gapless_gathered(*args, torch.from_numpy(li),
+                                          torch.from_numpy(lj))
+    assert torch.equal(out, ref) and int(ref.max()) > 0
+
+
+@pytest.mark.parametrize("Lq,Lt", [(32, 64), (64, 128)])
+def test_pair_lists_of_phase_3_score_their_plants(Lq, Lt):
+    """chip_smoke.check_gapless_pairs' inputs on the plain version: the
+    cross list's planted pairs (cross_gapless_rows' and plant_band_runs'
+    runs on each lane of a band of four diagonals) score their plants, each
+    list's scores are the cross product's, and one_and_many gives query 3
+    more pairs than a block's 128 threads."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rng = np.random.default_rng(Lq)
+    nq, nt = 16, 140
+    q, qb, ql, t, tl, plants = chip_smoke.cross_gapless_rows(np, rng, Lq, Lt,
+                                                             nq, nt)
+    chip_smoke.plant_band_runs(np, rng, q, qb, ql, t, tl, plants)
+    assert len(plants) == 8
+    args = _torch(q, qb, ql, t, tl)
+    lists = chip_smoke.gapless_pair_lists(np, rng, nq, nt)
+    li, lj = (torch.from_numpy(a) for a in lists["cross"])
+    cross = ungapped_torch.gapless_gathered(*args, li, lj).view(nq, nt)
+    assert {k: int(cross[k]) for k in plants} == plants
+    for name, (li, lj) in lists.items():
+        got = ungapped_torch.gapless_gathered(*args, *_torch(li, lj))
+        ok = (li >= 0) & (li < nq) & (lj >= 0) & (lj < nt)
+        want = np.where(ok, cross.numpy()[np.where(ok, li, 0),
+                                          np.where(ok, lj, 0)], 0)
+        np.testing.assert_array_equal(got.numpy(), want)
+    one_li = lists["one_and_many"][0]
+    assert (one_li == 0).sum() == 1 and (one_li == 3).sum() > 128
+
+
+def test_pair_layout_fits_the_profiles():
+    """c follows the pairs a query has on average, up to a block, and grows
+    until the profiles of a block's groups fit its budget; a launch of few
+    pairs deals each pair's bands over up to 32 threads; a width whose one
+    profile passes the shared memory goes to gapless_long instead."""
+    layout = ungapped_cuda.pair_layout
+    assert layout(262144, 88, 128, 21) == (128, 1)
+    assert layout(4194300, 349525, 32, 21) == (16, 1)
+    assert layout(300, 250, 512, 21) == (2, 32)
+    assert layout(2000, 1500, 128, 21) == (2, 32)
+    assert layout(20000, 15000, 32, 21) == (2, 8)
+    for B, nq, Lq in ((300, 250, 512), (2000, 1500, 128), (20000, 15000, 32),
+                      (4194300, 349525, 32), (64, 64, 1024)):
+        c, split = layout(B, nq, Lq, 21)
+        g = c * split
+        assert ungapped_cuda.PAIR_THREADS % g == 0 and split <= 32
+        assert (128 // g) * (Lq + 4) * 22 * 2 <= max(
+            ungapped_cuda.PAIR_PROF_BYTES, (Lq + 4) * 44)
+    with pytest.raises(ValueError, match="gapless_long"):
+        layout(64, 4, 8192, 21)
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -13,11 +13,11 @@ same target pool at any size), staged per target bucket as
 search/prefilter.py stages them, with as many query rows as the
 prefilter's cell budget puts in one launch at (Lq, Lt) (at least one). Each
 launch is a cross product and runs through ungapped_cuda.launch_cross on
-gapless_pair, gapless_long and, up to Lq ROWS_MAX (its profiles sit in
-shared memory), gapless_rows; their outputs must be equal, and each is
-timed with CUDA events. Prints the card's name and power limit, one JSON
-line per (Lq, Lt) launch, then per Lq the summed ms of each kernel over the
-target buckets and the fastest kernel.
+gapless_long and, up to Lq ROWS_MAX (their profiles sit in shared
+memory), gapless_pair and gapless_rows; their outputs must be equal, and
+each is timed with CUDA events. Prints the card's name and power limit,
+one JSON line per (Lq, Lt) launch, then per Lq the summed ms of each
+kernel over the target buckets and the fastest kernel.
 """
 
 import json
@@ -65,7 +65,7 @@ def main(argv=None):
     sums = {}
     for Lq in [int(a) for a in argv] or BUCKETS:
         kernels = [k for k in ungapped_cuda.KERNELS
-                   if k != "gapless_rows" or Lq <= ROWS_MAX]
+                   if k == "gapless_long" or Lq <= ROWS_MAX]
         total = dict.fromkeys(kernels, 0.0)
         for Lt, (t_mat, tl) in staged.items():
             nt = len(tl)
