@@ -6,9 +6,10 @@
 Phases, each fatal on failure:
   1. require a CUDA device; print the card's name and power limit
   2. build the CUDA kernels from metaeuk_tpu_torch/csrc with nvcc (one
-     process per source, all started together) and the host library from
-     native/ with g++; ptxas's registers and spill bytes of K5/K6 and of
-     each length class of K1/K2 and of K3/K4
+     process per source, all started together; qm_variants.cu, about 100
+     s, joined before phase 3b) and the host library from native/ with
+     g++; ptxas's registers and spill bytes of K5/K6 and of each length
+     class of K1/K2 and of K3/K4 (and, at 3b, of T4's instances)
   3. each kernel against its plain PyTorch version on the card, compared
      with torch.equal (all outputs are integers: the tolerance is zero): the
      pair kernels on seeded ragged batches at the driver's bucket shapes (Lq
@@ -70,7 +71,10 @@ Phases, each fatal on failure:
      built for with both fills, a scan with values below NEG; every T4
      variant and the uN / tjN sweeps at tools/kernel_variants.py's default
      shape (32 tiles, Lq 256, Lt 2048), a small ragged shape with lanes
-     that never score and repeated lanes, and a shape where H passes 32767
+     that never score and repeated lanes, a shape where H passes 32767,
+     Lq 1,100 (STRIPE_SHAPE: T4's three row stripes, equal runs in the
+     first and third going to the third's earlier column), and nocap where
+     its packed word wraps
   4. easy-predict through the metaeuk-tpu-torch CLI on tests/data: the four
      outputs byte-identical to tests/golden/easypredict.*
   4b. easy-predict --prefilter-mode ungapped on tests/data and on the
@@ -361,7 +365,8 @@ Phases, each fatal on failure:
      (T1 at the rate of each dtype's pipe) and its plain version's; T1 on
      one warp in cycles per dependent step at the SM clock nvidia-smi reads
      during the run; 64 x torch.cummax as T3's library yardstick; the SASS
-     opcodes of each T1 chain (cuobjdump)
+     opcodes of each T1 chain (cuobjdump); T4 base against K3 (sw_qm_ends)
+     on the same 4,096 pairs (T4_K3_SHAPE), equal outputs, both times
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 """
@@ -721,6 +726,28 @@ def ptxas_usage(text):
         if m and name:
             out[name][0] = int(m.group(1))
     return out
+
+
+def report_t4_build(_build, sw_cuda, t_start):
+    """qm_variants.cu's nvcc seconds and, of its 125 instances <variant,
+    unroll, G, R>, the most registers, those that spill, and each class of
+    base at unroll 8 (the tool's default)."""
+    b = _build.BUILT.get("qm_variants", {})
+    print(f"qm_variants.cu {b.get('seconds', 0.0):.2f} s of nvcc, joined at "
+          f"{time.perf_counter() - t_start:.1f} s of the script", flush=True)
+    usage = {n: v for n, v in ptxas_usage(b.get("ptxas", "")).items()
+             if "qm_variant_kernel" in n}
+    spilled = sorted(n for n, v in usage.items() if v[1] or v[2])
+    print(f"qm_variant_ends: {len(usage)} instances, at most "
+          f"{max((v[0] for v in usage.values()), default=0)} registers, "
+          f"{len(spilled)} with spills {spilled[:4]}", flush=True)
+    for g, r in sw_cuda.PAIR_CLASSES:
+        found = [v for n, v in usage.items()
+                 if f"qm_variant_kernelILi0ELi8ELi{g}ELi{r}E" in n]
+        print(f"qm_variant_ends base u8 (G {g}, R {r}): " + (
+            f"{found[0][0]} registers, {found[0][1]} bytes spill stores, "
+            f"{found[0][2]} bytes spill loads" if found
+            else "no ptxas report (a cached build)"), flush=True)
 
 
 def same_hits(np, ref, got, what):
@@ -5001,12 +5028,47 @@ def check_kbench_kernels(torch, kbench_cuda, kbench_torch, kb, errs):
           "and wrapped; a scan with columns below NEG)", flush=True)
 
 
+# T4's row-stripe case: (Lq, Lt, tiles, tj, unroll), three stripes of 512
+# rows at the warp class; planted runs of equal score (STRIPE_RUN's length
+# at 11 a cell) at rows ending 15 (stripe 0) and 1039 (stripe 2, the same
+# thread), lane 0 meeting the second at an earlier column (60) than the
+# first (210), so that the later stripe's earlier column wins the tie
+STRIPE_SHAPE = (1100, 300, 2, 100, 4)
+STRIPE_RUN = 6
+
+
+def stripe_variant_inputs(np, variant):
+    """(prof float32, tc int32) of STRIPE_SHAPE in numpy: scores -20 but on
+    two planted runs A (rows 10..15) and B (rows 1034..1039) and a few 11s
+    (single-cell ties on the other lanes); -128 in classes 21..31; +GE on
+    classes 0..20 for the folded variants. Lane 0 of tile 0 holds B at
+    column 55 and A at column 205; lanes 1-3 never score, lanes 10-19
+    repeat lane 5."""
+    Lq, Lt, n_tiles, _, _ = STRIPE_SHAPE
+    rng = np.random.default_rng(20261018)
+    prof = np.full((n_tiles, Lq, 32), -20, np.float32)
+    prof[:, rng.integers(0, Lq, 40), rng.integers(0, 20, 40)] = 11
+    A = rng.integers(0, 20, STRIPE_RUN)
+    B = (A + 1 + rng.integers(0, 18, STRIPE_RUN)) % 20
+    for k in range(STRIPE_RUN):
+        prof[:, 10 + k, A[k]] = prof[:, 1034 + k, B[k]] = 11
+    prof[:, :, 21:] = -128
+    if variant in ("fold", "fold_nocap"):
+        prof[:, :, :21] += 1
+    tc = rng.integers(0, 20, (Lt, n_tiles * 128)).astype(np.int32)
+    tc[55:55 + STRIPE_RUN, 0], tc[205:205 + STRIPE_RUN, 0] = B, A
+    tc[:, 1], tc[:, 2], tc[:, 3] = 25, 40, -1
+    tc[:, 10:20] = tc[:, 5:6]
+    return prof, tc
+
+
 def variant_checks(torch, np, kvar):
     """(what, prof, tc, variant, tj, unroll) on the card: every variant and
     the uN / tjN sweeps at the TPU tool's default shape; every variant on a
     small shape with lanes that never score (codes at -128 or outside the
     profile), repeated lanes and a narrow score range (ties); every variant
-    where H passes 32767."""
+    where H passes 32767; every variant at Lq 1,100 (STRIPE_SHAPE: three row
+    stripes, a tie across them); nocap where its packed word wraps."""
     V = ("base", "fold", "nocap", "fold_nocap", "nof")
     for v in V:
         yield (v, *kvar.variant_inputs(v, 256, 2048, 32, "cuda"), v, 256, 8)
@@ -5039,6 +5101,21 @@ def variant_checks(torch, np, kvar):
         p[:, :, :21] += shift
         yield (f"cap {v}", torch.from_numpy(p).bfloat16().cuda(),
                torch.from_numpy(cap_tc).cuda(), v, 512, 8)
+        p, t = stripe_variant_inputs(np, v)
+        yield (f"stripes {v}", torch.from_numpy(p).bfloat16().cuda(),
+               torch.from_numpy(t).cuda(), v, *STRIPE_SHAPE[3:])
+    # nocap's H past 65,536 (300 rows of 250 but one in seven), where its
+    # packed word (hu * 32768) wraps: the kernel's exact rescan of every row
+    # (fold_nocap's H' * 32768 wraps elsewhere than its unfolded word, and
+    # is left out)
+    wrap = np.full((1, 300, 32), 250, np.float32)
+    wrap[:, ::7, 3] = -50
+    wrap[:, :, 21:] = -128
+    wrap_tc = np.random.default_rng(1).integers(0, 21, (600, 128)).astype(
+        np.int32)
+    wrap_tc[:, 1] = 25
+    yield ("wrap nocap", torch.from_numpy(wrap).bfloat16().cuda(),
+           torch.from_numpy(wrap_tc).cuda(), "nocap", 600, 8)
 
 
 def check_variant_kernel(torch, np, qm_variants_cuda, qm_variants_torch,
@@ -5054,6 +5131,10 @@ def check_variant_kernel(torch, np, qm_variants_cuda, qm_variants_torch,
             if over != (v in ("nocap", "fold_nocap")) or int(ref[0][1]):
                 raise AssertionError(f"{what}: best {int(ref[0][0])}, the "
                                      "cap case does not pass 32767")
+        if what.startswith("stripes") and [int(o[0]) for o in ref] != [
+                11 * STRIPE_RUN, 1039, 54 + STRIPE_RUN]:
+            raise AssertionError(f"{what}: lane 0 {[int(o[0]) for o in ref]}"
+                                 ", not the later stripe's earlier tie")
         print(f"variant {what} (Lq {prof.shape[1]}, Lt {tc.shape[0]}, "
               f"tiles {prof.shape[0]}, tj {tj}, u {u}): equal; lane 0 "
               f"{[int(o[0]) for o in ref]}, {int((ref[0] > 0).sum())} lanes "
@@ -5226,6 +5307,52 @@ def run_tools(torch, np, kb, kvar, kbench_cuda, kbench_torch,
     return out, launches, library
 
 
+# T4 base against K3 on the same pairs: (queries of Lq aa, one a tile;
+# targets of Lt aa, one a lane)
+T4_K3_SHAPE = (32, 256, 4096, 2048)
+
+
+def t4_against_k3(torch, np, sw_cuda, qm_variants_cuda):
+    """T4 base and K3 (sw_qm_ends) on T4_K3_SHAPE's pairs, query q on tile
+    q and target 128 q + l on its lane l: T4's profile rows are the scores
+    K3 reads for each row (BLOSUM62's row of the query's code plus the
+    row's bias, in the matrix's classes; -128 in the rest), its codes the
+    targets'. The outputs must be equal. (t4_ms, k3_ms), each over 10
+    calls of the wrapper."""
+    from metaeuk_tpu_torch.state import default_scoring
+    nq, Lq, nt, Lt = T4_K3_SHAPE
+    rng = np.random.default_rng(20261018)
+    sub = default_scoring("cuda").submat
+    alph = sub.shape[0]
+    q = rng.integers(0, alph, (nq, Lq))
+    qb = rng.integers(-3, 4, (nq, Lq))
+    t = rng.integers(0, alph, (nt, Lt))
+    for k in range(0, nt, 7):              # real hits: a query's segment
+        t[k, 100 + k % 900:160 + k % 900] = q[k // 128, 50:110]
+    mk = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(
+        device="cuda", dtype=dt)
+    args = (mk(q, torch.uint8), mk(qb, torch.int8),
+            mk(np.full(nq, Lq), torch.int32), mk(t, torch.uint8),
+            mk(np.full(nt, Lt), torch.int32), mk(np.arange(nq), torch.int32),
+            mk(np.arange(nt), torch.int32))
+    prof = torch.full((nq, Lq, 32), -128, dtype=torch.int32, device="cuda")
+    prof[:, :, :alph] = sub.to(torch.int32)[args[0].long()] \
+        + args[1].to(torch.int32)[:, :, None]
+    prof = prof.bfloat16()
+    tc = args[3].to(torch.int32).t().contiguous()
+    run_t4 = lambda: qm_variants_cuda.qm_variant_ends(prof, tc)
+    run_k3 = lambda: sw_cuda.qm_ends(*args)
+    got, ref = run_t4(), run_k3()
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError("T4 base and K3 differ on the same pairs")
+    t4_ms, k3_ms = time_ms(torch, run_t4, 10), time_ms(torch, run_k3, 10)
+    print(f"T4 base vs K3 on the same {nq * 128} pairs (Lq {Lq}, Lt {Lt}, "
+          f"{int((ref[0] > 0).sum())} hits, best {int(ref[0].max())}): equal;"
+          f" T4 {t4_ms:.4f} ms, K3 {k3_ms:.4f} ms, T4/K3 "
+          f"{t4_ms / k3_ms:.3f}", flush=True)
+    return t4_ms, k3_ms
+
+
 @contextlib.contextmanager
 def child_process(mode):
     """Starts phase 5g's (a) and (b) (mode --iter-slice: iter_child), phase
@@ -5324,18 +5451,24 @@ def run_phases(stack):
     phase("2 build")
     t0 = time.perf_counter()
     sources = sorted({s[:-3] for s, _ in KERNELS.values()})
-    with ThreadPoolExecutor(len(sources) + 1) as ex:
-        host = ex.submit(native.get_lib)
-        for f in [ex.submit(_build.load, s) for s in sources]:
-            f.result()
-        if host.result() is None:
-            raise AssertionError("the native host library did not build")
-    print(f"nvcc builds of {sources} and the g++ host library "
-          f"{native.library_path().name}: {time.perf_counter() - t0:.2f} s")
+    # qm_variants.cu (T4's 125 template instances, about 100 s of nvcc)
+    # builds beside phase 3 and is joined before phase 3b, its first user
+    builder = stack.enter_context(ThreadPoolExecutor(len(sources) + 1))
+    t4_build = builder.submit(_build.load, "qm_variants")
+    host = builder.submit(native.get_lib)
+    for f in [builder.submit(_build.load, s) for s in sources
+              if s != "qm_variants"]:
+        f.result()
+    if host.result() is None:
+        raise AssertionError("the native host library did not build")
+    print(f"nvcc builds of {sources} but qm_variants and the g++ host "
+          f"library {native.library_path().name}: "
+          f"{time.perf_counter() - t0:.2f} s")
     for s in sources:
-        b = _build.BUILT.get(s, {})
-        print(f"{s}.cu {b.get('seconds', 0.0):.2f} s")
-        print(b.get("ptxas", "(cached)"), flush=True)
+        if s != "qm_variants":
+            b = _build.BUILT.get(s, {})
+            print(f"{s}.cu {b.get('seconds', 0.0):.2f} s")
+            print(b.get("ptxas", "(cached)"), flush=True)
     usage = ptxas_usage(_build.BUILT.get("sw_qm_rt", {}).get("ptxas", ""))
     for k, tag in RT_KERNEL_SYMBOLS.items():
         found = [v for n, v in usage.items() if tag in n]
@@ -5409,6 +5542,8 @@ def run_phases(stack):
 
     phase("3b microbenchmark kernels against their plain versions")
     t0 = time.perf_counter()
+    t4_build.result()
+    report_t4_build(_build, sw_cuda, t_start)
     check_kbench_kernels(torch, kbench_cuda, kbench_torch, kb, errs)
     check_variant_kernel(torch, np, qm_variants_cuda, qm_variants_torch,
                          kvar, errs)
@@ -6169,6 +6304,7 @@ def run_phases(stack):
         qm_variants_torch, _build)
     times.update(tool_times)
     launches.update(tool_launches)
+    t4_against_k3(torch, np, sw_cuda, qm_variants_cuda)
     print(f"phase 6b: {time.perf_counter() - t0:.2f} s", flush=True)
 
     phase("5g the iterative search at full width: search "

@@ -10,45 +10,94 @@
 //   nocap       base without the cap, packing 32768
 //   fold_nocap  fold without the cap
 //   nof         base without the F recurrence (no vertical gaps; inexact)
-// Each returns what the Pallas variant returns, the inexact ones included.
+// Each returns what the Pallas variant returns, the inexact ones included
+// (fold_nocap while its H' stays below 65536, where H' * 32768 is still an
+// int32, as for the Pallas kernel's packed word).
 //
-// Design (sw_qm.cu's): one block per tile, one thread per lane. The tile's
-// profile goes to shared memory as int16, 33 columns a row (a code outside
-// 0..31 reads column 32, which holds 0, as its empty one-hot column does on
-// the TPU); the bf16 input holds integers, so the conversion is exact. The
-// Pallas grid's column chunk (tj) becomes the columns of target codes a
-// lane stages in shared memory per load, from the (Lt, B) layout, coalesced;
-// its unroll (u) becomes the columns a lane carries in registers through one
-// sweep down the rows: the H/E column scratch ([tile][row][lane], int32
-// pairs) is read and written once per u columns, as the Pallas kernel writes
-// its H/E scratch once per UNROLL columns. Only the columns the Pallas grid
-// visits are visited: c * TJ + jj for c < Lt / TJ and jj < (TJ / u) * u.
+// Design: K3's (csrc/sw_qm.cu on csrc/sw_group.cuh), so that the variants
+// measure the kernel the main path runs. A group of G threads aligns one
+// lane; thread k of the group holds rows k R .. k R + R - 1 of a stripe of
+// G R rows in registers (H of the previous column and E of each) and works
+// on visited step s at loop step s + k, receiving the row above's H and F
+// from thread k - 1 in one shuffle per R cells. The class (G, R) is the
+// first of sw_cuda.PAIR_CLASSES whose G R rows cover Lq: (4, 8), (8, 8),
+// (16, 8), (16, 16); above 256 rows a warp per lane (32, 16) sweeps stripes
+// of 512 rows, thread 31 handing each column's word to thread 0 of the
+// next stripe through a per-lane array of words (read 32 columns at a time,
+// 32 steps ahead, written in place). The wrapper picks the class
+// (qm_variants_cuda.launch_plan) and there is one launch: every lane of
+// every tile has the same Lq and the same visited columns. A block of 128
+// threads aligns 4 (32 / G) lanes of one tile and stages the tile's profile
+// once, as int16 (the cap cases' scores do not fit int8; the bf16 input
+// holds integers, so the conversion is exact), class-major: class a's row
+// holds the stripe's G R rows, thread k's R scores as one (R 8) or two (R
+// 16) 16-byte parts, part p of every thread of the group after part p - 1,
+// so that a thread reads a column's scores with one or two 16-byte shared
+// loads and the eight threads of a quarter-warp read 128 contiguous bytes.
+// Where a class row is shorter than 128 bytes ((4, 8)) it is repeated and
+// the groups of a warp alternate between the copies. Class 32 holds 0 (a
+// code outside 0..31, whose one-hot column is empty on the TPU); a row past
+// Lq scores -32768. There is no H/E scratch in device memory.
 //
-// The F term: base, nocap and nof keep sw_qm.cu's F(i) = max(G(i-1) - go,
-// F(i-1) - ge), equal to the Pallas in-column cummax of G + i*ge; fold keeps
-// the folded form literally, a running max of G' (one max a cell instead of
-// two operations). The tie-break: each cell's packed word h*div + (div-1-j)
-// (h the unfolded Hn, int32 arithmetic) goes into a running max, the first
-// row kept on equal words; this is the Pallas max over rows of per-row
-// maxima, with the smallest row among equal words, while Hn * div stays
-// inside int32 (Hn below 65536 for the 32768 packing, as for the Pallas
-// kernel) and no column reaches div (the wrapper refuses Lt > div).
+// The knobs. Only the columns the Pallas grid visits are visited, one after
+// the other as if adjacent: with TJ = min(tj, Lt) and per = (TJ / u) * u,
+// visited step s is column j = (s / per) TJ + s % per, for s below (Lt /
+// TJ) per. tj sets the codes a group stages per load of its ring in shared
+// memory: the per visited columns of one Pallas chunk, or of as many chunks
+// as make 64 steps (the ring holds two loads, a power of two of bytes; a
+// load is staged 32 steps into the one before, once every thread is past
+// the load it replaces). u is the compile-time unroll of the loop over
+// steps (1, 2, 4, 8 or 16), whose body carries no branch but the step's own
+// range check and the rare best-cell update.
 //
-// What bounds it on an H100: about 8 integer operations a cell (DPX add-max
-// counted as one) over the int32 rate, and per lane one dependent chain
-// down the column; the H/E scratch traffic is 16 B a row per u columns.
+// The recurrences, each cell a few DPX add-max (E and F carried as E + go
+// and F + go where the variant's form allows it):
+//   base, nocap  g = max(Hdiag + s, E, 0), h = max(g, F) (base: min 32767),
+//                E' = max(E - ge, h - go), F' = max(F - ge, g - go): the
+//                Pallas in-column cummax of G + i*ge as a recurrence
+//   fold         g' = max(H'diag + s', E', i*ge), h' = max(g', f + ge - go)
+//                (fold: min 32767 + i*ge), f = running max of g' down the
+//                column, E'' = max(E' - ge, h' - go); H' of row -1 is -ge
+//   nof          h = min(max(Hdiag + s, E, 0), 32767), no F
+// The hand-off word is HandOff<false> (16-bit H and F + go) for base and
+// nof, HandOff<true> (32 bits each) for the others, whose H or f leave 16
+// bits.
+//
+// The best cell. The packed word hu * div + (div - 1 - j) (hu the unfolded
+// H, an unsigned product cast to int32) orders cells; equal words go to the
+// smallest row. A thread takes each column's max of hu over its rows (one
+// max a cell) and enters the update only where that max passes the hu of
+// its best so far: visited columns increase with s, so a later column with
+// no larger hu has a smaller word (a stripe below starts from the first
+// column again, and takes ties of that hu too). The update compares the
+// word of the first row holding the max; where that row lies past Lq, or a
+// word can wrap (nocap, fold_nocap: hu at or above 2^31 / div), an
+// out-of-line rescan compares every real row's word, and after a wrapped
+// best every later column's. The group then reduces its G bests under the
+// same order.
+//
+// What bounds it on an H100: the integer instructions of a cell, 7 at the
+// least (chip_smoke.py SW_OPS), about 8 here (the score's extract and add,
+// four add-maxes, the cap, the column's max), at 64 int32 lanes an SM,
+// 1.675e13 operations a second; the per-step shuffle, loads and range check
+// cost about one more a cell at R 16. Device memory holds the inputs, the
+// outputs and, above 512 rows, the stripe hand-off.
 
-#include <cstdint>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "sw_group.cuh"
 
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kPCols = 32;
-constexpr int kRowStride = kPCols + 1;   // column 32 is the empty one
+constexpr int kLanes = 128;                // lanes a tile
+constexpr int kPCols = 32;                 // profile columns
+constexpr int kProfClasses = kPCols + 1;   // class 32: a code outside 0..31
 constexpr int kNeg = -1000000;
-constexpr int kCap = 32767;
+constexpr int kPadScore = -32768;          // a row at or past Lq
+constexpr int kMinChunk = 64;              // steps a ring load, at least
+// the gap costs, as tools/kernel_variants.py's GO and GE: compile-time, so
+// that i*ge of a thread's rows is an immediate beside one register
+constexpr int kGo = 11, kGe = 1;
 enum Variant { kBase = 0, kFold = 1, kNoCap = 2, kFoldNoCap = 3, kNoF = 4 };
 
 __host__ __device__ constexpr bool folded(int v) {
@@ -57,165 +106,427 @@ __host__ __device__ constexpr bool folded(int v) {
 __host__ __device__ constexpr int packing(int v) {
   return (v == kBase || v == kNoF) ? 65536 : 32768;
 }
-
-template <int V, int U>
-__global__ void __launch_bounds__(kLanes) qm_variant_kernel(
-    const uint16_t* __restrict__ prof, const int32_t* __restrict__ tc,
-    int Lq, int Lt, int B, int TJ, int go, int ge, int2* __restrict__ he,
-    int32_t* __restrict__ best_out, int32_t* __restrict__ qend_out,
-    int32_t* __restrict__ tend_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int16_t* prof_s = reinterpret_cast<int16_t*>(smem);
-  const size_t prof_bytes =
-      ((static_cast<size_t>(Lq) * kRowStride * sizeof(int16_t)) + 15) & ~size_t(15);
-  uint8_t* codes_s = smem + prof_bytes;   // [jj][lane]
-  const int tile = blockIdx.x, lane = threadIdx.x;
-  const int b = tile * kLanes + lane;
-  constexpr int div = packing(V);
-
-  const uint16_t* p = prof + static_cast<size_t>(tile) * Lq * kPCols;
-  for (int k = threadIdx.x; k < Lq * kRowStride; k += kLanes) {
-    const int i = k / kRowStride, a = k % kRowStride;
-    int val = 0;
-    if (a < kPCols) {
-      __nv_bfloat16_raw raw;
-      raw.x = p[i * kPCols + a];
-      val = static_cast<int>(__bfloat162float(__nv_bfloat16(raw)));
-    }
-    prof_s[k] = static_cast<int16_t>(val);
-  }
-  __syncthreads();
-
-  int2* col = he + static_cast<size_t>(tile) * Lq * kLanes + lane;
-  for (int i = 0; i < Lq; ++i) {
-    const int h0 = folded(V) ? i * ge : 0;
-    col[static_cast<size_t>(i) * kLanes] = make_int2(h0, h0 - go);
-  }
-  const int h_top = folded(V) ? -ge : 0;     // H of row -1
-  int bestp = 0, qe = 0;
-  const int per_chunk = (TJ / U) * U;
-  for (int c = 0; c < Lt / TJ; ++c) {
-    for (int jj = 0; jj < per_chunk; ++jj) {
-      const int code = tc[static_cast<size_t>(c * TJ + jj) * B + b];
-      codes_s[jj * kLanes + lane] =
-          static_cast<uint8_t>((code >= 0 && code < kPCols) ? code : kPCols);
-    }
-    for (int j0 = 0; j0 < per_chunk; j0 += U) {
-      int cols[U], hprev[U], f[U];
-      const int k0 = (div - 1) - (c * TJ + j0);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        cols[u] = codes_s[(j0 + u) * kLanes + lane];
-        hprev[u] = h_top;
-        f[u] = kNeg;
-      }
-      int hleft = h_top;                     // H(i-1, j0-1)
-      for (int i = 0; i < Lq; ++i) {
-        const int2 w = col[static_cast<size_t>(i) * kLanes];
-        const int16_t* row = prof_s + i * kRowStride;
-        const int igge = i * ge;
-        int e = w.y, diag = hleft;
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int s = row[cols[u]];
-          int h, hu;
-          if (folded(V)) {
-            const int g = max(__viaddmax_s32(diag, s, e), igge);
-            h = max(g, f[u] + (ge - go));
-            if (V == kFold) h = min(h, kCap + igge);
-            f[u] = max(f[u], g);             // running max of G'
-            hu = h - igge;
-          } else if (V == kNoF) {
-            h = min(__viaddmax_s32_relu(diag, s, e), kCap);
-            hu = h;
-          } else {
-            const int g = __viaddmax_s32_relu(diag, s, e);
-            h = max(g, f[u]);
-            if (V == kBase) h = min(h, kCap);
-            f[u] = max(g - go, f[u] - ge);
-            hu = h;
-          }
-          const int packed = static_cast<int>(
-              static_cast<unsigned>(hu) * static_cast<unsigned>(div) +
-              static_cast<unsigned>(k0 - u));
-          if (packed > bestp) { bestp = packed; qe = i; }
-          e = max(e - ge, h - go);
-          diag = hprev[u];
-          hprev[u] = h;
-        }
-        hleft = w.x;
-        col[static_cast<size_t>(i) * kLanes] = make_int2(hprev[U - 1], e);
-      }
-    }
-  }
-  const int M = bestp / div;                 // bestp >= 0
-  const bool has = M > 0;
-  best_out[b] = has ? M : 0;
-  tend_out[b] = has ? (div - 1) - bestp % div : -1;
-  qend_out[b] = has ? qe : Lq - 1;
+// H and F + go fit one 32-bit hand-off word (H <= 32767, F + go <= 65534)
+__host__ __device__ constexpr bool narrow(int v) {
+  return v == kBase || v == kNoF;
+}
+// hu can reach 2^31 / div, where the packed word wraps
+__host__ __device__ constexpr bool may_wrap(int v) {
+  return v == kNoCap || v == kFoldNoCap;
 }
 
-template <int V, int U>
-int launch(const uint16_t* prof, const int32_t* tc, int n_tiles, int Lq,
-           int Lt, int TJ, int go, int ge, int2* he, int32_t* best,
-           int32_t* qend, int32_t* tend, size_t smem, cudaStream_t stream) {
-  auto kernel = qm_variant_kernel<V, U>;
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (rc != cudaSuccess) return static_cast<int>(rc);
+// Bytes of a class's row of the block profile: 2 G R, at least 128 (one
+// copy a group of a quarter-warp).
+template <int G, int R>
+constexpr int kVRow = 2 * G * R > 128 ? 2 * G * R : 128;
+
+template <int G, int R>
+__host__ __device__ constexpr int smem_bytes(int ring) {
+  return kProfClasses * kVRow<G, R> + kWarps * (32 / G) * (ring + 4);
+}
+
+// What a launch is given: the wrapper's plan (qm_variants_cuda.launch_plan)
+// and the tensors.
+struct Plan {
+  const uint16_t* prof;   // (tiles, Lq, 32) bfloat16 bits
+  const int32_t* tc;      // (Lt, tiles * 128)
+  int Lq, Lt, B, TJ, per, nvis, chunk, ring;
+  void* carry;            // (tiles * 128, Lt) hand-off words, or null
+  int32_t *best, *q_end, *t_end;
+};
+
+// A thread's best cell: its packed word and row, the hu of that cell, and
+// the hu a column's max must pass to enter the update (-1: every column).
+struct VBest {
+  int w, row, hu, th;
+};
+
+// The unfolded H of a thread's rows in one column.
+template <int R>
+struct HuRows {
+  int v[R];
+};
+
+// The exact update over a column's real rows (nreal of them, from row0),
+// kcol = div - 1 - j: every row's packed word against the best. Out of
+// line: it runs only where the column's max of hu lies on a row past Lq or
+// its word may wrap.
+template <int V, int R>
+__device__ __noinline__ VBest rescan(VBest best, const HuRows<R> hu,
+                                     int nreal, int row0, unsigned kcol) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int w = static_cast<int>(
+        static_cast<unsigned>(hu.v[r]) * static_cast<unsigned>(packing(V)) +
+        kcol);
+    if (r < nreal && hu.v[r] > 0 &&
+        (w > best.w || (w == best.w && row0 + r < best.row)))
+      best = VBest{w, row0 + r, hu.v[r], best.th};
   }
-  kernel<<<n_tiles, kLanes, smem, stream>>>(prof, tc, Lq, Lt,
-                                            n_tiles * kLanes, TJ, go, ge, he,
-                                            best, qend, tend);
+  return best;
+}
+
+// The local row of halfword x of a class row: part p of thread k's rows is
+// at halfword p 8 G + 8 k.
+template <int G, int R>
+__device__ __forceinline__ int slot_row(int x) {
+  const int y = x % (G * R);
+  const int p = y / (G * 8), q = y % (G * 8);
+  return (q / 8) * R + p * 8 + q % 8;
+}
+
+// The block's int16 profile of rows [base, base + G R) of the tile's query
+// at shared byte offset 0.
+template <int G, int R>
+__device__ __forceinline__ void stage_profile(const uint16_t* p, int Lq,
+                                              int base) {
+  constexpr int kHalf = kVRow<G, R> / 2;
+  int16_t* ps = reinterpret_cast<int16_t*>(smem);
+  for (int x = threadIdx.x; x < kHalf * kProfClasses; x += blockDim.x) {
+    const int pos = x / kProfClasses, a = x % kProfClasses;
+    const int i = base + slot_row<G, R>(pos);
+    int v = kPadScore;
+    if (i < Lq) {
+      v = 0;
+      if (a < kPCols) {
+        __nv_bfloat16_raw raw;
+        raw.x = __ldg(p + static_cast<size_t>(i) * kPCols + a);
+        v = static_cast<int>(__bfloat162float(__nv_bfloat16(raw)));
+      }
+    }
+    ps[a * kHalf + pos] = static_cast<int16_t>(v);
+  }
+}
+
+// Stage ring load L (visited steps [L chunk, (L + 1) chunk)) of lane b into
+// the group's ring at rg: thread k of the group stages every G-th step from
+// k. A step past the last visited one gets class 0.
+template <int G>
+__device__ __forceinline__ void stage_ring(const Plan& pl, int b, int L,
+                                           uint8_t* rg, int k) {
+  const int s0 = L * pl.chunk;
+  for (int v = k; v < pl.chunk; v += G) {
+    const int s = s0 + v;
+    int a = 0;
+    if (s < pl.nvis) {
+      const int c = s / pl.per;
+      const int code = __ldg(
+          pl.tc + static_cast<size_t>(c * pl.TJ + s - c * pl.per) * pl.B + b);
+      a = (code >= 0 && code < kPCols) ? code : kPCols;
+    }
+    rg[s & (pl.ring - 1)] = static_cast<uint8_t>(a);
+  }
+}
+
+// A thread's R int16 scores of one class: one or two 16-byte shared loads.
+template <int G, int R>
+__device__ __forceinline__ void load_scores(uint32_t addr, uint32_t* w) {
+  load_words<4>(addr, w);
+  if constexpr (R == 16) load_words<4>(addr + 16 * G, w + 4);
+}
+
+// The signed low (h 0) or high (h 1) half of w.
+__device__ __forceinline__ int shalf(uint32_t w, int h) {
+  if (h != 0) return static_cast<int>(w) >> 16;
+  int r;
+  asm("prmt.b32 %0, %1, 0, 0x9910;" : "=r"(r) : "r"(w));
+  return r;
+}
+
+// One stripe of G R rows from row `base`: stage the ring's first two loads,
+// then run the wavefront over the visited steps. prof is this thread's
+// byte offset in a class row, ring the group's ring (a byte offset of
+// smem). carry (per-step H and F of the row before `base`, or null at the
+// top) is read 32 steps at a time, 32 steps ahead, and handed to thread 0
+// by a shuffle; carry_out (or null when no stripe follows) is written by
+// thread 31, in place.
+template <int V, int U, int G, int R>
+__device__ __forceinline__ void vstripe(
+    const Plan& pl, int b, int base, int prof, int ring,
+    const typename HandOff<!narrow(V)>::Word* carry,
+    typename HandOff<!narrow(V)>::Word* carry_out, VBest& best) {
+  using Link = HandOff<!narrow(V)>;
+  using Word = typename Link::Word;
+  constexpr bool kFolded = folded(V);
+  constexpr int kDiv = packing(V);
+  constexpr int kWrap = 0x7fffffff / kDiv + 1;   // 2^31 / div
+  constexpr int W = R / 2;                       // score words a class
+  constexpr int kRow = kVRow<G, R>;
+  const int lane = threadIdx.x & 31;
+  const int k = lane % G;
+  const int row0 = base + k * R;
+  const int last_k = min(G - 1, (pl.Lq - 1 - base) / R);
+  const bool on = k <= last_k;
+  const int nreal = pl.Lq - row0;   // this thread's rows below Lq (if < R)
+  const int ig0 = row0 * kGe;       // i*ge of this thread's first row
+
+  // a stripe below sweeps the columns again from the first: a cell of the
+  // best's hu at an earlier column beats it
+  if (best.th > 0) best.th = best.hu - 1;
+  // the previous stripe's ring reads, before this one's staging
+  __syncwarp();
+  uint8_t* rg = reinterpret_cast<uint8_t*>(smem) + ring;
+  stage_ring<G>(pl, b, 0, rg, k);
+  stage_ring<G>(pl, b, 1, rg, k);
+  __syncwarp();
+
+  int hp[R], e[R];   // H(i, j - 1); E(i, j) + go
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    hp[r] = kFolded ? ig0 + r * kGe : 0;
+    e[r] = kFolded ? ig0 + r * kGe : 0;
+  }
+  // row -1: H 0 and F + go 0 (F = -go); folded, H' -ge and f below any g'
+  const Word edge = kFolded ? Link::pack(-kGe, kNeg) : Link::pack(0, 0);
+  int hup = kFolded ? ig0 - kGe : 0;   // H(row0 - 1, j - 1)
+  Word in = edge;                            // H(row0 - 1, j), F(row0, j)
+  const uint32_t smem_at =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  uint32_t prof_at = smem_at + prof;
+  uint32_t ring_at = smem_at + ring;
+  const int rmask = pl.ring - 1;
+  uint32_t wcur[W];   // the scores of this step's class
+  load_scores<G, R>(prof_at + load_byte(ring_at + ((-k) & rmask)) * kRow,
+                    wcur);
+  int a1 = load_byte(ring_at + ((1 - k) & rmask));   // the next class
+  Word cw = 0, cw_next = 0;   // carry words of this and the next 32 steps
+  if (carry != nullptr) cw_next = lane < pl.nvis ? carry[lane] : 0;
+  const int steps = pl.nvis + last_k;   // uniform over the warp
+  int next_stage = pl.chunk + 32, L = 2;
+  for (int t0 = 0; t0 < steps; t0 += U) {
+    if (t0 >= next_stage) {   // uniform: load L replaces load L - 2
+      __syncwarp();
+      stage_ring<G>(pl, b, L, rg, k);
+      __syncwarp();
+      ++L;
+      next_stage += pl.chunk;
+    }
+    if (carry != nullptr && (t0 & 31) == 0) {   // uniform: U divides 32
+      cw = cw_next;
+      cw_next = t0 + 32 + lane < pl.nvis ? carry[t0 + 32 + lane] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 + u;
+      const int s = t - k;
+      if (carry != nullptr) {
+        const Word c = __shfl_sync(kFull, cw, t & 31);
+        if (k == 0) in = c;
+      } else if (k == 0) {
+        in = edge;
+      }
+      asm volatile("" : "+r"(prof_at), "+r"(ring_at));
+      const int a2 = load_byte(ring_at + ((s + 2) & rmask));
+      uint32_t wnext[W];
+      load_scores<G, R>(prof_at + a1 * kRow, wnext);
+      Word out = 0;
+      if (on && s >= 0 && s < pl.nvis) {
+        int diag = hup;
+        hup = Link::h(in);
+        int f = Link::f(in);
+        // the column's max of hu over this thread's rows (folded: of H' -
+        // r ge, less ig0 after the loop)
+        int colmax = 0;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int x = diag + shalf(wcur[r / 2], r % 2);
+          int h;
+          if constexpr (kFolded) {
+            const int g = __viaddmax_s32(ig0, r * kGe,
+                                         __viaddmax_s32(e[r], -kGo, x));
+            h = __viaddmax_s32(f, kGe - kGo, g);
+            if constexpr (V == kFold)
+              h = __viaddmin_s32(ig0, kScoreCap + r * kGe, h);
+            f = max(f, g);
+            colmax = __viaddmax_s32(h, -r * kGe, colmax);
+          } else if constexpr (V == kNoF) {
+            h = min(__viaddmax_s32_relu(e[r], -kGo, x), kScoreCap);
+            colmax = max(colmax, h);
+          } else {
+            const int g = __viaddmax_s32_relu(e[r], -kGo, x);
+            h = __viaddmax_s32(f, -kGo, g);
+            if constexpr (V == kBase) h = min(h, kScoreCap);
+            f = __viaddmax_s32(f, -kGe, g);
+            colmax = max(colmax, h);
+          }
+          e[r] = __viaddmax_s32(e[r], -kGe, h);
+          diag = hp[r];
+          hp[r] = h;
+        }
+        if constexpr (kFolded) colmax -= ig0;
+        out = Link::pack(hp[R - 1], V == kNoF ? 0 : f);
+        if (carry_out != nullptr && k == G - 1) carry_out[s] = out;
+        if (colmax > best.th) {   // rare: the column may hold a new best
+          const int c = s / pl.per;
+          const unsigned kcol = static_cast<unsigned>(
+              (kDiv - 1) - (c * pl.TJ + s - c * pl.per));
+          HuRows<R> hu;
+          int first = R;   // the first row of the column's max
+#pragma unroll
+          for (int r = R - 1; r >= 0; --r) {
+            hu.v[r] = kFolded ? hp[r] - ig0 - r * kGe : hp[r];
+            if (hu.v[r] == colmax) first = r;
+          }
+          if (first < nreal && (!may_wrap(V) || colmax < kWrap)) {
+            // no word of the column wraps: the first row of its max has
+            // the column's largest word
+            const int w = static_cast<int>(
+                static_cast<unsigned>(colmax) * static_cast<unsigned>(kDiv) +
+                kcol);
+            if (w > best.w || (w == best.w && row0 + first < best.row))
+              best = VBest{w, row0 + first, colmax, best.th};
+          } else {
+            best = rescan<V, R>(best, hu, nreal, row0, kcol);
+          }
+          best.th = (may_wrap(V) && best.hu >= kWrap) ? -1 : best.hu;
+        }
+      }
+      a1 = a2;
+#pragma unroll
+      for (int w = 0; w < W; ++w) wcur[w] = wnext[w];
+      in = __shfl_up_sync(kFull, out, 1, G);
+    }
+  }
+}
+
+// Lanes (tile x / kBlocks, 4 (32 / G) of them from (x % kBlocks) 4 (32 /
+// G)), 32 / G a warp, G threads a lane.
+template <int V, int U, int G, int R>
+__global__ void __launch_bounds__(kLanes, 4) qm_variant_kernel(
+    const Plan pl) {
+  using Word = typename HandOff<!narrow(V)>::Word;
+  constexpr int kPairs = 32 / G;                        // lanes a warp
+  constexpr int kBlockLanes = kWarps * kPairs;          // lanes a block
+  constexpr int kBlocks = kLanes / kBlockLanes;         // blocks a tile
+  constexpr int kDiv = packing(V);
+  const int tile = blockIdx.x / kBlocks;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp * kPairs + lane / G;            // the block's lane
+  const int b = tile * kLanes + (blockIdx.x % kBlocks) * kBlockLanes + slot;
+  // the group's ring after the profile, zeroed (any class is a valid one:
+  // the look-behind before step 0 reads the ring's end)
+  const int ring = kProfClasses * kVRow<G, R> + slot * (pl.ring + 4);
+  uint8_t* rg = reinterpret_cast<uint8_t*>(smem) + ring;
+  for (int x = lane % G; x < pl.ring; x += G) rg[x] = 0;
+  // this thread's scores in a class row: its group's copy, then part 0
+  const int prof = ((lane / G) * 2 * G * R) % kVRow<G, R> + (lane % G) * 16;
+  const uint16_t* p = pl.prof + static_cast<size_t>(tile) * pl.Lq * kPCols;
+  Word* pc = pl.carry != nullptr
+                 ? static_cast<Word*>(pl.carry) +
+                       static_cast<size_t>(b) * pl.Lt
+                 : nullptr;
+  VBest best{0, INT_MAX, 0, 0};
+  for (int base = 0; base < pl.Lq; base += G * R) {   // uniform
+    __syncthreads();   // the last stripe's profile reads done
+    stage_profile<G, R>(p, pl.Lq, base);
+    __syncthreads();
+    vstripe<V, U, G, R>(pl, b, base, prof, ring, base > 0 ? pc : nullptr,
+                        base + G * R < pl.Lq ? pc : nullptr, best);
+  }
+  // the group's best: the largest word, then the smallest row
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const int ow = __shfl_xor_sync(kFull, best.w, off, G);
+    const int orow = __shfl_xor_sync(kFull, best.row, off, G);
+    if (ow > best.w || (ow == best.w && orow < best.row)) {
+      best.w = ow;
+      best.row = orow;
+    }
+  }
+  if (lane % G == 0) {
+    const int M = best.w / kDiv;   // best.w >= 0
+    const bool has = M > 0;
+    pl.best[b] = has ? M : 0;
+    pl.t_end[b] = has ? (kDiv - 1) - best.w % kDiv : -1;
+    pl.q_end[b] = has ? best.row : pl.Lq - 1;
+  }
+}
+
+template <int V, int U, int G, int R>
+int launch(const Plan& pl, int n_tiles, cudaStream_t stream) {
+  const size_t bytes = smem_bytes<G, R>(pl.ring);
+  auto kernel = qm_variant_kernel<V, U, G, R>;
+  const int rc = allow_smem(kernel, bytes);
+  if (rc != 0) return rc;
+  const int blocks = n_tiles * (kLanes / (kWarps * (32 / G)));
+  kernel<<<blocks, kLanes, bytes, stream>>>(pl);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int V>
-int dispatch_unroll(int U, const uint16_t* prof, const int32_t* tc,
-                    int n_tiles, int Lq, int Lt, int TJ, int go, int ge,
-                    int2* he, int32_t* best, int32_t* qend, int32_t* tend,
-                    size_t smem, cudaStream_t s) {
-  switch (U) {
-    case 1: return launch<V, 1>(prof, tc, n_tiles, Lq, Lt, TJ, go, ge, he, best, qend, tend, smem, s);
-    case 2: return launch<V, 2>(prof, tc, n_tiles, Lq, Lt, TJ, go, ge, he, best, qend, tend, smem, s);
-    case 4: return launch<V, 4>(prof, tc, n_tiles, Lq, Lt, TJ, go, ge, he, best, qend, tend, smem, s);
-    case 8: return launch<V, 8>(prof, tc, n_tiles, Lq, Lt, TJ, go, ge, he, best, qend, tend, smem, s);
-    case 16: return launch<V, 16>(prof, tc, n_tiles, Lq, Lt, TJ, go, ge, he, best, qend, tend, smem, s);
+template <int V, int U>
+int by_class(int cls, const Plan& pl, int n_tiles, cudaStream_t s) {
+  switch (cls) {
+    case 0: return launch<V, U, 4, 8>(pl, n_tiles, s);
+    case 1: return launch<V, U, 8, 8>(pl, n_tiles, s);
+    case 2: return launch<V, U, 16, 8>(pl, n_tiles, s);
+    case 3: return launch<V, U, 16, 16>(pl, n_tiles, s);
+    case 4: return launch<V, U, 32, kMaxRows>(pl, n_tiles, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <int V>
+int by_unroll(int U, int cls, const Plan& pl, int n_tiles, cudaStream_t s) {
+  switch (U) {
+    case 1: return by_class<V, 1>(cls, pl, n_tiles, s);
+    case 2: return by_class<V, 2>(cls, pl, n_tiles, s);
+    case 4: return by_class<V, 4>(cls, pl, n_tiles, s);
+    case 8: return by_class<V, 8>(cls, pl, n_tiles, s);
+    case 16: return by_class<V, 16>(cls, pl, n_tiles, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+constexpr int kClassRows[kClasses] = {32, 64, 128, 256, kStripe};
+
 }  // namespace
 
-// Bytes of dynamic shared memory a launch takes.
-extern "C" long long qm_variant_smem(int Lq, int TJ) {
-  const long long prof = ((static_cast<long long>(Lq) * kRowStride * 2) + 15) & ~15LL;
-  return prof + static_cast<long long>(TJ) * kLanes;
+// Bytes of dynamic shared memory a launch of class cls (sw_cuda.PAIR_CLASSES)
+// with a ring of `ring` bytes a lane takes, or -1 for no such class.
+extern "C" long long qm_variant_smem(int cls, int ring) {
+  switch (cls) {
+    case 0: return smem_bytes<4, 8>(ring);
+    case 1: return smem_bytes<8, 8>(ring);
+    case 2: return smem_bytes<16, 8>(ring);
+    case 3: return smem_bytes<16, 16>(ring);
+    case 4: return smem_bytes<32, kMaxRows>(ring);
+    default: return -1;
+  }
 }
 
 // variant: 0 base, 1 fold, 2 nocap, 3 fold_nocap, 4 nof; unroll one of 1, 2,
-// 4, 8, 16; TJ = min(tj, Lt) >= 1. prof: (n_tiles, Lq, 32) bfloat16 bits;
-// tc: (Lt, n_tiles * 128) int32; scratch: (n_tiles, Lq, 128) int32 pairs;
-// best, q_end, t_end: (n_tiles * 128,) int32. Every pointer is on the
-// device; the launch goes on `stream` and does not synchronise. Returns the
-// error of the attribute call or of the launch (0 on success).
-extern "C" int qm_variant_ends(int variant, int unroll, const uint16_t* prof,
-                               const int32_t* tc, int n_tiles, int Lq, int Lt,
-                               int TJ, int go, int ge, int2* scratch,
-                               int32_t* best, int32_t* q_end, int32_t* t_end,
-                               void* stream) {
-  if (n_tiles <= 0 || Lq <= 0 || TJ <= 0 || TJ > Lt)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(qm_variant_smem(Lq, TJ));
+// 4, 8, 16; cls, TJ, per, nvis, chunk, ring: qm_variants_cuda.launch_plan's
+// (TJ = min(tj, Lt), per = (TJ / unroll) unroll, nvis = (Lt / TJ) per,
+// chunk >= 64 steps a ring load, ring a power of two >= 2 chunk); go, ge
+// 11 and 1 (the kernel's compile-time gap costs). prof:
+// (n_tiles, Lq, 32) bfloat16 bits holding int16 scores; tc: (Lt, n_tiles *
+// 128) int32; carry: (n_tiles * 128, Lt) 8-byte words, needed (non-null)
+// only when Lq > 512; best, q_end, t_end: (n_tiles * 128,) int32. Every
+// pointer is on the device; the launch goes on `stream` and does not
+// synchronise. Returns the error of the attribute call or of the launch (0
+// on success).
+extern "C" int qm_variant_ends(int variant, int unroll, int cls,
+                               const uint16_t* prof, const int32_t* tc,
+                               int n_tiles, int Lq, int Lt, int TJ, int per,
+                               int nvis, int chunk, int ring, int go, int ge,
+                               void* carry, int32_t* best, int32_t* q_end,
+                               int32_t* t_end, void* stream) {
+  const bool shape_ok =
+      n_tiles > 0 && Lq > 0 && TJ > 0 && TJ <= Lt && per >= 0 &&
+      per <= TJ && nvis == (Lt / TJ) * per && chunk >= kMinChunk &&
+      ring >= 2 * chunk && (ring & (ring - 1)) == 0 && cls >= 0 &&
+      cls < kClasses && (cls == kClasses - 1 || Lq <= kClassRows[cls]) &&
+      (Lq <= kStripe || carry != nullptr) && go == kGo && ge == kGe;
+  if (!shape_ok) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan pl{prof, tc, Lq, Lt, n_tiles * kLanes, TJ, per, nvis, chunk,
+                ring, carry, best, q_end, t_end};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {
-    case kBase: return dispatch_unroll<kBase>(unroll, prof, tc, n_tiles, Lq, Lt, TJ, go, ge, scratch, best, q_end, t_end, smem, s);
-    case kFold: return dispatch_unroll<kFold>(unroll, prof, tc, n_tiles, Lq, Lt, TJ, go, ge, scratch, best, q_end, t_end, smem, s);
-    case kNoCap: return dispatch_unroll<kNoCap>(unroll, prof, tc, n_tiles, Lq, Lt, TJ, go, ge, scratch, best, q_end, t_end, smem, s);
-    case kFoldNoCap: return dispatch_unroll<kFoldNoCap>(unroll, prof, tc, n_tiles, Lq, Lt, TJ, go, ge, scratch, best, q_end, t_end, smem, s);
-    case kNoF: return dispatch_unroll<kNoF>(unroll, prof, tc, n_tiles, Lq, Lt, TJ, go, ge, scratch, best, q_end, t_end, smem, s);
+    case kBase: return by_unroll<kBase>(unroll, cls, pl, n_tiles, s);
+    case kFold: return by_unroll<kFold>(unroll, cls, pl, n_tiles, s);
+    case kNoCap: return by_unroll<kNoCap>(unroll, cls, pl, n_tiles, s);
+    case kFoldNoCap: return by_unroll<kFoldNoCap>(unroll, cls, pl, n_tiles, s);
+    case kNoF: return by_unroll<kNoF>(unroll, cls, pl, n_tiles, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,9 +8,11 @@ cap and the F recurrence cost.
   fold_nocap  both
   nof         no F recurrence at all (not exact: the ceiling a perfect
               lazy-F scheme could reach)
-  uN / tjN    base with N columns carried in registers per sweep down the
-              rows (1, 2, 4, 8, 16) / N columns of target codes staged per
-              shared-memory load (the Pallas grid's column chunk)
+  uN / tjN    base with the Pallas kernel's UNROLL / column chunk TJ at N:
+              on the card, the unroll of the kernel's loop over columns (1,
+              2, 4, 8, 16) / the visited columns a lane's group stages per
+              load of its ring of target codes; both keep the Pallas grid's
+              visited columns (ops/qm_variants_cuda.launch_plan)
 
     python -m metaeuk_tpu_torch.tools.kernel_variants [--device cuda|cpu]
         [--lq 256] [--lt 2048] [--tiles 32] [variant ...]

@@ -123,6 +123,25 @@ def test_plain_matches_pallas_interpret(interpret, variant, kind, Lq, Lt,
         assert len(np.unique(ref[0])) < TB // 2
 
 
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_plain_matches_pallas_interpret_across_row_stripes(interpret,
+                                                           variant):
+    """chip_smoke's stripe case (Lq 1,100, the CUDA kernel's three row
+    stripes): lane 0's equal runs in the first and the third stripe go to
+    the earlier column, in the third."""
+    import chip_smoke
+    prof, tc = chip_smoke.stripe_variant_inputs(np, variant)
+    tj, unroll = chip_smoke.STRIPE_SHAPE[3:]
+    ref = _pallas(prof, tc, variant, tj, unroll)
+    got = qm_variants_torch.qm_variant_ends(
+        torch.from_numpy(prof).bfloat16(), torch.from_numpy(tc), variant, tj,
+        unroll)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(r, g.numpy())
+    assert [int(o[0]) for o in got] == [11 * chip_smoke.STRIPE_RUN, 1039,
+                                        54 + chip_smoke.STRIPE_RUN]
+
+
 def test_fold_equals_base_and_nof_differs(interpret):
     """fold is score-exact: its outputs equal base's on the same scores."""
     outs = {}
@@ -139,6 +158,44 @@ def test_visited_columns_follow_the_pallas_grid():
     assert qm_variants_torch.visited_columns(128, 40, 16) == \
         [c * 40 + j for c in range(3) for j in range(32)]
     assert qm_variants_torch.visited_columns(64, 256, 8) == list(range(64))
+
+
+@pytest.mark.parametrize("Lt", (64, 300, 2048))
+@pytest.mark.parametrize("tj", (1, 32, 40, 100, 256, 1024))
+@pytest.mark.parametrize("unroll", qm_variants_cuda.UNROLLS)
+def test_launch_plan_steps_are_the_visited_columns(Lt, tj, unroll):
+    """The kernel walks plan.nvis steps; step s is column step_column(s):
+    the Pallas grid's visited columns in order (none where per is 0)."""
+    plan = qm_variants_cuda.launch_plan(256, Lt, tj, unroll)
+    cols = [qm_variants_cuda.step_column(s, plan) for s in range(plan.nvis)]
+    assert cols == qm_variants_torch.visited_columns(Lt, tj, unroll)
+    assert plan.TJ == min(tj, Lt) and plan.per == (plan.TJ // unroll) * unroll
+    # a ring load: whole chunks of per steps, at least MIN_CHUNK; the ring
+    # a power of two holding two loads
+    assert plan.chunk >= qm_variants_cuda.MIN_CHUNK
+    assert plan.per == 0 or plan.chunk % plan.per == 0
+    assert plan.ring >= 2 * plan.chunk and plan.ring & (plan.ring - 1) == 0
+    assert plan.ring < 4 * plan.chunk
+
+
+# Lq: (G, R, stripes) of the launch
+PLAN_CLASSES = {32: (4, 8, 1), 96: (16, 8, 1), 160: (16, 16, 1),
+                256: (16, 16, 1), 512: (32, 16, 1), 1100: (32, 16, 3)}
+
+
+@pytest.mark.parametrize("Lq", sorted(PLAN_CLASSES))
+def test_launch_plan_class_follows_pair_classes(Lq):
+    """The first of PAIR_CLASSES whose G * R rows cover Lq, else the warp
+    class in stripes of PAIR_STRIPE rows (K3's rule)."""
+    from metaeuk_tpu_torch.ops.sw_cuda import PAIR_CLASSES, PAIR_STRIPE
+    plan = qm_variants_cuda.launch_plan(Lq, 2048, 256, 8)
+    assert (plan.G, plan.R, plan.stripes) == PLAN_CLASSES[Lq]
+    assert PAIR_CLASSES[plan.cls] == (plan.G, plan.R)
+    covers = [g * r >= Lq for g, r in PAIR_CLASSES[:-1]]
+    assert plan.cls == (covers.index(True) if any(covers)
+                        else len(PAIR_CLASSES) - 1)
+    assert plan.stripes == (1 if plan.cls < len(PAIR_CLASSES) - 1
+                            else -(-Lq // PAIR_STRIPE))
 
 
 def test_entry_point_inputs_are_run_variants():
@@ -221,3 +278,22 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
             qm_variants_cuda.qm_variant_ends(prof, tc, **kw)
     with pytest.raises(ValueError, match="bfloat16"):
         qm_variants_cuda.qm_variant_ends(prof.float(), tc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_kernel_matches_plain_across_row_stripes(cuda_device, variant):
+    """Lq 1,100 (three stripes of the warp class), Lt 300, tj 100, unroll
+    4: chip_smoke's stripe case, whose lane 0 ties across stripes."""
+    import chip_smoke
+    prof, tc = chip_smoke.stripe_variant_inputs(np, variant)
+    Lq, Lt, _, tj, unroll = chip_smoke.STRIPE_SHAPE
+    assert prof.shape[1] == Lq and tc.shape[0] == Lt
+    prof = torch.from_numpy(prof).to(cuda_device).bfloat16()
+    tc = torch.from_numpy(tc).to(cuda_device)
+    got = qm_variants_cuda.qm_variant_ends(prof, tc, variant, tj, unroll)
+    torch.cuda.synchronize()
+    ref = qm_variants_torch.qm_variant_ends(prof, tc, variant, tj, unroll)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert [int(o[0]) for o in ref] == [11 * chip_smoke.STRIPE_RUN, 1039,
+                                        54 + chip_smoke.STRIPE_RUN]
