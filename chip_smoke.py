@@ -68,13 +68,19 @@ Phases, each fatal on failure:
      (floats compared as their bits): every case of tools/kbench.py (T1-T3)
      at its TPU shape (256, 512) and REPS 512 on seeded non-zero inputs,
      T1 also at n_ops 2 and on one warp, every shift amount kb_shift is
-     built for with both fills, a scan with values below NEG; every T4
+     built for with both fills, a scan with values below NEG; T2 at every
+     amount and fill and T3 at the edge reps (KBENCH_EDGE_REPS: no rep,
+     one, a remainder loop alone, one unrolled block, both; scans of 0, 1,
+     5, 7, 31, 33 and 64 passes, across and past the wavefront's ramp) on
+     a width that is not a multiple of a block's four columns, with int32
+     extremes in the scan; every T4
      variant and the uN / tjN sweeps at tools/kernel_variants.py's default
      shape (32 tiles, Lq 256, Lt 2048), a small ragged shape with lanes
      that never score and repeated lanes, a shape where H passes 32767,
      Lq 1,100 (STRIPE_SHAPE: T4's three row stripes, equal runs in the
-     first and third going to the third's earlier column), and nocap where
-     its packed word wraps
+     first and third going to the third's earlier column), and nocap and
+     fold_nocap where their packed words wrap (fold_nocap on H' = H + i ge,
+     below and past 65,536 where H is below it)
   4. easy-predict through the metaeuk-tpu-torch CLI on tests/data: the four
      outputs byte-identical to tests/golden/easypredict.*
   4b. easy-predict --prefilter-mode ungapped on tests/data and on the
@@ -364,7 +370,13 @@ Phases, each fatal on failure:
      and no plain version called; each new kernel's time beside its bound
      (T1 at the rate of each dtype's pipe) and its plain version's; T1 on
      one warp in cycles per dependent step at the SM clock nvidia-smi reads
-     during the run; 64 x torch.cummax as T3's library yardstick; the SASS
+     during the run; T2's and T3's floors (tools/torch_kbench_floors.py:
+     each case at REPS and 2 x REPS, at reps 0, one column alone, 4,096
+     columns; the operations bound, the shuffle bound, the latency floor
+     at the measured shuffle and max latencies); T2's one-call yardstick
+     (tools/kbench.py shift_yardstick, strided torch.cummax clamped at 0)
+     and 64 x torch.cummax as T3's library yardstick, each equal to its
+     kernel's output; the SASS
      opcodes of each T1 chain (cuobjdump); T4 base against K3 (sw_qm_ends)
      on the same 4,096 pairs (T4_K3_SHAPE), equal outputs, both times
 The line before the last is {"kernels": [...]}; the last line is
@@ -551,6 +563,10 @@ GAPLESS_LONG_TIME_SHAPE = (32768, 512, 2, (16400, 32700), 1687, (257, 512))
 # device memory bytes per second
 INT32_OPS_PER_S = 67e12 / 4
 BYTES_PER_S = 3.35e12
+# warp shuffles: 32 results a clock an SM at compute capability 9.0 (the
+# CUDA C++ Programming Guide's table of arithmetic instruction throughput),
+# half the int32 lanes' rate; in lanes moved a second
+SHFL_PER_S = INT32_OPS_PER_S / 2
 # the least integer instructions per DP cell, with the bias folded into a
 # per-query profile and each of sm_90's DPX functions (__viaddmax_s32,
 # __viaddmax_s32_relu) counted as one instruction at the int32 rate.
@@ -4988,6 +5004,15 @@ def bits(torch, t):
     return t if view is None else t.view(view)
 
 
+# T2's and T3's edge reps: none, one, the remainder loop alone (7), one
+# unrolled block (8), both (61); scans of 0, 0, 1, 5, 7, 31, 33 and 64
+# passes (the wavefront's ramp is 32 steps); on a width that is not a
+# multiple of a block's columns
+KBENCH_EDGE_REPS = {"shift": (0, 1, 7, 8, 61),
+                    "scan": (0, 7, 8, 40, 61, 248, 264, 512)}
+KBENCH_EDGE_COLS = 37
+
+
 def check_kbench_kernels(torch, kbench_cuda, kbench_torch, kb, errs):
     """Every kbench case at the TPU shape and REPS on seeded non-zero
     inputs, each dtype's chain also at n_ops 2 and on one warp, and every
@@ -5004,6 +5029,14 @@ def check_kbench_kernels(torch, kbench_cuda, kbench_torch, kb, errs):
     checks.append(("shift_i16", kb.SHAPE, kb.REPS, {"amount": 3}))
     checks.append(("shift_i16", kb.SHAPE, kb.REPS, {"amount": 64,
                                                     "roll": True}))
+    edge = (kb.SHAPE[0], KBENCH_EDGE_COLS)
+    for amount in kbench_cuda.SHIFT_AMOUNTS:
+        for roll in (False, True):
+            for reps in KBENCH_EDGE_REPS["shift"]:
+                checks.append(("shift_i32", edge, reps,
+                               {"amount": amount, "roll": roll}))
+    for reps in KBENCH_EDGE_REPS["shift"]:
+        checks.append(("shift_i16", edge, reps, {"amount": 3}))
     kernel_of = {"alu": "kb_alu", "shift": "kb_shift", "scan": "kb_scan"}
     for seed, (name, shape, reps, extra) in enumerate(checks, 1):
         kind, _, kw = kb.CASES[name]
@@ -5022,10 +5055,33 @@ def check_kbench_kernels(torch, kbench_cuda, kbench_torch, kb, errs):
                                          dtype=torch.int32)[:, None]
     errs["kb_scan"] = max(errs["kb_scan"], max_err(
         torch, (kbench_cuda.scan(x),), (kbench_torch.scan(x),)))
-    print(f"kbench: {len(checks) + 1} cases equal to the plain versions bit "
-          f"for bit (the 11 cases at {kb.SHAPE}, REPS {kb.REPS}; n_ops 2; one "
-          f"warp; shift amounts {kbench_cuda.SHIFT_AMOUNTS} with zero fill "
-          "and wrapped; a scan with columns below NEG)", flush=True)
+    x = scan_edge_input(torch, kb)
+    for reps in KBENCH_EDGE_REPS["scan"]:
+        errs["kb_scan"] = max(errs["kb_scan"], max_err(
+            torch, (kbench_cuda.scan(x, reps),),
+            (kbench_torch.scan(x, reps),)))
+    print(f"kbench: {len(checks) + 1 + len(KBENCH_EDGE_REPS['scan'])} cases "
+          f"equal to the plain versions bit for bit (the 11 cases at "
+          f"{kb.SHAPE}, REPS {kb.REPS}; n_ops 2; one warp; shift amounts "
+          f"{kbench_cuda.SHIFT_AMOUNTS} with zero fill and wrapped; a scan "
+          f"with columns below NEG; at {KBENCH_EDGE_COLS} columns, shifts at "
+          f"reps {KBENCH_EDGE_REPS['shift']} and scans at reps "
+          f"{KBENCH_EDGE_REPS['scan']}, int32 extremes among them)",
+          flush=True)
+
+
+def scan_edge_input(torch, kb):
+    """(256, KBENCH_EDGE_COLS) int32 on the card: seeded values, columns
+    below NEG, a column of INT_MIN, one of INT_MIN on its first rows, one
+    near INT_MAX."""
+    x = kb.case_input("scan256", "cuda", seed=13,
+                      shape=(kb.SHAPE[0], KBENCH_EDGE_COLS))
+    rows = torch.arange(kb.SHAPE[0], device="cuda", dtype=torch.int32)
+    x[:, 0] = -2_000_000 - rows
+    x[:, 1] = -2 ** 31
+    x[:5, 2] = -2 ** 31
+    x[:, 3] = 2 ** 31 - 1 - rows
+    return x
 
 
 # T4's row-stripe case: (Lq, Lt, tiles, tj, unroll), three stripes of 512
@@ -5104,18 +5160,22 @@ def variant_checks(torch, np, kvar):
         p, t = stripe_variant_inputs(np, v)
         yield (f"stripes {v}", torch.from_numpy(p).bfloat16().cuda(),
                torch.from_numpy(t).cuda(), v, *STRIPE_SHAPE[3:])
-    # nocap's H past 65,536 (300 rows of 250 but one in seven), where its
-    # packed word (hu * 32768) wraps: the kernel's exact rescan of every row
-    # (fold_nocap's H' * 32768 wraps elsewhere than its unfolded word, and
-    # is left out)
+    # H past 65,536 (300 rows of 250 but one in seven), where the packed
+    # words wrap: nocap's (hu * 32768), through the kernel's exact rescan of
+    # every row; fold_nocap's (H' * 32768, H' = H + i ge), through its
+    # words a row, which wrap at other columns than the unfolded word
     wrap = np.full((1, 300, 32), 250, np.float32)
     wrap[:, ::7, 3] = -50
     wrap[:, :, 21:] = -128
     wrap_tc = np.random.default_rng(1).integers(0, 21, (600, 128)).astype(
         np.int32)
     wrap_tc[:, 1] = 25
-    yield ("wrap nocap", torch.from_numpy(wrap).bfloat16().cuda(),
-           torch.from_numpy(wrap_tc).cuda(), "nocap", 600, 8)
+    for v in ("nocap", "fold_nocap"):
+        p = wrap.copy()
+        if v == "fold_nocap":
+            p[:, :, :21] += 1
+        yield (f"wrap {v}", torch.from_numpy(p).bfloat16().cuda(),
+               torch.from_numpy(wrap_tc).cuda(), v, 600, 8)
 
 
 def check_variant_kernel(torch, np, qm_variants_cuda, qm_variants_torch,
@@ -5245,9 +5305,10 @@ def sass_census(_build):
 def run_tools(torch, np, kb, kvar, kbench_cuda, kbench_torch,
               qm_variants_cuda, qm_variants_torch, _build):
     """Both entry points over all their cases, counted; then each new
-    kernel's time beside its bound and its plain version's, T1 on one warp,
-    T3's torch.cummax yardstick and the SASS census. ({name: (ms, plain_ms,
-    bound_ms, bound_by)}, launches, {name: library_ms})."""
+    kernel's time beside its bound and its plain version's, T2's and T3's
+    floors (tools/torch_kbench_floors.py), their one-call yardsticks, T1
+    on one warp and the SASS census. ({name: (ms, plain_ms, bound_ms,
+    bound_by)}, launches, {name: library_ms})."""
     for c in (kbench_cuda, qm_variants_cuda):
         c.reset_counts()
     torch.cuda.synchronize()
@@ -5277,19 +5338,20 @@ def run_tools(torch, np, kb, kvar, kbench_cuda, kbench_torch,
     for k, name in (("kb_alu", "alu_i32"), ("kb_shift", "shift_i32"),
                     ("kb_scan", "scan256")):
         out[k] = rows[name]
-    x = kb.case_input("scan256", "cuda", seed=5)
-
-    def cummax_yardstick():
-        a = x
-        for _ in range(kb.REPS // 8):
-            a = torch.cummax(a, 0).values - 1
-        return a
-    library["kb_scan"] = time_ms(torch, cummax_yardstick, 10)
-    if not torch.equal(cummax_yardstick(), kbench_cuda.scan(x)):
-        raise AssertionError("torch.cummax yardstick differs from kb_scan")
-    print(f"scan256 library yardstick, {kb.REPS // 8} x (torch.cummax(a, "
-          f"0).values - 1): {library['kb_scan']:.4f} ms (equal output)",
-          flush=True)
+    from tools import torch_kbench_floors as floors
+    raw = floors.measure(torch, kbench_cuda, kbench_torch, kb)
+    floors.report(raw, floors.derive(raw, sys.modules[__name__], kbench_cuda,
+                                     kb), "floors")
+    for name in floors.CASES:
+        x = kb.case_input(name, "cuda", seed=5)
+        ms = time_ms(torch, lambda: kb.yardstick(name, x), 10)
+        if not torch.equal(kb.yardstick(name, x), kb.run_case(name, x)):
+            raise AssertionError(f"{name}'s yardstick differs from its "
+                                 "kernel's output")
+        if name in ("shift_i32", "scan256"):
+            library["kb_" + kb.CASES[name][0]] = ms
+        print(f"{name} library yardstick (tools/kbench.py yardstick): "
+              f"{ms:.4f} ms, equal output", flush=True)
     prof, tc = kvar.variant_inputs("base", 256, 2048, 32, "cuda")
     cells = 32 * 128 * 256 * 2048
     run = lambda: qm_variants_cuda.qm_variant_ends(prof, tc)

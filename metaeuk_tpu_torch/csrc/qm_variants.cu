@@ -10,9 +10,9 @@
 //   nocap       base without the cap, packing 32768
 //   fold_nocap  fold without the cap
 //   nof         base without the F recurrence (no vertical gaps; inexact)
-// Each returns what the Pallas variant returns, the inexact ones included
-// (fold_nocap while its H' stays below 65536, where H' * 32768 is still an
-// int32, as for the Pallas kernel's packed word).
+// Each returns what the Pallas variant returns, the inexact ones included,
+// fold_nocap past H' = 65536 too, where its packed word H' * 32768 + (32767
+// - j) wraps as the Pallas kernel's int32 does (see "The best cell").
 //
 // Design: K3's (csrc/sw_qm.cu on csrc/sw_group.cuh), so that the variants
 // measure the kernel the main path runs. A group of G threads aligns one
@@ -74,7 +74,14 @@
 // word can wrap (nocap, fold_nocap: hu at or above 2^31 / div), an
 // out-of-line rescan compares every real row's word, and after a wrapped
 // best every later column's. The group then reduces its G bests under the
-// same order.
+// same order. fold_nocap keeps the Pallas kernel's order instead: a word a
+// row, the max of the folded word H' * 32768 + (32767 - j) over the row's
+// columns in int32 (the word and its max, in place of the column's max),
+// less i ge 32768 once the stripe is swept. The folded and the unfolded word
+// differ by that constant, but once H' passes 65536 the folded one wraps at
+// other columns than the unfolded one, so a row's best column is the
+// folded word's; the row's words then order as the Pallas kernel's
+// reduction over rows does.
 //
 // What bounds it on an H100: the integer instructions of a cell, 7 at the
 // least (chip_smoke.py SW_OPS), about 8 here (the score's extract and add,
@@ -113,6 +120,10 @@ __host__ __device__ constexpr bool narrow(int v) {
 // hu can reach 2^31 / div, where the packed word wraps
 __host__ __device__ constexpr bool may_wrap(int v) {
   return v == kNoCap || v == kFoldNoCap;
+}
+// a packed word a row, on the folded H' (the Pallas fold_nocap's BP)
+__host__ __device__ constexpr bool row_words(int v) {
+  return v == kFoldNoCap;
 }
 
 // Bytes of a class's row of the block profile: 2 G R, at least 128 (one
@@ -271,11 +282,16 @@ __device__ __forceinline__ void vstripe(
   __syncwarp();
 
   int hp[R], e[R];   // H(i, j - 1); E(i, j) + go
+  int bp[row_words(V) ? R : 1];   // each row's best folded word
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     hp[r] = kFolded ? ig0 + r * kGe : 0;
     e[r] = kFolded ? ig0 + r * kGe : 0;
+    if constexpr (row_words(V)) bp[r] = 0;
   }
+  // row_words: this thread's visited steps are s = 0 .. nvis - 1 in order;
+  // jcol is step s's column, jpos its place in the Pallas chunk
+  int jcol = 0, jpos = 0;
   // row -1: H 0 and F + go 0 (F = -go); folded, H' -ge and f below any g'
   const Word edge = kFolded ? Link::pack(-kGe, kNeg) : Link::pack(0, 0);
   int hup = kFolded ? ig0 - kGe : 0;   // H(row0 - 1, j - 1)
@@ -338,7 +354,12 @@ __device__ __forceinline__ void vstripe(
             if constexpr (V == kFold)
               h = __viaddmin_s32(ig0, kScoreCap + r * kGe, h);
             f = max(f, g);
-            colmax = __viaddmax_s32(h, -r * kGe, colmax);
+            if constexpr (row_words(V))
+              bp[r] = max(bp[r], static_cast<int>(
+                                     static_cast<unsigned>(h) * kDiv +
+                                     static_cast<unsigned>(kDiv - 1 - jcol)));
+            else
+              colmax = __viaddmax_s32(h, -r * kGe, colmax);
           } else if constexpr (V == kNoF) {
             h = min(__viaddmax_s32_relu(e[r], -kGo, x), kScoreCap);
             colmax = max(colmax, h);
@@ -356,7 +377,11 @@ __device__ __forceinline__ void vstripe(
         if constexpr (kFolded) colmax -= ig0;
         out = Link::pack(hp[R - 1], V == kNoF ? 0 : f);
         if (carry_out != nullptr && k == G - 1) carry_out[s] = out;
-        if (colmax > best.th) {   // rare: the column may hold a new best
+        if constexpr (row_words(V)) {
+          const bool next_chunk = ++jpos == pl.per;
+          jcol += next_chunk ? pl.TJ - pl.per + 1 : 1;
+          jpos = next_chunk ? 0 : jpos;
+        } else if (colmax > best.th) {   // rare: a new best, maybe
           const int c = s / pl.per;
           const unsigned kcol = static_cast<unsigned>(
               (kDiv - 1) - (c * pl.TJ + s - c * pl.per));
@@ -385,6 +410,19 @@ __device__ __forceinline__ void vstripe(
 #pragma unroll
       for (int w = 0; w < W; ++w) wcur[w] = wnext[w];
       in = __shfl_up_sync(kFull, out, 1, G);
+    }
+  }
+  if constexpr (row_words(V)) {
+    // the Pallas kernel's bp - i ge 32768, in int32, then the largest word
+    // of the real rows, the smallest row among equal words
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int w = static_cast<int>(
+          static_cast<unsigned>(bp[r]) -
+          static_cast<unsigned>((row0 + r) * kGe) * kDiv);
+      if (on && r < nreal &&
+          (w > best.w || (w == best.w && row0 + r < best.row)))
+        best = VBest{w, row0 + r, 0, 0};
     }
   }
 }

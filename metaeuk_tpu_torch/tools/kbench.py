@@ -13,9 +13,14 @@ Each case prints `name: us/call Tops/s`: device time by CUDA events over 10
 calls after one warm-up, and the TPU tool's operation count over it. The
 header names the card and its power limit. `--device cpu` runs the plain
 PyTorch versions once each, untimed.
+
+shift_yardstick and scan_yardstick compute T2 and T3 at REPS in one or a
+few PyTorch calls (the algebra of REPS reps, not the reps): yardsticks of
+the kernels' time, never their design.
 """
 
 import argparse
+import math
 import subprocess
 
 import numpy as np
@@ -96,6 +101,40 @@ def n_total_ops(name):
     if kind == "shift":
         return REPS * 2 * cells
     return (REPS // 8) * 2 * 8 * cells
+
+
+def shift_yardstick(x, amount=1, roll=False):
+    """T2's output at REPS reps (REPS * amount >= rows) in one PyTorch call:
+    with zero fill row p is the max of rows p, p - amount, ... and of 0,
+    the cummax down each residue chain clamped at 0 (rows padded to a
+    multiple of amount); wrapped round, the max over p's residue class mod
+    gcd(amount, rows)."""
+    rows, cols = x.shape
+    if roll:
+        g = math.gcd(amount, rows)
+        return x.view(rows // g, g, cols).amax(0, keepdim=True).expand(
+            rows // g, g, cols).reshape(rows, cols)
+    n = -(-rows // amount) * amount
+    xp = x if n == rows else torch.cat([x, x.new_zeros(n - rows, cols)])
+    return torch.cummax(xp.view(n // amount, amount, cols), 0).values.view(
+        n, cols)[:rows].clamp_min(0)
+
+
+def scan_yardstick(x, reps=REPS):
+    """T3's output where every value stays above NEG (the fill then never
+    wins): reps // 8 times torch.cummax down the rows, less 1."""
+    a = x
+    for _ in range(reps // 8):
+        a = torch.cummax(a, 0).values - 1
+    return a
+
+
+def yardstick(name, x):
+    """A T2 or T3 case's output at REPS by its yardstick."""
+    kind, _, kw = CASES[name]
+    if kind == "scan":
+        return scan_yardstick(x)
+    return shift_yardstick(x, kw.get("amount", 1), kw.get("roll", False))
 
 
 def run_case(name, x, reps=REPS):

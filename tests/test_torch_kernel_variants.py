@@ -8,8 +8,10 @@ same (best, q_end, t_end) in every variant, the inexact ones included: the
 tolerance is zero. The inputs hold equal maxima across columns and rows
 (a narrow score range), lanes that never score, codes outside the profile,
 several column chunks with columns the grid skips, and H past 32767, where
-base and fold cap and nocap and fold_nocap do not. The CUDA kernel is held
-to the plain version on the card (marker gpu).
+base and fold cap and nocap and fold_nocap do not, and past 65,536, where
+the uncapped variants' packed words wrap (fold_nocap's on H' = H + i ge,
+from a row where H is still below 65,536). The CUDA kernel is held to the
+plain version on the card (marker gpu).
 """
 
 import pathlib
@@ -121,6 +123,33 @@ def test_plain_matches_pallas_interpret(interpret, variant, kind, Lq, Lt,
         assert int(got[0][0]) > 32767 or capped
     if kind == "ties":
         assert len(np.unique(ref[0])) < TB // 2
+
+
+# every cell 250 (the cap input) on Lq = Lt = 272: H(i, j) = 250 (min(i, j)
+# + 1) reaches 68,000. Row 261 holds H 65,500, below 65,536, and H' = H +
+# 261 ge = 65,761, past it; rows from 262 hold H past it too. nocap's word
+# H * 32768 + (32767 - j) wraps from H 65,536: its best is row 261's 65,500
+# at column 261. fold_nocap's H' * 32768 + (32767 - j) wraps from H' 65,536:
+# each row from 261 keeps its best word at column 260 (H 65,250), equal to
+# row 260's once i ge 32768 is taken off, and the smaller row wins.
+WRAP_SHAPE = ("cap", 272, 272, 1, 272, 8)
+WRAP_LANE0 = {"nocap": [65500, 261, 261], "fold_nocap": [65250, 260, 260]}
+
+
+@pytest.mark.parametrize("variant", sorted(WRAP_LANE0))
+def test_plain_matches_pallas_interpret_past_the_word_wrap(interpret,
+                                                           variant):
+    kind, Lq, Lt, n_tiles, tj, unroll = WRAP_SHAPE
+    assert 250 * 262 < 65536 <= 250 * 262 + 261 * qm_variants_torch.GE
+    assert 250 * Lq > 65536
+    prof, tc = _inputs(kind, Lq, Lt, n_tiles, variant)
+    ref = _pallas(prof, tc, variant, tj, unroll)
+    got = qm_variants_torch.qm_variant_ends(
+        torch.from_numpy(prof).bfloat16(), torch.from_numpy(tc), variant, tj,
+        unroll)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(r, g.numpy())
+    assert [int(o[0]) for o in got] == WRAP_LANE0[variant]
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -297,3 +326,17 @@ def test_kernel_matches_plain_across_row_stripes(cuda_device, variant):
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert [int(o[0]) for o in ref] == [11 * chip_smoke.STRIPE_RUN, 1039,
                                         54 + chip_smoke.STRIPE_RUN]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", sorted(WRAP_LANE0))
+def test_kernel_matches_plain_past_the_word_wrap(cuda_device, variant):
+    kind, Lq, Lt, n_tiles, tj, unroll = WRAP_SHAPE
+    prof, tc = (torch.from_numpy(a).to(cuda_device) for a in
+                _inputs(kind, Lq, Lt, n_tiles, variant))
+    prof = prof.bfloat16()
+    got = qm_variants_cuda.qm_variant_ends(prof, tc, variant, tj, unroll)
+    torch.cuda.synchronize()
+    ref = qm_variants_torch.qm_variant_ends(prof, tc, variant, tj, unroll)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert [int(o[0]) for o in got] == WRAP_LANE0[variant]
