@@ -345,6 +345,15 @@ Phases, each fatal on failure:
      CPU; wall, stage seconds (index, screen, rescore, select), pairs,
      cells and each kernel's launches and summed ms (CUDA events) by staged
      width beside its bound
+  5o. the bench after phase 6b: `python -m metaeuk_tpu_torch bench` (this
+     script's --bench mode, runpy) at its configuration, make_metagenome(4,
+     8000), 572 contigs, with one timed run, and `bench --selftest`, each in
+     a process of its own, started together: the selftest lines (0 fails of 140 light, 253
+     full checks), the configuration, every kernel rate present, K1-K6
+     launched across the two runs and no plain version called, and the
+     unsplit run's four sha256 digests equal to
+     tests/golden/dist_bench_slice.json's (the JAX package's --split 2
+     run); the bench's JSON lines printed
   6. kernel and plain-version times at main-path shapes, with CUDA events,
      each kernel's output there equal to its plain version's, beside each
      kernel's bound (the larger of its operations over the card's int32
@@ -5416,21 +5425,22 @@ def t4_against_k3(torch, np, sw_cuda, qm_variants_cuda):
 
 
 @contextlib.contextmanager
-def child_process(mode):
+def child_process(mode, *args, env=None):
     """Starts phase 5g's (a) and (b) (mode --iter-slice: iter_child), phase
-    5k (mode --gumbel-slice: gumbel_child) or phase 5l (mode --dist-slice:
-    dist_child), `python3 chip_smoke.py MODE DIR`, in a process of its own
-    and a session of its own, its output to DIR/log; yields (the process,
-    DIR); at exit stops it and every process it started (its session's
-    process group) and removes DIR."""
+    5k (mode --gumbel-slice: gumbel_child), phase 5l (mode --dist-slice:
+    dist_child) or a run of phase 5o (mode --bench: bench_child), `python3
+    chip_smoke.py MODE DIR ARGS`, with `env` added to the environment, in a
+    process of its own and a session of its own, its output to DIR/log;
+    yields (the process, DIR); at exit stops it and every process it
+    started (its session's process group) and removes DIR."""
     import shutil
     import signal
     td = pathlib.Path(tempfile.mkdtemp(prefix="meuk_child"))
     with open(td / "log", "w") as log:
         proc = subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), mode, str(td)],
-            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
-            start_new_session=True)
+            [sys.executable, str(ROOT / "chip_smoke.py"), mode, str(td),
+             *args], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+            env=dict(os.environ, **(env or {})), start_new_session=True)
         try:
             yield proc, td
         finally:
@@ -5438,6 +5448,118 @@ def child_process(mode):
                 os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
             shutil.rmtree(td, ignore_errors=True)
+
+
+# phase 5o: the bench's configuration (its defaults, set here so that the
+# environment cannot change them) with one timed run
+BENCH_ENV = dict(METAEUK_BENCH_MBP="4", METAEUK_BENCH_TARGETS="8000",
+                 METAEUK_BENCH_RUNS="1")
+# the bench's contigs there and its selftest's checks, light and full (the
+# draws of its seeds)
+BENCH_CONTIGS = 572
+BENCH_CHECKS = {"light": 140, "full": 253}
+# K1-K6, the kernels the bench's runs launch
+BENCH_KERNELS = (*PAIR_KERNELS, "sw_qm_ends", "sw_qm_starts", *RT_KERNELS)
+
+
+def bench_child(td, args):
+    """One run of phase 5o: the port's package as `python -m
+    metaeuk_tpu_torch bench ARGS` runs it (runpy), its temporary directory
+    under td; then td/counts.json: the SW and gapless wrappers' launches
+    and plain calls. Returns the bench's exit code; a kernel that fails to
+    build or launch raises."""
+    import runpy
+    sys.path.insert(0, str(ROOT))
+    tempfile.tempdir = str(td)
+    sys.argv = ["metaeuk_tpu_torch", "bench", *args]
+    try:
+        runpy.run_module("metaeuk_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = 0 if e.code is None else e.code
+    from metaeuk_tpu_torch.ops import sw_cuda, ungapped_cuda
+    launches, plain = counts((sw_cuda, ungapped_cuda))
+    (td / "counts.json").write_text(json.dumps({"launches": launches,
+                                                "plain": plain}))
+    return rc
+
+
+# phase 5o's two runs, started together: the main run and the selftest
+BENCH_RUNS = {"bench": (), "selftest": ("--selftest",)}
+
+
+def run_benches(deadline):
+    """Phase 5o: BENCH_RUNS' runs of `bench ARGS` (bench_child) at
+    BENCH_ENV, each in a process of its own, started together and joined by
+    `deadline` seconds on the script's clock. Prints their JSON lines and
+    returns {name: {"lines", "launches", "plain", "digests" (the main run's
+    outputs, its last timed run's), "seconds"}}. Raises unless each exits
+    0."""
+    runs = {}
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        procs = {name: stack.enter_context(
+            child_process("--bench", *args, env=BENCH_ENV))
+            for name, args in BENCH_RUNS.items()}
+        for name, (proc, td) in procs.items():
+            rc = join_child(proc, deadline - (time.perf_counter() - t0))
+            log = (td / "log").read_text()
+            lines = [json.loads(ln) for ln in log.splitlines()
+                     if ln.startswith("{")]
+            for ln in lines:
+                print(json.dumps(ln), flush=True)
+            if rc != 0:
+                print(log[-6000:], flush=True)
+                raise AssertionError(f"bench run {name} failed (exit {rc})")
+            rec = runs[name] = json.loads((td / "counts.json").read_text())
+            outs = sorted(td.glob("meukbench*/ours.gff"))
+            rec["digests"] = digests(outs[0].with_suffix("")) if outs \
+                else None
+            rec["lines"] = lines
+            rec["seconds"] = time.perf_counter() - t0
+    return runs
+
+
+def check_bench(runs, golden):
+    """Phase 5o's checks on the main run and the selftest run: the
+    selftest lines (no mismatch, every check drawn), the configuration, the
+    kernel rates, K1-K6 launched with no plain call, and the main run's
+    outputs against dist_bench_slice.json's digests."""
+    *st, main_line = runs["bench"]["lines"]
+    want = {"fails": 0, "checks": BENCH_CHECKS["light"]}
+    if [{k: r[k] for k in want} for r in st] != [want] \
+            or main_line["extra"]["selftest"] != want:
+        raise AssertionError("the bench's light selftest failed")
+    full = runs["selftest"]["lines"]
+    if full != [{"selftest": "sw_cuda_kernels_vs_oracle", "fails": 0,
+                 "checks": BENCH_CHECKS["full"]}]:
+        raise AssertionError("bench --selftest failed")
+    ex = main_line["extra"]
+    if ex["config"] != {"mbp": 4.0, "targets": 8000,
+                        "contigs": BENCH_CONTIGS} or not \
+            main_line["value"] > 0 or len(ex["ours_walls_s"]) != 1:
+        raise AssertionError(f"the bench ran another configuration: {ex}")
+    rates = [ex["sw_kernel_cells_per_s"],
+             *ex["sw_kernel_qm_cells_per_s"].values()]
+    if len(rates) != 3 or not all(r and r > 0 for r in rates):
+        raise AssertionError(f"a kernel rate is missing: {rates}")
+    launched = {k: sum(r["launches"][k] for r in runs.values())
+                for k in BENCH_KERNELS}
+    plain = {k: n for r in runs.values() for k, n in r["plain"].items()
+             if n}
+    print("5o launches (bench, --selftest): " + json.dumps(
+        {k: [r["launches"][k] for r in runs.values()]
+         for k in BENCH_KERNELS}) + f"; plain calls {plain}", flush=True)
+    if min(launched.values()) == 0 or plain:
+        raise AssertionError("the bench did not go through K1-K6 alone")
+    if runs["bench"]["digests"] != golden["sha256"]:
+        raise AssertionError(
+            "the bench's unsplit outputs differ from dist_bench_slice.json's "
+            f"split-2 digests: {runs['bench']['digests']}")
+    print("5o: the unsplit run's 4 sha256 digests equal "
+          "dist_bench_slice.json's (the JAX package's --split 2 run)",
+          flush=True)
 
 
 # seconds after its start by which the script joins the processes of
@@ -5471,6 +5593,8 @@ def main():
         return dist_child(pathlib.Path(sys.argv[2]))
     if sys.argv[1:2] == ["--serve"]:
         return serve_child(*sys.argv[2:7])
+    if sys.argv[1:2] == ["--bench"]:
+        return bench_child(pathlib.Path(sys.argv[2]), sys.argv[3:])
     # every process a phase starts (phases 5g's and 5k's) is stopped at exit
     with contextlib.ExitStack() as stack:
         return run_phases(stack)
@@ -6368,6 +6492,20 @@ def run_phases(stack):
     launches.update(tool_launches)
     t4_against_k3(torch, np, sw_cuda, qm_variants_cuda)
     print(f"phase 6b: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    phase("5o the bench: python -m metaeuk_tpu_torch bench at 4 Mbp / "
+          "8,000 targets with one timed run, and bench --selftest")
+    t0 = time.perf_counter()
+    runs = run_benches(CHILD_DEADLINE - (t0 - t_start))
+    check_bench(runs, json.loads(
+        (GOLDEN / "dist_bench_slice.json").read_text()))
+    for r in runs.values():
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"phase 5o: {time.perf_counter() - t0:.2f} s (bench "
+          f"{runs['bench']['seconds']:.2f} s, --selftest joined at "
+          f"{runs['selftest']['seconds']:.2f} s, started together), the "
+          f"script at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     phase("5g the iterative search at full width: search "
           "--num-iterations on every second of the search slice's 4,000 "

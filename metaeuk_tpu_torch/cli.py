@@ -29,6 +29,8 @@
         | kmerindexdb | nrtotaxmapping | filterresult | version
         | reverseseq .. convert2fasta | swapdb .. touchdb
         | extractalignedregion .. db2tar ...
+    metaeuk-tpu-torch bench [--selftest] [--no-ref] [--no-selftest]
+        [--device cuda]
     metaeuk-tpu-torch aliasdb .. view | createclusearchdb .. tsv2exprofiledb
         | appenddbtoindex .. extractdomains | pairaln | alignbykmer | fwbw
         | ungappedprefilter | gappedprefilter | databases | offsetalignment
@@ -71,8 +73,9 @@ _cmd_p2n (:548-559), cmd_dbtool4 (:984), cmd_dbtool7, cmd_dbtool8
 (:1197-1232), cmd_databases (:1265), cmd_fwbw .. cmd_alignbykmer
 (:1306-1335) and cmd_exhaustiveprefilter (:1414) are copied with their
 parsers too, all host-only, and easy-predict's --contig-split and
-cmd_mergepredictions (:98-113, :164). Not ported yet: bench (ROADMAP
-section 1).
+cmd_mergepredictions (:98-113, :164). `bench` (cmd_bench, :1040) runs
+tools/bench.py, the port of the root bench.py; it takes --device and ends
+non-zero on a kernel failure or a selftest mismatch.
 """
 
 import argparse
@@ -1451,6 +1454,11 @@ def cmd_version(args):
     return 0
 
 
+def cmd_bench(args):
+    from .tools import bench
+    return bench.run(args)
+
+
 def _cmd_offsetaln(args):
     from .pipeline.offsetaln import offsetalignment
     offsetalignment(*args.args, search_type=args.search_type)
@@ -2377,6 +2385,18 @@ def _add_db_commands(sub):
 
     vs = sub.add_parser("version", help="print version")
     vs.set_defaults(fn=cmd_version)
+
+    bn = sub.add_parser("bench", help="easy-predict contigs/s, the SW "
+                        "kernels' selftest and their device cells/s")
+    bn.add_argument("--selftest", action="store_true",
+                    help="only the full selftest of K1-K6; exit 1 on any "
+                         "mismatch")
+    bn.add_argument("--no-ref", action="store_true",
+                    help="skip the reference binary's runs and parity")
+    bn.add_argument("--no-selftest", action="store_true",
+                    help="skip the light selftest of the main run")
+    _add_device_flag(bn)
+    bn.set_defaults(fn=cmd_bench)
 
 
 def _add_util_commands(sub):

@@ -9,7 +9,7 @@ metaeuk_tpu's CLI and through the port's on the same fixture: the files
 each writes, and what it prints, are equal byte for byte (a link's target
 read relative to the case's directory), and equal to the case's MMseqs2
 goldens. version prints the port's own line. The port's subcommands are
-the JAX CLI's minus the ones still queued, pinned here; multihitsearch and
+the JAX CLI's, all 150 (none is queued), pinned here; multihitsearch and
 gpuserver take --device (default cuda), the other new commands none.
 chip_smoke.py's phase 4i, rehearsed on the CPU. The same for every case of
 chip_smoke.UTIL_CLI_CASES (the commands of dbtools4, dbtools7, dbtools8,
@@ -38,8 +38,8 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 GOLDEN = ROOT / "tests" / "golden"
-# the JAX CLI's subcommands the port does not have yet (ROADMAP section 1)
-QUEUED = {"bench"}
+# the JAX CLI's subcommands the port does not have yet: none since bench
+QUEUED = set()
 # the subcommands of the last slices: the M11b commands, all host-only
 UTIL = {
     # dbtools4
@@ -168,10 +168,10 @@ def test_util_cases_cover_every_util_command():
 def test_port_subcommands_are_the_jax_clis_minus_the_queued():
     jax_cmds, port_cmds = set(subparsers(jax_cli.main)), set(
         subparsers(cli.main))
-    assert len(jax_cmds) == 150 and len(QUEUED) == 1
+    assert len(jax_cmds) == 150 and len(QUEUED) == 0
     assert QUEUED <= jax_cmds
     assert port_cmds == jax_cmds - QUEUED
-    assert len(port_cmds) == 149 and NEW | UTIL <= port_cmds
+    assert len(port_cmds) == 150 == len(jax_cmds) and NEW | UTIL <= port_cmds
 
 
 def test_device_flag_only_where_the_command_aligns():

@@ -288,19 +288,30 @@ assert not loaded, loaded
 print("jax-free run ok")
 """
 
-# the port's microbenchmarks: both entry points on the CPU, jax blocked
+# the port's microbenchmarks and its bench: their entry points on the CPU
+# (the bench at 0.01 Mbp, then its selftest on one small tile and batch),
+# jax blocked
 _BLOCKED_TOOLS = _BLOCK + r"""
+import os
+import tempfile
 import metaeuk_tpu_torch.ops.kbench_cuda
 import metaeuk_tpu_torch.ops.kbench_torch
 import metaeuk_tpu_torch.ops.qm_variants_cuda
 import metaeuk_tpu_torch.ops.qm_variants_torch
-from metaeuk_tpu_torch.tools import kbench, kernel_variants
+from metaeuk_tpu_torch.tools import bench, kbench, kernel_variants
 
 res = kbench.main(["--device", "cpu", "alu_i32"])
 assert int(res["alu_i32"][2].min()) == 512 * 4
 res = kernel_variants.main(["--device", "cpu", "--lq", "32", "--lt", "64",
                             "--tiles", "1", "base"])
 assert int(res["base"][1][0]) > 0
+data, golden, out, mode = sys.argv[1:5]
+tempfile.tempdir = os.path.dirname(out)
+os.environ.update(METAEUK_BENCH_MBP="0.01", METAEUK_BENCH_TARGETS="300",
+                  METAEUK_BENCH_RUNS="1")
+assert bench.main(["--device", "cpu", "--no-ref", "--no-selftest"]) == 0
+bench.QM_CONFIGS, bench.PAIR_CONFIGS = ((64, 96, 1),), ((64, 96, 4),)
+assert bench.main(["--selftest", "--device", "cpu"]) == 0
 loaded = [k for k in sys.modules if sys.modules[k] is not None and (
     k.split(".")[0].startswith("jax") or k.split(".")[0] in (
         "metaeuk_tpu", "tools"))]
@@ -385,9 +396,10 @@ def test_profile_path_runs_with_jax_blocked(tmp_path):
 
 
 def test_microbenchmark_entry_points_run_with_jax_blocked(tmp_path):
-    """The six modules of T1-T4 import, and `kbench --device cpu alu_i32`
-    and `kernel_variants --device cpu base` run, with jax, metaeuk_tpu and
-    the repository's tools/ blocked."""
+    """The six modules of T1-T4 import, and `kbench --device cpu alu_i32`,
+    `kernel_variants --device cpu base`, the bench's main run (at 0.01 Mbp)
+    and its selftest (one small tile and batch) run, with jax, metaeuk_tpu
+    and the repository's tools/ blocked."""
     _blocked_run(tmp_path, "kmer", _BLOCKED_TOOLS.replace(
         'sys.modules["metaeuk_tpu"] = None',
         'sys.modules["metaeuk_tpu"] = None\nsys.modules["tools"] = None'))
