@@ -82,6 +82,7 @@ import argparse
 import sys
 
 from .params import Params
+from .utils import trace
 
 # `version`'s line: the JAX CLI's (cli.py:1035) with the port's name and
 # back end
@@ -584,8 +585,10 @@ def cmd_search(args):
                          e_profile=args.e_profile, params=p, device=device)
         print(f"wrote {args.out_db} ({args.num_iterations} iterations)")
         return 0
-    queries = load_sequence_input(args.queries, DBTYPE_AA)
-    targets = load_target_input(args.targets)
+    with trace.span("load_queries"):
+        queries = load_sequence_input(args.queries, DBTYPE_AA)
+    with trace.span("load_targets"):
+        targets = load_target_input(args.targets)
     query_seqs = [queries.seq_bytes(i) for i in range(len(queries))]
 
     def _looks_nucl(seqs):
@@ -657,16 +660,17 @@ def cmd_search(args):
     backtraces = seq_ids = None
     if args.backtrace and not isinstance(targets, ProfileDB):
         backtraces, seq_ids = driver.backtraces(hits, query_seqs)
-    mmseqsdb.write_db(args.out_db,
-                      hits_to_aln_db_entries(hits, len(queries),
-                                             backtraces, seq_ids),
-                      mmseqsdb.DBTYPE_ALIGNMENT_RES)
-    if args.m8:
-        with open(args.m8, "w") as f:
-            for hit in hits:
-                f.write(hit_to_m8_line(
-                    hit, queries.accession(int(hit["orf_idx"])),
-                    targets.accession(int(hit["target_idx"]))))
+    with trace.span("write"):
+        mmseqsdb.write_db(args.out_db,
+                          hits_to_aln_db_entries(hits, len(queries),
+                                                 backtraces, seq_ids),
+                          mmseqsdb.DBTYPE_ALIGNMENT_RES)
+        if args.m8:
+            with open(args.m8, "w") as f:
+                for hit in hits:
+                    f.write(hit_to_m8_line(
+                        hit, queries.accession(int(hit["orf_idx"])),
+                        targets.accession(int(hit["target_idx"]))))
     print(f"wrote {args.out_db}" + (f" + {args.m8}" if args.m8 else ""))
     return 0
 
@@ -2611,7 +2615,8 @@ def main(argv=None):
     _add_server_commands(sub)
     _add_util_commands(sub)
     args = ap.parse_args(argv)
-    return args.fn(args)
+    with trace.span(args.command):
+        return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -26,7 +26,7 @@ from ..ops.chain import MINUS, PLUS, PotentialExon, Prediction
 from ..ops.orf import OrfExtractor
 from ..params import Params
 from ..search.driver import HIT_DTYPE, SearchDriver, device_list
-from ..utils import log, session
+from ..utils import log, session, trace
 from .output import PredictionWriter
 from .reduce import reduce_redundancy
 
@@ -332,7 +332,6 @@ def _pipelined_extract_search(p, extractor, contigs, lo, hi, pref_fut,
     parity test). Copied from predict.py:315, without the prewarm.
 
     Returns (orf_locs, orf_aa, orf_contig, hits)."""
-    import time as _time
     from concurrent.futures import ThreadPoolExecutor
     from ..search.prefilter_kmer import KmerPrefilter, log_prefilter_stats
 
@@ -354,22 +353,28 @@ def _pipelined_extract_search(p, extractor, contigs, lo, hi, pref_fut,
         bounds[i] = max(bounds[i], bounds[i - 1])
 
     prog = log.progress(hi - lo, "extract+translate contigs")
-    busy = {"extract": 0.0, "prefilter": 0.0}
+    # the pool threads' spans, children of the span open here
+    submitter = trace.current()
+    pool_spans = []
 
     def extract_range(a, b):
-        t0 = _time.perf_counter()
-        locs, aas, cids = [], [], []
-        for ci in range(a, b):
-            l, frags = extractor.extract_contig(contigs.seq_bytes(ci), ci)
-            aa = extractor.translate_fragments(frags)
-            if p.reverse_fragments:
-                aa = [x[::-1] for x in aa]
-            locs.extend(l)
-            aas.extend(aa)
-            cids.extend([ci] * len(l))
-            prog.update()
-        busy["extract"] += _time.perf_counter() - t0
+        with trace.span("extract", parent=submitter) as sp:
+            locs, aas, cids = [], [], []
+            for ci in range(a, b):
+                l, frags = extractor.extract_contig(contigs.seq_bytes(ci),
+                                                    ci)
+                aa = extractor.translate_fragments(frags)
+                if p.reverse_fragments:
+                    aa = [x[::-1] for x in aa]
+                locs.extend(l)
+                aas.extend(aa)
+                cids.extend([ci] * len(l))
+                prog.update()
+        pool_spans.append(sp)
         return locs, aas, cids
+
+    def busy(name):
+        return sum(s.t1 - s.t0 for s in pool_spans if s.name == name)
 
     stats = np.zeros(5, np.int64)
     base_ctr = [0]
@@ -385,18 +390,15 @@ def _pipelined_extract_search(p, extractor, contigs, lo, hi, pref_fut,
             aas = []
             for f in ex_futs:
                 aas.extend(f.result()[1])
-            t0 = _time.perf_counter()
-            pairs = pref.candidate_pairs(aas, 0, True)
+            base = 0
+        else:
+            aas = ex_futs[k].result()[1]
+            base = base_ctr[0]
+            base_ctr[0] += len(aas)
+        with trace.span("prefilter", parent=submitter) as sp:
+            pairs = pref.candidate_pairs(aas, base, True)
             stats[:] += getattr(pref.pf, "stats", np.zeros(5, np.int64))
-            busy["prefilter"] += _time.perf_counter() - t0
-            return pairs
-        aas = ex_futs[k].result()[1]
-        t0 = _time.perf_counter()
-        base = base_ctr[0]
-        base_ctr[0] += len(aas)
-        pairs = pref.candidate_pairs(aas, base, True)
-        stats[:] += getattr(pref.pf, "stats", np.zeros(5, np.int64))
-        busy["prefilter"] += _time.perf_counter() - t0
+        pool_spans.append(sp)
         return pairs
 
     orf_locs, orf_aa, orf_contig = [], [], []
@@ -416,7 +418,7 @@ def _pipelined_extract_search(p, extractor, contigs, lo, hi, pref_fut,
             orf_contig.extend(c)
         prog.finish()
         log.info(f"fragments: {len(orf_aa)} "
-                 f"(extract busy {busy['extract']:.2f}s)")
+                 f"(extract busy {busy('extract'):.2f}s)")
         driver = mk_driver()
         parts = []
         all_qi = []
@@ -431,7 +433,7 @@ def _pipelined_extract_search(p, extractor, contigs, lo, hi, pref_fut,
     log_prefilter_stats(stats, counts)
     log.info(f"prefilter pairs kept: {int(counts.sum())} "
              f"({n_batches} pipelined batches; prefilter busy "
-             f"{busy['prefilter']:.2f}s)")
+             f"{busy('prefilter'):.2f}s)")
     hits = np.concatenate(parts) if parts else np.zeros(0, HIT_DTYPE)
     return orf_locs, orf_aa, orf_contig, hits
 
@@ -461,7 +463,8 @@ class EasyPredict:
         timer = log.StageTimer()
         with timer.stage("load contigs+targets"):
             contigs = load_sequence_input(contigs_path, DBTYPE_NUCL)
-            targets = load_target_input(targets_path)
+            with trace.span("load_targets"):
+                targets = load_target_input(targets_path)
         # checkpoint names are qualified by the contig partition so
         # multi-process runs sharing one tmp_dir (multihost.py forwards
         # the same tmp_dir to every rank) never clobber or cross-load
@@ -575,12 +578,14 @@ class EasyPredict:
             # is likewise target-side state kept across runs; the key is
             # the port's own, apart from the JAX package's "driver", and
             # names the device list the launches fan over
-            devs = device_list(self.device, self.devices)
-            return session.cached(
-                "driver_torch",
-                (session.db_fingerprint(targets), repr(p),
-                 tuple(str(d) for d in devs)),
-                lambda: SearchDriver(p, targets, self.device, devices=devs))
+            with trace.span("driver_lookup"):
+                devs = device_list(self.device, self.devices)
+                return session.cached(
+                    "driver_torch",
+                    (session.db_fingerprint(targets), repr(p),
+                     tuple(str(d) for d in devs)),
+                    lambda: SearchDriver(p, targets, self.device,
+                                         devices=devs))
 
         # fused-pipeline decision happens BEFORE extraction (fragment
         # count estimated from residues) so extraction itself can join

@@ -44,7 +44,6 @@ that module imports jax at the top; each names its origin.
 import contextlib
 import os
 import threading
-import time
 
 import numpy as np
 import torch
@@ -55,7 +54,7 @@ from ..data.submat import (composition_bias_rounded,
                            scores_with_bias)
 from ..ops import sw_cuda
 from ..ops.sw_torch import TB
-from ..utils import log
+from ..utils import log, trace
 from .evalue import EvalueComputation
 
 # copied from metaeuk_tpu/search/driver.py:27 (HIT_DTYPE)
@@ -79,8 +78,8 @@ HIT_DTYPE = np.dtype([
 # cells over E-value survivors
 CELLS = {"fwd": 0, "rev": 0}
 # wall seconds per search() phase, and of backtraces() (backtraces) and
-# realign() (realign_sw, realign_traceback), summed over calls; reset like
-# CELLS
+# realign() (realign_sw, realign_traceback), summed over calls from their
+# spans (utils/trace.py); reset like CELLS
 PHASE_SECONDS = {}
 
 # DP cells per launch, by device type. A group of 4 to 32 lanes aligns one
@@ -308,16 +307,17 @@ class SearchDriver:
     fanned over `devices` (device_list(device, devices))."""
 
     def __init__(self, params, target_db, device="cuda", devices=None):
-        self.params = params
-        self.devices = device_list(device, devices)
-        self.device = self.devices[0]
-        self.scoring = state.default_scoring(self.device)
-        self.targets_enc = [encode_aa(target_db.seq_bytes(i))
-                            for i in range(len(target_db))]
-        self.target_lens = np.array([len(t) for t in self.targets_enc],
-                                    np.int64)
-        self.evaluer = EvalueComputation(target_db.total_residues(),
-                                         gapped=True)
+        with trace.span("driver_init"):
+            self.params = params
+            self.devices = device_list(device, devices)
+            self.device = self.devices[0]
+            self.scoring = state.default_scoring(self.device)
+            self.targets_enc = [encode_aa(target_db.seq_bytes(i))
+                                for i in range(len(target_db))]
+            self.target_lens = np.array([len(t) for t in self.targets_enc],
+                                        np.int64)
+            self.evaluer = EvalueComputation(target_db.total_residues(),
+                                             gapped=True)
         # per-tier device staging of the whole target set, kept for the
         # driver's lifetime (repeated and pipelined search() calls)
         self._t_stage = {}
@@ -333,9 +333,10 @@ class SearchDriver:
         with self._stage_lock:
             st = self._t_stage.get((Lt, self._fine))
             if st is None:
-                st = state.stage_from_numpy(
-                    target_tier_np(self.targets_enc, self.target_lens, Lt,
-                                   self._fine), self.device)
+                with trace.span("align.target_stage"):
+                    st = state.stage_from_numpy(
+                        target_tier_np(self.targets_enc, self.target_lens,
+                                       Lt, self._fine), self.device)
                 log.MemoryTracker.track(
                     f"align staged targets Lt={Lt}",
                     st["t_mat"].numel() + 4 * st["t_lens"].numel())
@@ -523,8 +524,13 @@ class SearchDriver:
         pair_generator: optional iterable of (orf_idx, target_idx) candidate
           pairs; None = exhaustive.
         """
+        with trace.span("align"):
+            return self._search(orf_aa_seqs, pair_generator)
+
+    def _search(self, orf_aa_seqs, pair_generator):
         p = self.params
-        orfs_enc, orf_lens, q_tiers = self._query_stage(orf_aa_seqs)
+        with trace.span("align.query_stage"):
+            orfs_enc, orf_lens, q_tiers = self._query_stage(orf_aa_seqs)
         n_orfs = len(orfs_enc)
         n_targets = len(self.targets_enc)
         if pair_generator is None:
@@ -544,14 +550,19 @@ class SearchDriver:
             return np.zeros(0, dtype=HIT_DTYPE)
 
         phase_s = {}
-        t_last = time.perf_counter()
+        open_phase = []
 
-        def mark(name):
-            nonlocal t_last
-            t = time.perf_counter()
-            phase_s[name] = phase_s.get(name, 0.0) + (t - t_last)
-            t_last = t
+        def mark(name=None):
+            """Closes the open phase's span, adding its seconds to phase_s,
+            and opens the span of phase `name`."""
+            if open_phase:
+                ph = open_phase.pop()
+                ph.__exit__(None, None, None)
+                phase_s[ph.name] = phase_s.get(ph.name, 0.0) + ph.t1 - ph.t0
+            if name is not None:
+                open_phase.append(trace.span(name).__enter__())
 
+        mark("prep")
         lq_b = _bucket_arr(orf_lens, self._fine)[oi]
         lt_b = _bucket_arr(self.target_lens, self._fine)[ti]
         n_pairs = len(oi)
@@ -566,7 +577,7 @@ class SearchDriver:
             if qm_share < max(100_000, n_pairs // 20) \
                     and int(lq_b.max()) <= QM_MAX_LQ:
                 qm_on = False
-        mark("prep")
+        mark("fwd_submit")
 
         # ---- phase 1: forward ends for every pair, bucket by bucket ----
         prog = log.progress(n_pairs, "align submit")
@@ -587,16 +598,16 @@ class SearchDriver:
                 fwd_parts.append((lanes, outs))
                 prog.update(int((lanes >= 0).sum()))
         prog.finish()
-        mark("fwd_submit")
+        mark("fwd_fetch")
 
         # ---- phase 2: fetch forward results ----
         rows, (sc, qe, te) = self._fetch(fwd_parts, (0, 1, 2))
-        mark("fwd_fetch")
+        mark("fwd_assemble")
         score_all = np.zeros(n_pairs, np.int32)
         qe_all = np.zeros(n_pairs, np.int32)
         te_all = np.full(n_pairs, -1, np.int32)
         score_all[rows], qe_all[rows], te_all[rows] = sc, qe, te
-        mark("fwd_assemble")
+        mark("gate")
 
         # ---- phase 3: E-value gate on host (exact float64 semantics) ----
         q_len_pairs = orf_lens[oi]
@@ -613,7 +624,7 @@ class SearchDriver:
                              * self.target_lens[ti]).sum())
         CELLS["rev"] += int(((qe_all[surv].astype(np.int64) + 1)
                              * (te_all[surv].astype(np.int64) + 1)).sum())
-        mark("gate")
+        mark("rev_submit")
 
         # ---- phase 4: reverse pass on survivors only ----
         qs_all = np.full(n_pairs, -1, np.int32)
@@ -627,11 +638,11 @@ class SearchDriver:
                                                  (qe_all, te_all)))
             rev_parts.extend(self._qm_chunks(ctx, qm_rows, oi, ti,
                                              (qe_all, te_all)))
-        mark("rev_submit")
+        mark("rev_fetch")
         if rev_parts:
             rows, (qs, ts) = self._fetch(rev_parts, (1, 2))
             qs_all[rows], ts_all[rows] = qs, ts
-        mark("rev_fetch")
+        mark("filter_sort")
 
         # compact to gate survivors before scoring and sorting
         keep_rows = np.flatnonzero(surv)
@@ -647,7 +658,7 @@ class SearchDriver:
             score_all[keep_rows].astype(np.float64),
             q_len_pairs[keep_rows].astype(np.float64))
         out = self._filter_and_sort(hits, evalue=ev_surv)
-        mark("filter_sort")
+        mark()
         self.phase_seconds = phase_s
         for k, v in phase_s.items():
             PHASE_SECONDS[k] = PHASE_SECONDS.get(k, 0.0) + v
@@ -759,90 +770,96 @@ class SearchDriver:
         native = _traceback_native()
 
         p = self.params
-        t0 = time.perf_counter()
-        sub = scores_with_bias(2.0, realign_score_bias)
-        enc_cache = {}
-
-        def q_arrays(oi):
-            if oi not in enc_cache:
-                e = encode_aa(orf_aa_seqs[oi])
-                b = composition_bias_rounded(
-                    e, p.comp_bias_correction_scale, scores=sub) \
-                    if p.comp_bias_correction else np.zeros(len(e), np.int8)
-                enc_cache[oi] = (e, b)
-            return enc_cache[oi]
-
         n = len(hits)
-        score2 = np.zeros(n, np.int32)
-        qs2 = np.zeros(n, np.int32)
-        qe2 = np.zeros(n, np.int32)
-        ts2 = np.zeros(n, np.int32)
-        te2 = np.zeros(n, np.int32)
-        # bucket hit pairs and realign in dense batches
-        ol = np.array([len(q_arrays(int(h["orf_idx"]))[0]) for h in hits],
-                      np.int64)
-        tl = hits["t_len"].astype(np.int64)
-        lq_b = np.array([_bucket(max(l, 1)) for l in ol])
-        lt_b = np.array([_bucket(max(l, 1)) for l in tl])
-        for (Lq, Lt) in sorted(set(zip(lq_b.tolist(), lt_b.tolist()))):
-            sel_all = np.flatnonzero((lq_b == Lq) & (lt_b == Lt))
-            step = self._pairs_per_launch(Lq, Lt)
-            for s in range(0, len(sel_all), step):
-                sel = sel_all[s:s + step]
-                qm = pad_rows([q_arrays(int(hits[i]["orf_idx"]))[0]
-                               for i in sel], Lq)
-                qb = pad_rows([q_arrays(int(hits[i]["orf_idx"]))[1]
-                               for i in sel], Lq)
-                tm = pad_rows([self.targets_enc[int(hits[i]["target_idx"])]
-                               for i in sel], Lt)
-                sc, qs, qe, ts, te = sw_cuda.sw_align_batch(
-                    qm, qb, ol[sel].astype(np.int32), tm,
-                    tl[sel].astype(np.int32), submat=sub,
-                    device=self.device)
-                score2[sel], qs2[sel], qe2[sel] = sc, qs, qe
-                ts2[sel], te2[sel] = ts, te
-        t1 = time.perf_counter()
+        with trace.span("realign_sw") as sw_span:
+            sub = scores_with_bias(2.0, realign_score_bias)
+            enc_cache = {}
 
-        keep = np.zeros(n, bool)
-        bts, seq_ids = [], []
-        per_query = {}
-        cap = realign_max_seqs if realign_max_seqs is not None else 1 << 62
-        for i in range(n):
-            oi = int(hits[i]["orf_idx"])
-            if per_query.get(oi, 0) >= cap:
-                continue
-            if score2[i] <= 0 or te2[i] < 0:
-                continue
-            q_cov = (abs(int(qe2[i]) - int(qs2[i])) + 1) / max(int(ol[i]), 1)
-            t_cov = (abs(int(te2[i]) - int(ts2[i])) + 1) / max(int(tl[i]), 1)
-            if cov_mode == 1:  # COV_MODE_TARGET
-                cov_ok = t_cov >= realign_cov
-            elif cov_mode == 2:  # COV_MODE_QUERY
-                cov_ok = q_cov >= realign_cov
-            else:
-                cov_ok = q_cov >= realign_cov and t_cov >= realign_cov
-            if not cov_ok:
-                continue
-            per_query[oi] = per_query.get(oi, 0) + 1
-            keep[i] = True
-            q_enc, q_bias = q_arrays(oi)
-            t_enc = self.targets_enc[int(hits[i]["target_idx"])]
-            qs, qe = int(qs2[i]), int(qe2[i])
-            ts, te = int(ts2[i]), int(te2[i])
-            band = abs((te - ts + 1) - (qe - qs + 1)) + 1
-            bt = native.banded_sw_traceback(
-                q_enc[qs:qe + 1], q_bias[qs:qe + 1], t_enc[ts:te + 1],
-                int(score2[i]), band, p.gap_open, p.gap_extend, submat=sub)
-            if bt is None:
-                bt = ""
-            bts.append(bt)
-            seq_ids.append(_traceback_seq_id(bt, q_enc, qs, t_enc, ts))
-        out = hits[keep].copy()
-        out["q_start"], out["q_end"] = qs2[keep], qe2[keep]
-        out["t_start"], out["t_end"] = ts2[keep], te2[keep]
-        t2 = time.perf_counter()
-        for k, v in (("realign_sw", t1 - t0), ("realign_traceback", t2 - t1)):
-            PHASE_SECONDS[k] = PHASE_SECONDS.get(k, 0.0) + v
+            def q_arrays(oi):
+                if oi not in enc_cache:
+                    e = encode_aa(orf_aa_seqs[oi])
+                    b = composition_bias_rounded(
+                        e, p.comp_bias_correction_scale, scores=sub) \
+                        if p.comp_bias_correction else \
+                        np.zeros(len(e), np.int8)
+                    enc_cache[oi] = (e, b)
+                return enc_cache[oi]
+
+            score2 = np.zeros(n, np.int32)
+            qs2 = np.zeros(n, np.int32)
+            qe2 = np.zeros(n, np.int32)
+            ts2 = np.zeros(n, np.int32)
+            te2 = np.zeros(n, np.int32)
+            # bucket hit pairs and realign in dense batches
+            ol = np.array([len(q_arrays(int(h["orf_idx"]))[0]) for h in hits],
+                          np.int64)
+            tl = hits["t_len"].astype(np.int64)
+            lq_b = np.array([_bucket(max(l, 1)) for l in ol])
+            lt_b = np.array([_bucket(max(l, 1)) for l in tl])
+            for (Lq, Lt) in sorted(set(zip(lq_b.tolist(), lt_b.tolist()))):
+                sel_all = np.flatnonzero((lq_b == Lq) & (lt_b == Lt))
+                step = self._pairs_per_launch(Lq, Lt)
+                for s in range(0, len(sel_all), step):
+                    sel = sel_all[s:s + step]
+                    qm = pad_rows([q_arrays(int(hits[i]["orf_idx"]))[0]
+                                   for i in sel], Lq)
+                    qb = pad_rows([q_arrays(int(hits[i]["orf_idx"]))[1]
+                                   for i in sel], Lq)
+                    tm = pad_rows(
+                        [self.targets_enc[int(hits[i]["target_idx"])]
+                         for i in sel], Lt)
+                    sc, qs, qe, ts, te = sw_cuda.sw_align_batch(
+                        qm, qb, ol[sel].astype(np.int32), tm,
+                        tl[sel].astype(np.int32), submat=sub,
+                        device=self.device)
+                    score2[sel], qs2[sel], qe2[sel] = sc, qs, qe
+                    ts2[sel], te2[sel] = ts, te
+
+        with trace.span("realign_traceback") as tb_span:
+            keep = np.zeros(n, bool)
+            bts, seq_ids = [], []
+            per_query = {}
+            cap = realign_max_seqs if realign_max_seqs is not None \
+                else 1 << 62
+            for i in range(n):
+                oi = int(hits[i]["orf_idx"])
+                if per_query.get(oi, 0) >= cap:
+                    continue
+                if score2[i] <= 0 or te2[i] < 0:
+                    continue
+                q_cov = (abs(int(qe2[i]) - int(qs2[i])) + 1) \
+                    / max(int(ol[i]), 1)
+                t_cov = (abs(int(te2[i]) - int(ts2[i])) + 1) \
+                    / max(int(tl[i]), 1)
+                if cov_mode == 1:  # COV_MODE_TARGET
+                    cov_ok = t_cov >= realign_cov
+                elif cov_mode == 2:  # COV_MODE_QUERY
+                    cov_ok = q_cov >= realign_cov
+                else:
+                    cov_ok = q_cov >= realign_cov and t_cov >= realign_cov
+                if not cov_ok:
+                    continue
+                per_query[oi] = per_query.get(oi, 0) + 1
+                keep[i] = True
+                q_enc, q_bias = q_arrays(oi)
+                t_enc = self.targets_enc[int(hits[i]["target_idx"])]
+                qs, qe = int(qs2[i]), int(qe2[i])
+                ts, te = int(ts2[i]), int(te2[i])
+                band = abs((te - ts + 1) - (qe - qs + 1)) + 1
+                bt = native.banded_sw_traceback(
+                    q_enc[qs:qe + 1], q_bias[qs:qe + 1], t_enc[ts:te + 1],
+                    int(score2[i]), band, p.gap_open, p.gap_extend,
+                    submat=sub)
+                if bt is None:
+                    bt = ""
+                bts.append(bt)
+                seq_ids.append(_traceback_seq_id(bt, q_enc, qs, t_enc, ts))
+            out = hits[keep].copy()
+            out["q_start"], out["q_end"] = qs2[keep], qe2[keep]
+            out["t_start"], out["t_end"] = ts2[keep], te2[keep]
+        for sp in (sw_span, tb_span):
+            PHASE_SECONDS[sp.name] = PHASE_SECONDS.get(sp.name, 0.0) \
+                + sp.t1 - sp.t0
         return out, bts, np.asarray(seq_ids, np.float32)
 
     def backtraces(self, hits, orf_aa_seqs):
@@ -854,31 +871,33 @@ class SearchDriver:
         native = _traceback_native()
 
         p = self.params
-        t0 = time.perf_counter()
-        enc_cache = {}
-        bts = []
-        seq_ids = np.zeros(len(hits), np.float32)
-        for idx, h in enumerate(hits):
-            oi = int(h["orf_idx"])
-            if oi not in enc_cache:
-                e = encode_aa(orf_aa_seqs[oi])
-                b = composition_bias_rounded(e, p.comp_bias_correction_scale) \
-                    if p.comp_bias_correction else np.zeros(len(e), np.int8)
-                enc_cache[oi] = (e, b)
-            q_enc, q_bias = enc_cache[oi]
-            t_enc = self.targets_enc[int(h["target_idx"])]
-            qs, qe = int(h["q_start"]), int(h["q_end"])
-            ts, te = int(h["t_start"]), int(h["t_end"])
-            band = abs((te - ts + 1) - (qe - qs + 1)) + 1
-            bt = native.banded_sw_traceback(
-                q_enc[qs:qe + 1], q_bias[qs:qe + 1], t_enc[ts:te + 1],
-                int(h["score_raw"]), band, p.gap_open, p.gap_extend)
-            if bt is None:
-                bt = ""
-            bts.append(bt)
-            seq_ids[idx] = _traceback_seq_id(bt, q_enc, qs, t_enc, ts)
+        with trace.span("backtraces") as sp:
+            enc_cache = {}
+            bts = []
+            seq_ids = np.zeros(len(hits), np.float32)
+            for idx, h in enumerate(hits):
+                oi = int(h["orf_idx"])
+                if oi not in enc_cache:
+                    e = encode_aa(orf_aa_seqs[oi])
+                    b = composition_bias_rounded(
+                        e, p.comp_bias_correction_scale) \
+                        if p.comp_bias_correction else \
+                        np.zeros(len(e), np.int8)
+                    enc_cache[oi] = (e, b)
+                q_enc, q_bias = enc_cache[oi]
+                t_enc = self.targets_enc[int(h["target_idx"])]
+                qs, qe = int(h["q_start"]), int(h["q_end"])
+                ts, te = int(h["t_start"]), int(h["t_end"])
+                band = abs((te - ts + 1) - (qe - qs + 1)) + 1
+                bt = native.banded_sw_traceback(
+                    q_enc[qs:qe + 1], q_bias[qs:qe + 1], t_enc[ts:te + 1],
+                    int(h["score_raw"]), band, p.gap_open, p.gap_extend)
+                if bt is None:
+                    bt = ""
+                bts.append(bt)
+                seq_ids[idx] = _traceback_seq_id(bt, q_enc, qs, t_enc, ts)
         PHASE_SECONDS["backtraces"] = PHASE_SECONDS.get("backtraces", 0.0) \
-            + time.perf_counter() - t0
+            + sp.t1 - sp.t0
         return bts, seq_ids
 
 

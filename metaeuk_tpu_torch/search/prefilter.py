@@ -25,6 +25,7 @@ import torch
 from .. import state
 from ..data.submat import composition_bias_rounded_batch, encode_aa
 from ..ops import ungapped_cuda
+from ..utils import trace
 from .driver import pad_rows
 
 # gapless cells and pairs per launch, by device type
@@ -63,14 +64,15 @@ class UngappedPrefilter:
     """Produces candidate pairs for SearchDriver.search(pair_generator=...)."""
 
     def __init__(self, params, target_db, min_diag_score=15, device="cuda"):
-        self.params = params
-        self.min_diag_score = min_diag_score
-        self.device = torch.device(device)
-        self.scoring = state.default_scoring(self.device)
-        self.targets_enc = [encode_aa(target_db.seq_bytes(i))
-                            for i in range(len(target_db))]
-        self.target_lens = np.array([len(t) for t in self.targets_enc],
-                                    np.int64)
+        with trace.span("prefilter_init"):
+            self.params = params
+            self.min_diag_score = min_diag_score
+            self.device = torch.device(device)
+            self.scoring = state.default_scoring(self.device)
+            self.targets_enc = [encode_aa(target_db.seq_bytes(i))
+                                for i in range(len(target_db))]
+            self.target_lens = np.array([len(t) for t in self.targets_enc],
+                                        np.int64)
 
     def _stage(self, seqs, lens, width, dtype):
         return torch.from_numpy(pad_rows(seqs, width, dtype=dtype)).to(
@@ -80,14 +82,19 @@ class UngappedPrefilter:
     def candidate_pairs(self, orf_aa_seqs):
         """Returns an (n_pairs, 2) int64 array of (orf_idx, target_idx),
         ordered per fragment by (score desc, target_idx asc), top max-seqs."""
+        with trace.span("prefilter"):
+            return self._candidate_pairs(orf_aa_seqs)
+
+    def _candidate_pairs(self, orf_aa_seqs):
         p = self.params
         dev = self.device
-        orfs_enc = [encode_aa(s) for s in orf_aa_seqs]
-        if p.comp_bias_correction:
-            orf_bias = composition_bias_rounded_batch(
-                orfs_enc, p.comp_bias_correction_scale)
-        else:
-            orf_bias = [np.zeros(len(e), np.int8) for e in orfs_enc]
+        with trace.span("prefilter.encode"):
+            orfs_enc = [encode_aa(s) for s in orf_aa_seqs]
+            if p.comp_bias_correction:
+                orf_bias = composition_bias_rounded_batch(
+                    orfs_enc, p.comp_bias_correction_scale)
+            else:
+                orf_bias = [np.zeros(len(e), np.int8) for e in orfs_enc]
         n_orfs = len(orfs_enc)
         n_targets = len(self.targets_enc)
         if n_orfs == 0 or n_targets == 0:
@@ -98,54 +105,61 @@ class UngappedPrefilter:
             CELLS_BY_LQ[Lq] = CELLS_BY_LQ.get(Lq, 0) + n
 
         # group by padded length buckets; stage each bucket's matrices once
-        # and launch whole query rows of the cross product
-        scores = torch.zeros((n_orfs, n_targets), dtype=torch.int32,
-                             device=dev)
-        q_buckets = np.array([_bucket(max(int(n), 1)) for n in orf_lens])
-        t_buckets = np.array([_bucket(max(int(n), 1))
-                              for n in self.target_lens])
-        t_stage = {}
-        for Lt in np.unique(t_buckets):
-            ti_all = np.flatnonzero(t_buckets == Lt)
-            t_mat, t_lens = self._stage([self.targets_enc[i] for i in ti_all],
-                                        self.target_lens[ti_all], int(Lt),
-                                        np.uint8)
-            t_stage[int(Lt)] = (torch.from_numpy(ti_all).to(dev), t_mat,
-                                t_lens)
+        # and launch whole query rows of the cross product. The target
+        # buckets are staged up front, each query bucket before its
+        # launches (inside prefilter.score)
+        with trace.span("prefilter.stage"):
+            scores = torch.zeros((n_orfs, n_targets), dtype=torch.int32,
+                                 device=dev)
+            q_buckets = np.array([_bucket(max(int(n), 1)) for n in orf_lens])
+            t_buckets = np.array([_bucket(max(int(n), 1))
+                                  for n in self.target_lens])
+            t_stage = {}
+            for Lt in np.unique(t_buckets):
+                ti_all = np.flatnonzero(t_buckets == Lt)
+                t_mat, t_lens = self._stage(
+                    [self.targets_enc[i] for i in ti_all],
+                    self.target_lens[ti_all], int(Lt), np.uint8)
+                t_stage[int(Lt)] = (torch.from_numpy(ti_all).to(dev), t_mat,
+                                    t_lens)
         budget = CELL_BUDGET.get(dev.type, CELL_BUDGET["cpu"])
         cap = MAX_PAIRS_PER_LAUNCH.get(dev.type, MAX_PAIRS_PER_LAUNCH["cpu"])
-        for Lq in np.unique(q_buckets):
-            qi_all = np.flatnonzero(q_buckets == Lq)
-            q_mat, q_lens = self._stage([orfs_enc[i] for i in qi_all],
-                                        orf_lens[qi_all], int(Lq), np.uint8)
-            qb_mat, _ = self._stage([orf_bias[i] for i in qi_all],
-                                    orf_lens[qi_all], int(Lq), np.int8)
-            qi_dev = torch.from_numpy(qi_all).to(dev)
-            for Lt, (ti_dev, t_mat, t_lens) in t_stage.items():
-                n_t = len(ti_dev)
-                max_pairs = min(cap, max(8, budget // (int(Lq) * Lt)))
-                rows = max(1, max_pairs // n_t)
-                for r0 in range(0, len(qi_all), rows):
-                    r1 = min(r0 + rows, len(qi_all))
-                    scores[qi_dev[r0:r1, None], ti_dev[None, :]] = \
-                        ungapped_cuda.gapless_scores_cross(
-                            q_mat, qb_mat, q_lens, t_mat, t_lens, r0, r1,
-                            scoring=self.scoring)
+        with trace.span("prefilter.score"):
+            for Lq in np.unique(q_buckets):
+                qi_all = np.flatnonzero(q_buckets == Lq)
+                q_mat, q_lens = self._stage([orfs_enc[i] for i in qi_all],
+                                            orf_lens[qi_all], int(Lq),
+                                            np.uint8)
+                qb_mat, _ = self._stage([orf_bias[i] for i in qi_all],
+                                        orf_lens[qi_all], int(Lq), np.int8)
+                qi_dev = torch.from_numpy(qi_all).to(dev)
+                for Lt, (ti_dev, t_mat, t_lens) in t_stage.items():
+                    n_t = len(ti_dev)
+                    max_pairs = min(cap, max(8, budget // (int(Lq) * Lt)))
+                    rows = max(1, max_pairs // n_t)
+                    for r0 in range(0, len(qi_all), rows):
+                        r1 = min(r0 + rows, len(qi_all))
+                        scores[qi_dev[r0:r1, None], ti_dev[None, :]] = \
+                            ungapped_cuda.gapless_scores_cross(
+                                q_mat, qb_mat, q_lens, t_mat, t_lens, r0, r1,
+                                scoring=self.scoring)
 
         # per fragment: score > min_diag_score, (score desc, target asc),
         # truncated to max-seqs; the key orders targets of equal score by
         # ascending index
-        k = min(p.max_res_list_len, n_targets)
-        rev_t = (n_targets - 1) - torch.arange(n_targets, device=dev)
-        parts = []
-        for r0 in range(0, n_orfs, SELECT_ROWS):
-            sc = scores[r0:r0 + SELECT_ROWS].long()
-            key = torch.topk(sc * n_targets + rev_t[None, :], k, dim=1).values
-            s = key // n_targets
-            keep = s > self.min_diag_score
-            qi = torch.arange(r0, r0 + len(sc), device=dev)[:, None] \
-                .expand_as(key)
-            ti = (n_targets - 1) - (key - s * n_targets)
-            parts.append(torch.stack([qi[keep], ti[keep]], dim=1))
-        pairs = torch.cat(parts).cpu().numpy().astype(np.int64)
+        with trace.span("prefilter.select"):
+            k = min(p.max_res_list_len, n_targets)
+            rev_t = (n_targets - 1) - torch.arange(n_targets, device=dev)
+            parts = []
+            for r0 in range(0, n_orfs, SELECT_ROWS):
+                sc = scores[r0:r0 + SELECT_ROWS].long()
+                key = torch.topk(sc * n_targets + rev_t[None, :], k,
+                                 dim=1).values
+                s = key // n_targets
+                keep = s > self.min_diag_score
+                qi = torch.arange(r0, r0 + len(sc), device=dev)[:, None] \
+                    .expand_as(key)
+                ti = (n_targets - 1) - (key - s * n_targets)
+                parts.append(torch.stack([qi[keep], ti[keep]], dim=1))
+            pairs = torch.cat(parts).cpu().numpy().astype(np.int64)
         return pairs.reshape(-1, 2)

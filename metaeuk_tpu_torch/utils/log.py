@@ -1,4 +1,5 @@
-# Copy of metaeuk_tpu/utils/log.py; only the imports differ.
+# Copy of metaeuk_tpu/utils/log.py; a stage is a span of utils/trace.py, and
+# the unused Stats is gone.
 """Logging, timers and per-stage statistics.
 
 Equivalent of the reference's Debug levels + Timer + prefilter statistics
@@ -9,6 +10,8 @@ stage timing, and a counters registry every stage reports into.
 
 import sys
 import time
+
+from . import trace
 
 LEVEL_NOTHING = 0
 LEVEL_ERROR = 1
@@ -71,12 +74,13 @@ class _StageCtx:
         self.name = name
 
     def __enter__(self):
-        self.t0 = time.perf_counter()
         debug(f"stage {self.name} start")
+        self.span = trace.span(self.name).__enter__()
         return self
 
     def __exit__(self, *exc):
-        dt = time.perf_counter() - self.t0
+        self.span.__exit__(*exc)
+        dt = self.span.t1 - self.span.t0
         self.timer.stages.append((self.name, dt))
         info(f"stage {self.name}: {dt:.3f}s")
         return False
@@ -188,22 +192,3 @@ class MemoryTracker:
         peak = peak_rss_bytes()
         info(f"mem peak RSS: {peak / gib:.2f} GiB")
         return peak
-
-
-class Stats:
-    """Per-run counters (the reference prints k-mers/pos, matches/query
-    etc. after the prefilter; we track the analogous numbers)."""
-
-    def __init__(self):
-        self.counters = {}
-
-    def add(self, name, value=1):
-        self.counters[name] = self.counters.get(name, 0) + value
-
-    def set(self, name, value):
-        self.counters[name] = value
-
-    def report(self):
-        for name in sorted(self.counters):
-            info(f"{name}: {self.counters[name]}")
-        return dict(self.counters)
