@@ -15,8 +15,9 @@
 // gapless_long takes long query rows (a block per pair and 256 diagonals),
 // gapless_rows the ungapped prefilter's cross products of short rows, and
 // gapless_pair arbitrary pair lists of short rows (the k-mer-index
-// prefilter's candidates) on gapless_rows's thread loop. All three compute
-// the same function; ops/ungapped_cuda.py picks one.
+// prefilter's candidates) on gapless_rows's band walk, one query row a
+// thread. All three compute the same function; ops/ungapped_cuda.py picks
+// one.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -190,44 +191,74 @@ extern "C" int gapless_long(const int32_t* submat, int alph,
 // gapless_rows computes K7's function on the ungapped prefilter's launches,
 // which are cross products: staged query rows r0 .. r0 + rows - 1 against
 // every staged target of a bucket (12 to 1,687 targets on the slices of
-// PERF.md), for query widths below ops/ungapped_cuda.py LONG_ROWS (fragments
-// up to 512 aa). A thread per pair that reads its codes from device memory
-// pays three byte loads a cell; a block per pair (gapless_long) restages a
-// 21-row query profile for pairs of only 32 x 64 cells.
+// PERF.md, tens of thousands on a Swiss-Prot-sized DB), for query widths
+// below ops/ungapped_cuda.py LONG_ROWS (fragments up to 512 aa). A thread
+// per pair that reads its codes from device memory pays three byte loads a
+// cell; a block per pair (gapless_long) restages a 21-row query profile for
+// pairs of only 32 x 64 cells.
 //
-// Design: a block per (group of R query rows, tile of T targets), a thread
-// per (row, target). The block stages each of its rows' profile once in
-// shared memory, prof[i][a] = submat[q_i][a] + bias_i in int16 (exact:
-// the wrapper checks |submat| < 32640), row-major with SA entries a row:
-// the lanes of a row stand at the same row i of different targets, so they
-// read one window of at most 64 bytes, which is conflict-free. T is a
-// multiple of 32 up to 128 or, for fewer than 32 targets, a power of two
-// from 8 (32 / T rows share a warp), and R fills the block, cut so that the
-// profiles stay near kRowsProfBytes and several blocks share an SM. Each
-// thread scores its own pair and writes its score: no atomics, no scratch.
+// Design: a thread scores one target against a pair of query rows, which
+// share the walk's target codes, addresses and shared loads. The wrapper
+// (ungapped_cuda.row_pairs) sorts the launch's rows by length on the device
+// and pairs neighbours, so the two lengths of a pair differ little; an odd
+// count leaves the longest row with an absent partner (-1), which scores 0
+// and is not written. A block takes a group of R pairs and a tile of T
+// targets, a thread per (pair, target). It stages each pair's profile once
+// in shared memory, interleaved: word prof[i][a] holds submat[q_i][a] +
+// bias_i of the pair's first row in its low half and of its second row in
+// its high half, each in int16 (exact: the wrapper checks |submat| <
+// 32640), row-major with SA words a row: the lanes of a pair stand at the
+// same row i of different targets, so they read one window of at most 128
+// bytes, which is conflict-free. T is a multiple of 32 up to 128 or, for
+// fewer than 32 targets, a power of two from 8 (32 / T pairs share a warp),
+// and R fills the block, cut so that the profiles stay near kRowsProfBytes
+// and several blocks share an SM. Each thread writes its two scores to
+// their rows' places in the input order: no atomics, no scratch.
 //
-// A thread walks its pair in bands of kBand = 4 consecutive diagonals d0 ..
-// d0 + 3 (d0 a multiple of 4), row by row (gapless_bands): at row i the
+// A thread walks its target in bands of kBand = 4 consecutive diagonals d0
+// .. d0 + 3 (d0 a multiple of 4), row by row (pair_bands): at row i the
 // band's cells are columns i + d0 .. i + d0 + 3, so four rows of a band
 // take seven target columns, one new 32-bit word of four codes, and the
 // four runs are independent chains. The target codes come packed four to a
 // word, transposed and sorted by length by the wrapper: word (c, s) holds
 // columns 4c - 8 .. 4c - 5 of the s-th longest target, so the lanes of a
-// row (the same i and d0, consecutive s) read one 128-byte line, and their
+// pair (the same i and d0, consecutive s) read one 128-byte line, and their
 // loops end at nearly the same row. Columns < 0 and >= t_len hold the code
-// alph, whose profile entry is 0, and so do the profile rows from q_len to
-// q_len + 3, so every band starts on a word and runs whole groups of four
-// rows with no bounds inside: a score of 0 (or less) is exact there,
-// because such cells lie before a diagonal's first cell, where the run is 0
-// and stays 0, or after its last, where the run can only stay or fall and
-// so never passes the best it already counted; no run restarts after them.
-// A group of four rows is a word load, seven byte extracts and address
-// adds, 16 shared loads, 16 __viaddmax_s32_relu and eight __vimax3_s32:
-// under four instructions a cell.
+// alph, whose entry is 0 in both halves, and so does every row of a query
+// from its q_len on (to Lq + 3). So the walk covers the longer row of the
+// pair, every band starts on a word and runs whole groups of four rows with
+// no bounds inside: a score of 0 (or less) is exact there, because such
+// cells lie before a diagonal's first cell, where the run is 0 and stays 0,
+// or after its last, where the run can only stay or fall and so never
+// passes the best it already counted; no run restarts after them.
 //
-// What bounds it on an H100: the dispatch of those instructions, two to
-// three a cell on the int32 pipe; device memory traffic is a quarter byte
-// a cell, mostly from L1 and L2.
+// The pair's two runs of a diagonal advance in one packed 16 x 2 op,
+// __viaddmax_s16x2_relu, and the bests in __vimax3_s16x2, wherever 16 bits
+// hold: a run is a sum of consecutive entries of its diagonal, one a row,
+// so it never passes U = the sum over rows i < q_len of max(0, max_a
+// S(i, a)). The block adds up each row's U while it stages the row, and a
+// pair takes the packed loop when both rows' U are at most 32767: no lane
+// then passes 32767, and a run (>= 0) plus an entry (>= -32768) stays above
+// -32768 before the relu, so every lane holds the int32 recurrence's value.
+// Any other pair walks the same bands with each run in an int32 (Wide32),
+// exact at any score. The tile-0 block of a group adds its rows of each
+// kind to row_counts (ops/ungapped_cuda.py ROW_LANES).
+//
+// A group of four rows is a word load, seven byte extracts and address
+// adds, 16 shared loads, 16 packed add-max and eight packed max-of-three
+// ops for 32 cells: under two instructions and half a shared load a cell,
+// where one row a thread took four instructions and a load. The loop runs
+// two groups a trip, so that two groups' word loads are in flight at once:
+// 1.1-1.6x over one group a trip at Lq 32-512 on an H100 (PERF.md §6),
+// where a word loaded a group ahead or 256 threads a block gained nothing.
+//
+// What bounds it on an H100: the dispatch of those instructions and, a
+// step behind, the shared loads (32 a clock an SM serves, at half a load a
+// cell); device memory traffic is an eighth of a byte a cell, mostly from
+// L1 and L2. It runs at 7-8e12 cells/s on the prefilter's buckets, about
+// half the issue bound: with a pair's profile twice a row's bytes, fewer
+// warps share an SM to hide the loads' latency (most at Lq 256-512). A
+// pair past 16 bits runs twice the DPX ops of a packed one.
 
 namespace {
 
@@ -236,6 +267,9 @@ constexpr int kRowsProfBytes = 32 * 1024;  // profile bytes a block aims at
 constexpr int kBand = 4;                   // diagonals a thread walks at once
 constexpr int kLeadCols = 8;               // sentinel columns before column 0
 constexpr int kPadRows = 4;                // zero profile rows past Lq
+constexpr int kMinTile = 8;                // targets a pair at least
+constexpr int kPackedMax = 32767;          // the most a 16-bit lane holds
+constexpr size_t kRowsProfBytesMax = 200 * 1024;  // profiles a block at most
 
 __device__ __forceinline__ void fill_sub(int* sub_s, const int32_t* submat,
                                          int alph) {
@@ -328,40 +362,197 @@ __device__ __forceinline__ int gapless_bands(const int16_t* P,
   return best;
 }
 
+// The runs of a pair of query rows on one diagonal, advanced by the pair's
+// interleaved profile word s (the first row's entry in the low half, the
+// second's in the high half). Packed16 keeps both in the halves of one word
+// (s16x2 DPX: exact while no run passes kPackedMax), Wide32 each in an
+// int32 (exact at any score).
+struct Packed16 {
+  uint32_t v = 0;
+  __device__ __forceinline__ void add(uint32_t s) {
+    v = __viaddmax_s16x2_relu(v, s, 0u);
+  }
+  __device__ __forceinline__ void keep(const Packed16& x, const Packed16& y) {
+    v = __vimax3_s16x2(v, x.v, y.v);
+  }
+  __device__ __forceinline__ int first() const {
+    return static_cast<int>(v & 0xffffu);
+  }
+  __device__ __forceinline__ int second() const {
+    return static_cast<int>(v >> 16);
+  }
+};
+
+struct Wide32 {
+  int a = 0, b = 0;
+  __device__ __forceinline__ void add(uint32_t s) {
+    a = __viaddmax_s32_relu(a, static_cast<int16_t>(s & 0xffffu), 0);
+    b = __viaddmax_s32_relu(b, static_cast<int>(s) >> 16, 0);
+  }
+  __device__ __forceinline__ void keep(const Wide32& x, const Wide32& y) {
+    a = __vimax3_s32(a, x.a, y.a);
+    b = __vimax3_s32(b, x.b, y.b);
+  }
+  __device__ __forceinline__ int first() const { return a; }
+  __device__ __forceinline__ int second() const { return b; }
+};
+
+// The best gapless runs of a pair of query rows, the longer of m rows,
+// whose interleaved profile P has SA words a row and at least m + kPadRows
+// rows (zero from each row's length on), against the target of n columns
+// whose packed words start at W with stride ws (as gapless_bands reads
+// them), over every band of kBand diagonals. The maxima go in two chains,
+// one for diagonals d0 and d0 + 1 and one for d0 + 2 and d0 + 3, merged at
+// the end.
+template <int SA, class Runs>
+__device__ __forceinline__ Runs pair_bands(const uint32_t* P,
+                                           const uint32_t* W, size_t ws,
+                                           int m, int n) {
+  Runs best, best2;
+  for (int d0 = m > 0 ? ((1 - m) & ~(kBand - 1)) : n; d0 < n; d0 += kBand) {
+    int i = max(0, -(d0 + kBand));
+    const int i_end = min(m, n - d0);
+    const uint32_t* p = P + i * SA;
+    const uint32_t* wp = W + ((i + d0 + kLeadCols) >> 2) * ws;
+    uint32_t A = __ldg(wp);
+    Runs x0, x1, x2, x3;
+#pragma unroll 2
+    for (; i < i_end; i += 4, p += 4 * SA) {
+      wp += ws;
+      const uint32_t B = __ldg(wp);
+      // columns i + d0 + b, b = 0 .. 6, as profile rows of row i
+      const uint32_t* c0 = p + (A & 0xffu);
+      const uint32_t* c1 = p + ((A >> 8) & 0xffu);
+      const uint32_t* c2 = p + ((A >> 16) & 0xffu);
+      const uint32_t* c3 = p + (A >> 24);
+      const uint32_t* c4 = p + (B & 0xffu);
+      const uint32_t* c5 = p + ((B >> 8) & 0xffu);
+      const uint32_t* c6 = p + ((B >> 16) & 0xffu);
+      // row i + r meets diagonal d0 + k at column b = r + k
+      x0.add(c0[0]);
+      x1.add(c1[0]);
+      x2.add(c2[0]);
+      x3.add(c3[0]);
+      best.keep(x0, x1);
+      best2.keep(x2, x3);
+      x0.add(c1[SA]);
+      x1.add(c2[SA]);
+      x2.add(c3[SA]);
+      x3.add(c4[SA]);
+      best.keep(x0, x1);
+      best2.keep(x2, x3);
+      x0.add(c2[2 * SA]);
+      x1.add(c3[2 * SA]);
+      x2.add(c4[2 * SA]);
+      x3.add(c5[2 * SA]);
+      best.keep(x0, x1);
+      best2.keep(x2, x3);
+      x0.add(c3[3 * SA]);
+      x1.add(c4[3 * SA]);
+      x2.add(c5[3 * SA]);
+      x3.add(c6[3 * SA]);
+      best.keep(x0, x1);
+      best2.keep(x2, x3);
+      A = B;
+    }
+  }
+  best.keep(best2, best2);
+  return best;
+}
+
 template <int SA>
 __global__ void __launch_bounds__(kRowsThreads) gapless_rows_kernel(
     const int32_t* __restrict__ submat, int alph,
     const uint8_t* __restrict__ q_mat, const int8_t* __restrict__ qb_mat,
     const int32_t* __restrict__ q_lens, int Lq,
     const uint32_t* __restrict__ t_words, const int32_t* __restrict__ t_lens,
-    const int32_t* __restrict__ order, int nt, int Lt, int r0, int rows,
-    int T, int R, int tiles, int32_t* __restrict__ best_out) {
+    const int32_t* __restrict__ order, int nt, int Lt, int r0,
+    const int32_t* __restrict__ pair_rows, int pairs, int T, int R,
+    int tiles, int32_t* __restrict__ best_out,
+    unsigned long long* __restrict__ row_counts) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int sub_s[kAlphPad * kAlphPad];
-  int16_t* prof = reinterpret_cast<int16_t*>(smem);  // [R][Lq + 4][SA]
+  __shared__ int sub_max[kAlphPad];  // max_a submat[q][a] (0 past alph)
+  __shared__ int bound[2 * (kRowsThreads / kMinTile)];  // U of each row
+  uint32_t* prof = reinterpret_cast<uint32_t*>(smem);  // [R][Lq + 4][SA]
   const int PR = Lq + kPadRows;
   const int group = blockIdx.x / tiles, tile = blockIdx.x % tiles;
   const int t = threadIdx.x, nthr = blockDim.x;
   fill_sub(sub_s, submat, alph);
+  for (int q = t; q < kAlphPad; q += nthr) {
+    int mx = 0;
+    if (q < alph) {
+      mx = submat[q * alph];
+      for (int a = 1; a < alph; ++a) mx = max(mx, submat[q * alph + a]);
+    }
+    sub_max[q] = mx;
+  }
+  for (int k = t; k < 2 * R; k += nthr) bound[k] = 0;
   __syncthreads();
+  // row kAlphPad - 1 of sub_s is all zero (alph < kAlphPad): the entries of
+  // an absent row and of the rows from a query's length on
+  const int* zero = sub_s + (kAlphPad - 1) * kAlphPad;
   for (int e = t; e < R * PR; e += nthr) {
-    const int rr = e / PR, i = e - rr * PR, row = group * R + rr;
-    if (row >= rows) continue;
-    const size_t at = static_cast<size_t>(r0 + row) * Lq;
-    profile_row(prof + static_cast<size_t>(e) * SA, sub_s, q_mat + at,
-                qb_mat + at, min(q_lens[r0 + row], Lq), i, alph);
+    const int rr = e / PR, i = e - rr * PR, p = group * R + rr;
+    if (p >= pairs) continue;
+    const int* s[2];
+    int bias[2];
+    for (int h = 0; h < 2; ++h) {
+      const int row = pair_rows[2 * p + h];
+      s[h] = zero;
+      bias[h] = 0;
+      if (row >= 0 && i < min(q_lens[r0 + row], Lq)) {
+        const size_t at = static_cast<size_t>(r0 + row) * Lq + i;
+        const int q = q_mat[at];
+        s[h] = sub_s + q * kAlphPad;
+        bias[h] = qb_mat[at];
+        atomicAdd(&bound[2 * rr + h], max(0, sub_max[q] + bias[h]));
+      }
+    }
+    uint32_t* w = prof + static_cast<size_t>(e) * SA;
+    for (int a = 0; a < alph; ++a)
+      w[a] = (static_cast<uint32_t>(s[0][a] + bias[0]) & 0xffffu) |
+             (static_cast<uint32_t>(s[1][a] + bias[1]) << 16);
+    w[alph] = 0;
   }
   __syncthreads();
 
+  if (tile == 0 && t == 0) {
+    unsigned long long packed = 0, wide = 0;
+    for (int k = 0; k < R && group * R + k < pairs; ++k) {
+      const int n_rows = 1 + (pair_rows[2 * (group * R + k) + 1] >= 0);
+      if (max(bound[2 * k], bound[2 * k + 1]) <= kPackedMax)
+        packed += n_rows;
+      else
+        wide += n_rows;
+    }
+    if (packed) atomicAdd(row_counts, packed);
+    if (wide) atomicAdd(row_counts + 1, wide);
+  }
   const int rr = t / T, slot = tile * T + (t - rr * T);
-  const int row = group * R + rr;
-  if (row >= rows || slot >= nt) return;
+  const int p = group * R + rr;
+  if (p >= pairs || slot >= nt) return;
+  const int ra = pair_rows[2 * p], rb = pair_rows[2 * p + 1];
+  const int ma = ra < 0 ? 0 : max(0, min(q_lens[r0 + ra], Lq));
+  const int mb = rb < 0 ? 0 : max(0, min(q_lens[r0 + rb], Lq));
   const int tj = order[slot];
-  const int m = max(0, min(q_lens[r0 + row], Lq));
   const int n = max(0, min(t_lens[tj], Lt));
-  best_out[static_cast<size_t>(row) * nt + tj] = gapless_bands<SA>(
-      prof + static_cast<size_t>(rr) * PR * SA, t_words + slot,
-      static_cast<size_t>(nt), m, n);
+  const uint32_t* P = prof + static_cast<size_t>(rr) * PR * SA;
+  const size_t ws = static_cast<size_t>(nt);
+  int sa, sb;
+  if (max(bound[2 * rr], bound[2 * rr + 1]) <= kPackedMax) {
+    const Packed16 b =
+        pair_bands<SA, Packed16>(P, t_words + slot, ws, max(ma, mb), n);
+    sa = b.first();
+    sb = b.second();
+  } else {
+    const Wide32 b =
+        pair_bands<SA, Wide32>(P, t_words + slot, ws, max(ma, mb), n);
+    sa = b.first();
+    sb = b.second();
+  }
+  if (ra >= 0) best_out[static_cast<size_t>(ra) * nt + tj] = sa;
+  if (rb >= 0) best_out[static_cast<size_t>(rb) * nt + tj] = sb;
 }
 
 }  // namespace
@@ -370,28 +561,34 @@ __global__ void __launch_bounds__(kRowsThreads) gapless_rows_kernel(
 // t_words: (ceil(Lt / 4) + 4, nt) words, word (c, s) = the codes of columns
 // 4c - 8 .. 4c - 5 of target order[s] (little-endian), alph for a column
 // < 0 or >= its length; t_lens: (nt,) target lengths; order: (nt,) target
-// indices, longest first. Writes best (rows, nt), best[r][k] = the score of
-// query row r0 + r against target k, on `stream`; does not synchronise.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for rows outside
-// [0, nq), more than 31 classes or a grid past 2^31 - 1 blocks.
+// indices, longest first; pair_rows: (2 * ceil(rows / 2),) the query rows
+// as offsets from r0, two a pair, each of 0 .. rows - 1 once and -1 for an
+// absent row. Writes best (rows, nt), best[r][k] = the score of query row
+// r0 + r against target k, and adds the rows scored in packed lanes and in
+// int32 to row_counts[0] and row_counts[1], on `stream`; does not
+// synchronise. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// rows outside [0, nq), more than 31 classes, a pair's profile past
+// kRowsProfBytesMax or a grid past 2^31 - 1 blocks.
 extern "C" int gapless_rows(const int32_t* submat, int alph,
                             const uint8_t* q_mat, const int8_t* qb_mat,
                             const int32_t* q_lens, int nq, int Lq,
                             const uint32_t* t_words, const int32_t* t_lens,
                             int nt, int Lt, const int32_t* order, int r0,
-                            int rows, int32_t* best, void* stream) {
+                            int rows, const int32_t* pair_rows, int32_t* best,
+                            unsigned long long* row_counts, void* stream) {
   if (rows <= 0 || nt <= 0) return static_cast<int>(cudaGetLastError());
   if (r0 < 0 || r0 + rows > nq || alph >= kAlphPad || Lq < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int pairs = (rows + 1) / 2;
   const int sa = alph < 22 ? 22 : kAlphPad;  // alph + 1 entries a row
-  const size_t row_bytes =
-      static_cast<size_t>(Lq + kPadRows) * sa * sizeof(int16_t);
-  // rows whose profiles fit the block's budget; T targets a row: a power
-  // of two from 8 below 32 targets (32 / T rows share a warp, if that many
+  const size_t pair_bytes =
+      static_cast<size_t>(Lq + kPadRows) * sa * sizeof(uint32_t);
+  // pairs whose profiles fit the block's budget; T targets a pair: a power
+  // of two from 8 below 32 targets (32 / T pairs share a warp, if that many
   // profiles fit), else a multiple of 32 up to kRowsThreads
-  const size_t fit_rows = kRowsProfBytes / row_bytes;
-  const int fit = fit_rows > 0 ? static_cast<int>(fit_rows) : 1;
-  int T = 8;
+  const size_t fit_pairs = kRowsProfBytes / pair_bytes;
+  const int fit = fit_pairs > 0 ? static_cast<int>(fit_pairs) : 1;
+  int T = kMinTile;
   while (T < nt && T < 32) T *= 2;
   while (T < 32 && 32 / T > fit) T *= 2;
   if (T == 32) T = min(kRowsThreads, (nt + 31) / 32 * 32);
@@ -399,9 +596,11 @@ extern "C" int gapless_rows(const int32_t* submat, int alph,
   const int R = max(per_warp,
                     min(kRowsThreads / T, fit) / per_warp * per_warp);
   const int tiles = (nt + T - 1) / T;
-  const long long blocks = static_cast<long long>((rows + R - 1) / R) * tiles;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t shmem = R * row_bytes;
+  const long long blocks =
+      static_cast<long long>((pairs + R - 1) / R) * tiles;
+  const size_t shmem = R * pair_bytes;
+  if (blocks > 0x7fffffffLL || shmem > kRowsProfBytesMax)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto kernel = sa == 22 ? gapless_rows_kernel<22>
                          : gapless_rows_kernel<kAlphPad>;
@@ -409,7 +608,7 @@ extern "C" int gapless_rows(const int32_t* submat, int alph,
                        static_cast<int>(shmem));
   kernel<<<static_cast<unsigned int>(blocks), R * T, shmem, st>>>(
       submat, alph, q_mat, qb_mat, q_lens, Lq, t_words, t_lens, order, nt,
-      Lt, r0, rows, T, R, tiles, best);
+      Lt, r0, pair_rows, pairs, T, R, tiles, best, row_counts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -421,8 +620,9 @@ extern "C" int gapless_rows(const int32_t* submat, int alph,
 // operations and three byte loads a cell (the query code, the bias, the
 // target code) and rebuilds S(i,j) at every cell.
 //
-// Design: gapless_rows's thread loop on a work list. The wrapper
-// (ops/ungapped_cuda.py pair_plan) sorts the pairs stably by query and,
+// Design: gapless_rows's band walk, one query row a thread in int32
+// (gapless_bands), on a work list. The wrapper (ops/ungapped_cuda.py
+// pair_plan) sorts the pairs stably by query and,
 // within a query, by the rank of the target in the packed words (longest
 // first), on the device and with no host sync, and cuts each query's run
 // into groups of at most c pairs. Each pair takes `split` consecutive
@@ -432,12 +632,12 @@ extern "C" int gapless_rows(const int32_t* submat, int alph,
 // queries with a few each (ungapped_cuda.pair_layout: c follows the pairs
 // a query has, g is large enough that Q profiles fit the block's budget).
 // Each group stages its query's profile once in shared memory, as
-// gapless_rows does, and each pair is walked with gapless_bands over the
-// words of every staged target: the threads of a group stand at the same
-// rows of targets of similar length, and for a query's run over
+// gapless_rows stages a pair's, and each pair is walked with gapless_bands
+// over the words of every staged target: the threads of a group stand at
+// the same rows of targets of similar length, and for a query's run over
 // consecutive targets they read consecutive words. A launch of many pairs
-// (split 1) gives a thread a pair, as gapless_rows does; a launch of a
-// few hundred pairs, the k-mer prefilter's buckets, would leave the card
+// (split 1) gives a thread a pair; a launch of a few hundred pairs, the
+// k-mer prefilter's buckets, would leave the card
 // to a few warps that walk 10^5 cells each one after the other, so its
 // pairs' bands are dealt round-robin over up to 32 threads (split, a power
 // of two), whose bests meet in a warp shuffle. The first thread of a pair
@@ -446,9 +646,9 @@ extern "C" int gapless_rows(const int32_t* submat, int alph,
 // are needed; the wrapper zeroes best, which leaves 0 for the pairs out of
 // range.
 //
-// What bounds it on an H100: as gapless_rows, the dispatch of under four
-// instructions a cell, two to three of them on the int32 pipe, when a
-// launch fills the card; the sort and the plan are a few passes over the
+// What bounds it on an H100: the dispatch of under four instructions a
+// cell, two to three of them on the int32 pipe, when a launch fills the
+// card; the sort and the plan are a few passes over the
 // (B,) pair list. A small launch waits on the latency of its threads'
 // band loops.
 

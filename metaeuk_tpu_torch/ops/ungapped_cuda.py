@@ -5,17 +5,28 @@ csrc/gapless.cu, dispatched by the device of the tensors given.
 - A CUDA tensor launches a kernel, or raises. There is no fallback.
 - gapless_scores_cross scores staged query rows r0..r1 against every staged
   target (the ungapped prefilter's launches); the staged query width Lq
-  picks the kernel (kernel_for(Lq, cross=True)): gapless_rows, a block per
-  (query rows, tile of targets) with the rows' profiles in shared memory,
-  below LONG_ROWS; gapless_long, a block per (pair, chunk of 256
-  diagonals), from LONG_ROWS up.
+  picks the kernel (kernel_for(Lq, cross=True)): gapless_rows below
+  LONG_ROWS, gapless_long, a block per (pair, chunk of 256 diagonals), from
+  LONG_ROWS up.
+- gapless_rows gives a thread one target and a pair of query rows
+  (row_pairs: the launch's rows sorted by length on the device, neighbours
+  paired, an odd last row with an absent one), a block a group of pairs and
+  a tile of targets, each pair's profile staged once in shared memory with
+  the two rows' entries in the halves of one 32-bit word. Both rows' runs of
+  a diagonal advance in one packed 16 x 2 DPX op wherever 16 bits provably
+  hold: the kernel sums each row's largest entries, max(0, max_a S(i, a))
+  over its rows, a bound on any of its runs, and a pair whose bounds are
+  both at most 32767 takes the packed loop; any other pair runs the same
+  walk in int32. Every score is the int32 recurrence's. What bounds it now:
+  the dispatch of under two instructions a cell (one row a thread took
+  four), then half a shared load a cell.
 - gapless_scores_gathered scores arbitrary pairs (li, lj): gapless_pair
-  below LONG_ROWS, gapless_rows's thread loop on a work list (pair_plan:
-  the pairs sorted by query on the device and cut into groups of a query,
-  each group's profile staged once in shared memory; pair_layout: a small
-  launch deals each pair's bands over several threads);
-  gapless_long from LONG_ROWS up. All three kernels compute the same
-  function.
+  below LONG_ROWS, the int32 band loop, one query row a thread, on a work
+  list (pair_plan: the pairs sorted by query on the device and cut into
+  groups of a query, each group's profile staged once in shared memory;
+  pair_layout: a small launch deals each pair's bands over several
+  threads); gapless_long from LONG_ROWS up. All three kernels compute the
+  same function.
 
 Counterparts in the JAX package (metaeuk_tpu/ops/ungapped.py):
 gapless_scores_gathered is gapless_scores_gathered / gapless_gathered_jit
@@ -25,8 +36,10 @@ D(i,j) = max(0, D(i-1,j-1) + S(i,j)) over rows < q_len and columns < t_len,
 floored at 0, with S = blosum62[q_i, t_j] + bias_i. Batches need no padding.
 
 LAUNCHES counts kernel launches and PLAIN_CALLS calls that went to the plain
-version, each under the kernel the route picked; reset_counts() sets both to
-zero.
+version, each under the kernel the route picked; ROW_LANES counts the query
+rows gapless_rows scored in packed 16-bit lanes and in int32, counted on the
+device and added in by fold_row_lanes() (search/prefilter.py calls it at its
+copy back). reset_counts() sets all three to zero.
 """
 
 import ctypes
@@ -53,9 +66,9 @@ _I = ctypes.c_int
 _LONG_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
                   ctypes.c_longlong, _P, _P]
 # gapless_rows: submat, alph, q, qb, q_lens, nq, Lq, t_words, t_lens, nt,
-# Lt, order, r0, rows, out, stream
+# Lt, order, r0, rows, pair_rows, out, row_counts, stream
 _ROWS_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I,
-                  _P, _P]
+                  _P, _P, _P, _P]
 # gapless_pair: submat, alph, q, qb, q_lens, nq, Lq, t_words, t_lens, rank,
 # nt, Lt, lj, perm, grp_q, grp_p0, grp_n, n_groups, c, split, out, stream
 _PAIR_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P,
@@ -70,12 +83,39 @@ PAIR_THREADS = 128
 PAIR_PROF_BYTES = 48 * 1024
 PAIR_PROF_BYTES_MAX = 200 * 1024
 PAIR_LAUNCH_THREADS = 1 << 18
+# gapless_rows's query rows by the lanes that scored them, summed over
+# launches once fold_row_lanes() has run; the kernel adds to a (2,) int64
+# tensor a device (packed, int32), so a launch syncs nothing
+ROW_LANES = {"packed": 0, "int32": 0}
+_ROW_LANES_DEV = {}
 
 
 def reset_counts():
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
+    for k in ROW_LANES:
+        ROW_LANES[k] = 0
+    for counts in _ROW_LANES_DEV.values():
+        counts.zero_()
+
+
+def _row_lanes_dev(device):
+    if device not in _ROW_LANES_DEV:
+        _ROW_LANES_DEV[device] = torch.zeros(2, dtype=torch.int64,
+                                             device=device)
+    return _ROW_LANES_DEV[device]
+
+
+def fold_row_lanes():
+    """Adds the devices' counts of gapless_rows's query rows into
+    ROW_LANES and zeroes them: a copy back, so it waits for the launches
+    before it (call it where the caller syncs anyway)."""
+    for counts in _ROW_LANES_DEV.values():
+        packed, wide = counts.tolist()
+        ROW_LANES["packed"] += packed
+        ROW_LANES["int32"] += wide
+        counts.zero_()
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,14 +181,29 @@ def launch_cross(name, q_mat, qb_mat, q_lens, t_mat, t_lens, r0, r1,
     q = q_mat.to(torch.uint8).contiguous()
     qb = qb_mat.to(torch.int8).contiguous()
     ql = q_lens.to(torch.int32).contiguous()
+    pair_rows = row_pairs(ql, r0, r1)
     rc = _kernel(name)(sub.data_ptr(), alph, q.data_ptr(), qb.data_ptr(),
                        ql.data_ptr(), nq, Lq, words.data_ptr(), tl.data_ptr(),
-                       nt, Lt, order.data_ptr(), r0, r1 - r0, best.data_ptr(),
+                       nt, Lt, order.data_ptr(), r0, r1 - r0,
+                       pair_rows.data_ptr(), best.data_ptr(),
+                       _row_lanes_dev(q.device).data_ptr(),
                        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
     return best
+
+
+def row_pairs(q_lens, r0, r1):
+    """gapless_rows's pairs of query rows r0..r1, on q_lens's device with
+    no host sync: a (2 * ceil((r1 - r0) / 2),) int32 tensor of row offsets
+    from r0, entries 2k and 2k + 1 a pair, the rows in order of length
+    (ties by index) so that a pair's lengths are neighbours, each row once,
+    and -1 (an absent row) beside the longest when the count is odd."""
+    order = torch.argsort(q_lens[r0:r1], stable=True).to(torch.int32)
+    if (r1 - r0) % 2:
+        order = torch.cat([order, order.new_full((1,), -1)])
+    return order
 
 
 def target_words(t_mat, t_lens, alph):

@@ -162,4 +162,6 @@ class UngappedPrefilter:
                 ti = (n_targets - 1) - (key - s * n_targets)
                 parts.append(torch.stack([qi[keep], ti[keep]], dim=1))
             pairs = torch.cat(parts).cpu().numpy().astype(np.int64)
+            # the copy back has waited for K7: its row counts come back now
+            ungapped_cuda.fold_row_lanes()
         return pairs.reshape(-1, 2)

@@ -393,6 +393,119 @@ def test_rows_kernel_target_words_layout():
         assert (col[:8] == 21).all() and (col[8 + n:] == 21).all()
 
 
+@pytest.mark.parametrize("lens,r0,r1", [
+    ([5, 3, 9, 3, 1, 7, 2], 0, 7),
+    ([5, 3, 9, 3, 1, 7, 2], 2, 6),
+    ([4, 0, 4, 8, 0, 2, 6, 6, 1], 1, 8),
+    ([12, 3], 1, 2),
+])
+def test_row_pairs_pair_neighbours_by_length(lens, r0, r1):
+    """gapless_rows's pairing of rows r0..r1: every row once, as an offset
+    from r0, in order of length (ties by index), so the two lengths of a
+    pair are neighbours; an odd count ends with -1, an absent row, beside
+    the longest row."""
+    got = ungapped_cuda.row_pairs(torch.tensor(lens, dtype=torch.int32), r0,
+                                  r1)
+    n = r1 - r0
+    assert got.dtype == torch.int32 and got.shape == (2 * -(-n // 2),)
+    rows = got.tolist()
+    if n % 2:
+        assert rows.pop() == -1
+    assert rows == sorted(range(n), key=lambda k: (lens[r0 + k], k))
+
+
+def test_row_pairs_put_each_score_in_its_input_row():
+    """A pair's two scores written to its rows' places, as gapless_rows
+    writes them, give the cross entry's matrix for odd and even counts and
+    r0 > 0: each row scored once, in its input row."""
+    q, qb, ql, t, tl, _ = _cross(32, 48, 9, 20)
+    args = _torch(q, qb, ql, t, tl)
+    nt = len(tl)
+    for r0, r1 in ((0, 9), (2, 9), (1, 7)):
+        want = ungapped_cuda.gapless_scores_cross(*args, r0, r1)
+        got = torch.full_like(want, -1)
+        for pair in ungapped_cuda.row_pairs(args[2].to(torch.int32), r0,
+                                            r1).view(-1, 2).tolist():
+            for r in pair:
+                if r >= 0:
+                    assert (got[r] == -1).all()
+                    got[r] = ungapped_torch.gapless_gathered(
+                        *args, torch.full((nt,), r0 + r), torch.arange(nt))
+        assert torch.equal(got, want)
+
+
+def _packed_walk(S):
+    """The packed loop's arithmetic for one lane, emulated: S (m, n) the
+    entries of a query row against a target, zero from the row's length on;
+    each diagonal's run advanced as a 16-bit lane (run + entry wrapped to
+    int16, then floored at 0); the lane's best."""
+    m, n = S.shape
+    run = np.zeros(n + m, np.int64)   # the run of diagonal j - i, at j - i + m
+    best = 0
+    for i in range(m if n else 0):
+        d = np.arange(n) - i + m
+        run[d] = np.maximum((run[d] + S[i] + 32768) % 65536 - 32768, 0)
+        best = max(best, int(run[d].max()))
+    return best
+
+
+@pytest.mark.parametrize("scale", [1, 300])
+def test_packed_lanes_are_exact_within_the_row_bound(scale):
+    """gapless_rows's argument for its 16-bit lanes, on the plain version:
+    a pair walked over its longer row's rows, with zero entries past each
+    row's length, in wrapping 16-bit lanes, scores each row as the int32
+    recurrence wherever both rows' bound U (the sum over the row of
+    max(0, max_a S(i, a))) is at most 32767. With the matrix scaled by 300
+    the planted runs pass 16 bits and their lanes wrap: such pairs must take
+    the int32 loop."""
+    from metaeuk_tpu_torch.data.submat import BLOSUM62_SCORES
+    from metaeuk_tpu_torch.state import scoring_from_numpy
+    sub = BLOSUM62_SCORES.astype(np.int64) * scale
+    scoring = scoring_from_numpy(sub, 11, 1, "cpu")
+    q, qb, ql, t, tl, _ = _cross(64, 96, 12, 10)
+    want = ungapped_cuda.gapless_scores_cross(*_torch(q, qb, ql, t, tl), 0,
+                                              12, scoring=scoring).numpy()
+    U = [int(np.maximum(sub.max(1)[q[r, :ql[r]]] + qb[r, :ql[r]], 0).sum())
+         for r in range(12)]
+    within = wrapped = 0
+    for ra, rb in ungapped_cuda.row_pairs(torch.from_numpy(ql).to(
+            torch.int32), 0, 12).view(-1, 2).tolist():
+        m = max(ql[ra], ql[rb])
+        for k in range(10):
+            got = []
+            for r in (ra, rb):
+                S = sub[q[r, :m, None], t[k, None, :tl[k]]] + qb[r, :m, None]
+                S[ql[r]:] = 0
+                got.append(_packed_walk(S))
+            if max(U[ra], U[rb]) <= 32767:
+                within += 1
+                assert got == [want[ra, k], want[rb, k]]
+            else:
+                wrapped += got != [want[ra, k], want[rb, k]]
+    if scale == 1:
+        assert within == 60 and max(U) < 32767
+    else:
+        assert wrapped > 0 and want.max() > 32767
+
+
+def test_row_lanes_fold_and_reset(monkeypatch):
+    """ROW_LANES takes the kernel's device counts at fold_row_lanes(), which
+    zeroes them; reset_counts() zeroes both sides."""
+    counts = torch.tensor([7, 3])
+    monkeypatch.setitem(ungapped_cuda._ROW_LANES_DEV, torch.device("cpu"),
+                        counts)
+    ungapped_cuda.reset_counts()
+    assert counts.tolist() == [0, 0]
+    counts += torch.tensor([7, 3])
+    ungapped_cuda.fold_row_lanes()
+    counts += torch.tensor([1, 0])
+    ungapped_cuda.fold_row_lanes()
+    assert ungapped_cuda.ROW_LANES == {"packed": 8, "int32": 3}
+    assert counts.tolist() == [0, 0]
+    ungapped_cuda.reset_counts()
+    assert ungapped_cuda.ROW_LANES == {"packed": 0, "int32": 0}
+
+
 def test_prefilter_counts_cells_by_query_width():
     lens = np.array([20, 32, 33, 600, 1, 4097])
     cells = prefilter.cells_by_lq(lens, np.array([10, 90]))

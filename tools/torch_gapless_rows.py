@@ -16,8 +16,9 @@ launch is a cross product and runs through ungapped_cuda.launch_cross on
 gapless_long and, up to Lq ROWS_MAX (their profiles sit in shared
 memory), gapless_pair and gapless_rows; their outputs must be equal, and
 each is timed with CUDA events. Prints the card's name and power limit,
-one JSON line per (Lq, Lt) launch, then per Lq the summed ms of each
-kernel over the target buckets and the fastest kernel.
+one JSON line per (Lq, Lt) launch (with gapless_rows's query rows by the
+lanes that scored them, ungapped_cuda.ROW_LANES), then per Lq the summed
+ms of each kernel over the target buckets and the fastest kernel.
 """
 
 import json
@@ -27,7 +28,7 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 BUCKETS = (32, 64, 128, 256, 512, 1024)
-ROWS_MAX = 4096
+ROWS_MAX = 2048
 
 
 def main(argv=None):
@@ -77,8 +78,11 @@ def main(argv=None):
             ql = torch.from_numpy(rng.integers(Lq // 2 + 1, Lq + 1, rows)).to(
                 "cuda", torch.int32)
             args = (q, qb, ql, t_mat, tl, 0, rows)
+            ungapped_cuda.reset_counts()
             outs = [ungapped_cuda.launch_cross(k, *args) for k in kernels]
             smoke.max_err(torch, outs[1:], outs[:1] * (len(outs) - 1))
+            ungapped_cuda.fold_row_lanes()
+            lanes = dict(ungapped_cuda.ROW_LANES)
             ms = {k: smoke.time_ms(torch, lambda k=k: ungapped_cuda.
                                    launch_cross(k, *args), 3)
                   for k in kernels}
@@ -86,8 +90,8 @@ def main(argv=None):
             for k in ms:
                 total[k] += ms[k]
             print(json.dumps({"Lq": Lq, "Lt": Lt, "rows": rows,
-                              "targets": nt, "cells": cells, "ms": ms}),
-                  flush=True)
+                              "targets": nt, "cells": cells, "ms": ms,
+                              "row_lanes": lanes}), flush=True)
         sums[Lq] = total
     for Lq, total in sums.items():
         fast = min(total, key=total.get)
